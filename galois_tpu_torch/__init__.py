@@ -1,0 +1,60 @@
+"""galois_tpu_torch: the PyTorch and CUDA port of galois_tpu.
+
+Finite-field arrays GF(p) and GF(2^m) over torch tensors on an explicit
+device, and the number-theoretic transform over prime fields. The public
+names and results match the JAX package ``galois_tpu``; this package
+imports neither jax nor galois_tpu. On CUDA tensors the NTT's two matmul
+sides run hand-written CUDA C++ kernels and GF(2^m) multiply a Triton
+kernel; CPU tensors take the kernels' plain torch versions.
+"""
+
+from ._options import get_printoptions, printoptions, set_printoptions
+from . import typing
+from .fields import GF, GF2, Field, FieldArray, FieldArrayMeta
+from .nt import (
+    carmichael_lambda,
+    crt,
+    divisor_sigma,
+    divisors,
+    egcd,
+    euler_phi,
+    factors,
+    fermat_primality_test,
+    gcd,
+    ilog,
+    iroot,
+    is_composite,
+    is_cyclic,
+    is_perfect_power,
+    is_powersmooth,
+    is_prime,
+    is_prime_power,
+    is_primitive_root,
+    is_smooth,
+    is_square_free,
+    isqrt,
+    jacobi_symbol,
+    kronecker_symbol,
+    kth_prime,
+    lcm,
+    legendre_symbol,
+    mersenne_exponents,
+    mersenne_primes,
+    miller_rabin_primality_test,
+    mobius,
+    next_prime,
+    perfect_power,
+    pollard_p1,
+    pollard_rho,
+    prev_prime,
+    primes,
+    primitive_root,
+    primitive_roots,
+    prod,
+    random_prime,
+    totatives,
+    trial_division,
+)
+from .transforms import intt, ntt
+
+__version__ = "0.2.0"

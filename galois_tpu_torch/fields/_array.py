@@ -1,0 +1,517 @@
+"""FieldArray: the user-facing array class, over a ``torch.Tensor``.
+
+Port of ``galois_tpu/fields/_array.py``. An instance wraps one tensor in the
+field's int storage (``FieldMeta.torch_dtype``) on an explicit device;
+every result stays on its inputs' device. Arithmetic runs eagerly through
+the field's ops object (``ops/_kernels.py::get_ops``).
+
+NumPy interop matches the JAX package: ``np.asarray(x)`` gives the integer
+representation in ``meta.internal_dtype``, ``np.multiply(x, y)`` and friends
+go through ``__array_ufunc__``, and ``np.fft.fft``/``np.fft.ifft`` through
+``__array_function__``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ._meta import FieldMeta
+
+__all__ = ["FieldArray", "FieldArrayMeta"]
+
+
+def _get_ops(meta: FieldMeta, mode: str):
+    from ..ops._kernels import get_ops
+
+    return get_ops(meta, mode)
+
+
+# ----------------------------------------------------------------------
+# Host-side conversion helpers
+# ----------------------------------------------------------------------
+
+def _ints_to_storage(meta: FieldMeta, arr: np.ndarray, device=None) -> torch.Tensor:
+    """NumPy array of int reprs (any integer or object dtype, values in
+    [0, order)) -> storage tensor on ``device`` (default: CPU)."""
+    np_dt = np.uint8 if meta.torch_dtype == torch.uint8 else np.int64
+    host = np.asarray(arr).astype(np.int64).astype(np_dt, order="C")
+    return torch.from_numpy(host).to(device)
+
+
+def _storage_to_ints(data: torch.Tensor) -> np.ndarray:
+    """Storage tensor (any device) -> int64 NumPy array of int reprs."""
+    return data.cpu().numpy().astype(np.int64)
+
+
+# ----------------------------------------------------------------------
+# Metaclass: class-level properties
+# ----------------------------------------------------------------------
+
+class FieldArrayMeta(type):
+    _meta: FieldMeta
+
+    def __repr__(cls) -> str:
+        if cls._meta is None:
+            return super().__repr__()
+        return f"<class 'galois_tpu_torch.{cls.name}'>"
+
+    @property
+    def name(cls) -> str:
+        return cls._meta.name
+
+    @property
+    def characteristic(cls) -> int:
+        return cls._meta.characteristic
+
+    @property
+    def degree(cls) -> int:
+        return cls._meta.degree
+
+    @property
+    def order(cls) -> int:
+        return cls._meta.order
+
+    @property
+    def primitive_element(cls) -> "FieldArray":
+        return cls(cls._meta.primitive_element_int)
+
+    @property
+    def dtypes(cls) -> list:
+        return list(cls._meta.dtypes)
+
+    @property
+    def default_dtype(cls):
+        return np.dtype(cls._meta.dtypes[0])
+
+    @property
+    def is_prime_field(cls) -> bool:
+        return cls._meta.is_prime_field
+
+    @property
+    def is_extension_field(cls) -> bool:
+        return cls._meta.is_extension_field
+
+    @property
+    def prime_subfield(cls):
+        from ._factory import GF
+
+        return GF(cls._meta.characteristic)
+
+    @property
+    def ufunc_mode(cls) -> str:
+        return cls._mode
+
+
+# ----------------------------------------------------------------------
+# FieldArray
+# ----------------------------------------------------------------------
+
+class FieldArray(metaclass=FieldArrayMeta):
+    """An array over GF(p^m). Instances wrap a torch.Tensor in the field's
+    int storage; the class (manufactured by ``GF()``) carries the static
+    field descriptor. ``device`` places host input; tensor and FieldArray
+    input stays where it is unless ``device`` is given."""
+
+    _meta: FieldMeta = None
+    _mode: str = None
+
+    def __init__(self, x, dtype=None, copy=True, order="K", ndmin=0, *, device=None):
+        cls = type(self)
+        if cls._meta is None:
+            raise NotImplementedError(
+                "FieldArray is abstract; create a concrete field with GF(p**m)."
+            )
+        data = _convert_to_storage(cls, x, device)
+        if ndmin and data.ndim < ndmin:
+            data = data.reshape((1,) * (ndmin - data.ndim) + tuple(data.shape))
+        self._data = data
+        self._dtype = _validate_dtype(cls, dtype)
+
+    @classmethod
+    def _view(cls, data: torch.Tensor, dtype=None) -> "FieldArray":
+        """Wrap a storage tensor without verification."""
+        obj = object.__new__(cls)
+        obj._data = data
+        obj._dtype = dtype if dtype is not None else cls.default_dtype
+        return obj
+
+    # ------------------------------------------------------------------
+    # Alternate constructors
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_numpy(cls, arr: np.ndarray, dtype=None, *, device=None) -> "FieldArray":
+        """Integer ndarray of int reprs -> FieldArray on ``device``.
+
+        Takes ``np.asarray`` of a ``galois_tpu`` array of the same field; the
+        range check is vectorized, so this is the fast path for large host
+        data."""
+        arr = np.asarray(arr)
+        if not np.issubdtype(arr.dtype, np.integer):
+            raise TypeError(f"{cls.name} arrays must have integer dtypes, not {arr.dtype}.")
+        _check_range(cls, arr)
+        return cls._view(_ints_to_storage(cls._meta, arr, device), _validate_dtype(cls, dtype))
+
+    @classmethod
+    def Zeros(cls, shape, dtype=None, *, device=None) -> "FieldArray":
+        return cls._view(
+            torch.zeros(_as_shape(shape), dtype=cls._meta.torch_dtype, device=device),
+            _validate_dtype(cls, dtype),
+        )
+
+    @classmethod
+    def Random(
+        cls, shape=(), low=0, high=None, seed=None, dtype=None, *, generator=None, device=None
+    ) -> "FieldArray":
+        """Uniform elements in [low, high) drawn by ``torch.randint`` on
+        ``device``. Pass a ``torch.Generator`` on that device, or a ``seed``
+        from which one is made. The numbers differ from the JAX package's
+        ``Random`` for the same seed: tests make shared inputs with NumPy."""
+        high = cls.order if high is None else int(high)
+        if generator is None and seed is not None:
+            generator = torch.Generator(device=device if device is not None else "cpu")
+            generator.manual_seed(int(seed))
+        data = torch.randint(
+            int(low), high, _as_shape(shape), generator=generator, device=device, dtype=torch.int64
+        )
+        return cls._view(data.to(cls._meta.torch_dtype), _validate_dtype(cls, dtype))
+
+    # ------------------------------------------------------------------
+    # Basic array protocol
+    # ------------------------------------------------------------------
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._data.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self._data.ndim
+
+    @property
+    def size(self) -> int:
+        return self._data.numel()
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._data.device
+
+    def __len__(self) -> int:
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __getitem__(self, index) -> "FieldArray":
+        return type(self)._view(self._data[index], self._dtype)
+
+    def reshape(self, *shape) -> "FieldArray":
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return type(self)._view(self._data.reshape(tuple(int(s) for s in shape)), self._dtype)
+
+    def copy(self) -> "FieldArray":
+        return type(self)._view(self._data.clone(), self._dtype)
+
+    def astype(self, dtype) -> "FieldArray":
+        return type(self)._view(self._data, _validate_dtype(type(self), dtype))
+
+    def item(self):
+        return int(self._data.reshape(-1)[0].item())
+
+    def __int__(self):
+        if self.ndim != 0:
+            raise TypeError("Only 0-D arrays can be converted to int.")
+        return self.item()
+
+    def __index__(self):
+        return self.__int__()
+
+    def __array__(self, dtype=None, copy=None):
+        ints = _storage_to_ints(self._data)
+        return ints.astype(dtype if dtype is not None else self._dtype)
+
+    # ------------------------------------------------------------------
+    # Arithmetic operators
+    # ------------------------------------------------------------------
+
+    def _coerce(self, other, for_multiply=False):
+        cls = type(self)
+        if isinstance(other, FieldArray):
+            if type(other)._meta != cls._meta:
+                raise TypeError(
+                    f"Operands are over different fields: {cls.name} and {type(other).name}."
+                )
+            return other
+        if for_multiply and _is_integer_like(other):
+            # An integer operand to multiply is repeated addition: reduce mod p.
+            arr = np.asarray(np.asarray(other, dtype=object) % cls._meta.characteristic, dtype=object)
+            return cls(arr if arr.ndim else int(arr), device=self.device)
+        return cls(other, device=self.device)
+
+    def _binary(self, other, opname, reflected=False, for_multiply=False):
+        if not isinstance(other, FieldArray) and not for_multiply:
+            # add/subtract/divide require BOTH operands in the field; an
+            # integer operand is allowed for multiply only.
+            return NotImplemented
+        try:
+            o = self._coerce(other, for_multiply=for_multiply)
+        except (TypeError, ValueError):
+            return NotImplemented
+        a, b = (o, self) if reflected else (self, o)
+        out = getattr(_get_ops(self._meta, self._mode), opname)(a._data, b._data)
+        return type(self)._view(out, self._dtype)
+
+    def __add__(self, other):
+        return self._binary(other, "add")
+
+    def __radd__(self, other):
+        return self._binary(other, "add", reflected=True)
+
+    def __sub__(self, other):
+        return self._binary(other, "subtract")
+
+    def __rsub__(self, other):
+        return self._binary(other, "subtract", reflected=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "multiply", for_multiply=True)
+
+    def __rmul__(self, other):
+        return self._binary(other, "multiply", reflected=True, for_multiply=True)
+
+    def __truediv__(self, other):
+        if not isinstance(other, FieldArray):
+            return NotImplemented
+        o = self._coerce(other)
+        _check_div_by_zero(o)
+        return self._binary(o, "divide")
+
+    def __rtruediv__(self, other):
+        _check_div_by_zero(self)
+        return self._binary(other, "divide", reflected=True)
+
+    __floordiv__ = __truediv__
+    __rfloordiv__ = __rtruediv__
+
+    def __neg__(self):
+        out = _get_ops(self._meta, self._mode).negative(self._data)
+        return type(self)._view(out, self._dtype)
+
+    def __pos__(self):
+        return self.copy()
+
+    def __pow__(self, other):
+        cls = type(self)
+        if isinstance(other, (int, np.integer)):
+            e = int(other)
+            if e < 0:
+                _check_div_by_zero(self)
+            out = _get_ops(cls._meta, cls._mode).power_static(self._data, e)
+            return cls._view(out, self._dtype)
+        e = np.asarray(other)
+        if isinstance(other, FieldArray) or (e.dtype != object and not np.issubdtype(e.dtype, np.integer)):
+            raise TypeError(f"Exponents must be integers, not {e.dtype}.")
+        return _power_array(self, e)
+
+    def __eq__(self, other):
+        try:
+            o = self._coerce(other)
+        except (TypeError, ValueError):
+            return NotImplemented
+        return (self._data == o._data).cpu().numpy()
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return NotImplemented if eq is NotImplemented else ~eq
+
+    def __hash__(self):
+        return hash((type(self), self.item())) if self.ndim == 0 else None
+
+    def multiplicative_inverse(self) -> "FieldArray":
+        _check_div_by_zero(self)
+        out = _get_ops(self._meta, self._mode).reciprocal(self._data)
+        return type(self)._view(out, self._dtype)
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        name = ufunc.__name__
+        if method != "__call__":
+            raise NotImplementedError(
+                f"Ufunc method {method!r} is not ported yet (ROADMAP.md, queue 1 item 6)."
+            )
+        if name in ("add", "subtract", "true_divide", "divide", "floor_divide"):
+            if not all(isinstance(x, FieldArray) for x in inputs):
+                raise TypeError(
+                    f"Operation {name!r} requires both operands to be instances of "
+                    f"{type(self).name}, not {[type(x).__name__ for x in inputs]}. "
+                    "Integer operands are only allowed for 'multiply' (repeated "
+                    "addition) and 'power'."
+                )
+        binary = {
+            "add": lambda a, b: a._binary(b, "add"),
+            "subtract": lambda a, b: a._binary(b, "subtract"),
+            "multiply": lambda a, b: a._binary(b, "multiply", for_multiply=True),
+            "true_divide": lambda a, b: a.__truediv__(b),
+            "divide": lambda a, b: a.__truediv__(b),
+            "floor_divide": lambda a, b: a.__truediv__(b),
+            "power": lambda a, b: a.__pow__(b),
+        }
+        unary = {
+            "negative": lambda a: -a,
+            "positive": lambda a: +a,
+            "reciprocal": lambda a: a.multiplicative_inverse(),
+            "square": lambda a: a * a,
+        }
+        if name in binary:
+            a, b = inputs
+            if not isinstance(a, FieldArray):
+                a = b._coerce(a, for_multiply=(name == "multiply"))
+            return binary[name](a, b)
+        if name in unary:
+            return unary[name](inputs[0])
+        raise NotImplementedError(
+            f"NumPy ufunc {name!r} is not supported on {type(self).name} arrays in the torch port."
+        )
+
+    def __array_function__(self, func, types, args, kwargs):
+        from . import _np_functions
+
+        return _np_functions.dispatch(self, func, args, kwargs)
+
+    # ------------------------------------------------------------------
+    # Display
+    # ------------------------------------------------------------------
+
+    def __repr__(self) -> str:
+        return f"GF({self._to_string()}, order={self._meta.order})"
+
+    def __str__(self) -> str:
+        return self._to_string()
+
+    def _to_string(self) -> str:
+        arr = _storage_to_ints(self._data)
+        if not arr.shape:
+            return str(int(arr))
+        return np.array2string(arr, separator=", ")
+
+
+# ----------------------------------------------------------------------
+# Power with integer-array exponents
+# ----------------------------------------------------------------------
+
+def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
+    """x ** e for an integer ndarray exponent of any magnitude and sign:
+    e is reduced mod q-1 on the host (q - 1 < 2^32 for int storage)."""
+    cls = type(x)
+    meta = cls._meta
+    q1 = meta.order - 1
+    e_obj = e.astype(object)
+    if (e_obj < 0).any():
+        _check_div_by_zero(x)
+    red = np.frompyfunc(lambda v: int(v) % q1, 1, 1)(e_obj).astype(np.int64)
+    ops = _get_ops(meta, cls._mode)
+    e_t = torch.as_tensor(red, device=x.device)
+    out = ops.power(x._data, e_t, nbits=max(1, q1.bit_length()))
+    # 0^e = 0 for e != 0 (the reduction mod q-1 may have zeroed e).
+    zero_fix = ops.is_zero(x._data) & torch.as_tensor(e_obj != 0, device=x.device)
+    out = torch.where(zero_fix, torch.zeros_like(out), out)
+    return cls._view(out, x._dtype)
+
+
+# ----------------------------------------------------------------------
+# Helpers
+# ----------------------------------------------------------------------
+
+def _as_shape(shape) -> Tuple[int, ...]:
+    if isinstance(shape, (int, np.integer)):
+        return (int(shape),)
+    return tuple(int(s) for s in shape)
+
+
+def _validate_dtype(cls, dtype):
+    if dtype is None:
+        return cls.default_dtype
+    dt = np.dtype(dtype)
+    if not any(dt == np.dtype(d) for d in cls._meta.dtypes):
+        raise TypeError(
+            f"Argument 'dtype' must be in {[np.dtype(d).name for d in cls._meta.dtypes]}, "
+            f"not {dt.name!r}."
+        )
+    return dt
+
+
+def _is_integer_like(x) -> bool:
+    if isinstance(x, (int, np.integer)):
+        return True
+    if isinstance(x, np.ndarray):
+        if np.issubdtype(x.dtype, np.integer):
+            return True
+        if x.dtype == object:
+            return all(isinstance(v, (int, np.integer)) for v in x.reshape(-1))
+    return False
+
+
+def _check_range(cls, arr: np.ndarray) -> None:
+    """Raise ValueError naming the first value outside [0, order)."""
+    if arr.dtype == object:
+        bad = [int(v) for v in arr.reshape(-1) if not 0 <= int(v) < cls._meta.order]
+    else:
+        flat = arr.reshape(-1)
+        bad = flat[(flat < 0) | (flat >= cls._meta.order)][:1].tolist()
+    if bad:
+        raise ValueError(
+            f"{cls.name} arrays must have values in [0, {cls._meta.order}), not {bad[0]}."
+        )
+
+
+def _convert_to_storage(cls, x, device) -> torch.Tensor:
+    """Convert array-like input to a verified storage tensor."""
+    meta = cls._meta
+    if isinstance(x, FieldArray):
+        if type(x)._meta != meta:
+            raise TypeError(f"Cannot convert {type(x).name} array to {cls.name}.")
+        return x._data.to(device) if device is not None else x._data
+    if isinstance(x, torch.Tensor):
+        # Trusted device input: int reprs already in [0, order), not verified.
+        data = x.to(meta.torch_dtype)
+        return data.to(device) if device is not None else data
+    arr = _parse_host(cls, x)
+    return _ints_to_storage(meta, arr, device)
+
+
+def _parse_host(cls, x) -> np.ndarray:
+    if isinstance(x, (list, tuple)):
+        arr = np.array(_parse_nested(cls, x), dtype=object)
+    elif isinstance(x, (int, np.integer)):
+        arr = np.array(int(x), dtype=object)
+    elif isinstance(x, np.ndarray):
+        if x.dtype != object and not np.issubdtype(x.dtype, np.integer):
+            raise TypeError(f"{cls.name} arrays must have integer dtypes, not {x.dtype}.")
+        arr = x
+    else:
+        raise TypeError(f"Cannot convert {type(x)} to {cls.name}.")
+    _check_range(cls, arr)
+    return arr
+
+
+def _parse_nested(cls, x):
+    if isinstance(x, (list, tuple)):
+        return [_parse_nested(cls, v) for v in x]
+    if isinstance(x, FieldArray):
+        return int(x)
+    if isinstance(x, (int, np.integer)):
+        return int(x)
+    if isinstance(x, np.ndarray):
+        return x.astype(object).tolist()
+    raise TypeError(f"Cannot convert element {type(x)} to {cls.name}.")
+
+
+def _check_div_by_zero(x: FieldArray):
+    if bool((x._data == 0).any()):
+        raise ZeroDivisionError("Cannot compute the multiplicative inverse of 0 in a Galois field.")

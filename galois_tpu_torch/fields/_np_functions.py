@@ -1,0 +1,23 @@
+"""NumPy ``__array_function__`` dispatch for FieldArrays.
+
+The port has ``np.fft.fft`` and ``np.fft.ifft``, as in
+``galois_tpu/fields/_np_functions.py``; the rest of that table (convolve,
+linear algebra, shape pass-throughs) is still to be ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def dispatch(self, func, args, kwargs):
+    if func in (np.fft.fft, np.fft.ifft):
+        from ..ops._ntt import field_fft, field_ifft
+
+        fn = field_fft if func is np.fft.fft else field_ifft
+        return fn(*args, **kwargs)
+    name = getattr(func, "__name__", str(func))
+    raise NotImplementedError(
+        f"NumPy function {name!r} is not ported to the torch FieldArray yet "
+        "(ROADMAP.md, queue 1). Use np.asarray(x) for a plain array."
+    )
