@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive galois_tpu_torch's main path once on one CUDA card, and check it.
+"""Drive galois_tpu_torch's main paths once on one CUDA card, and check them.
 
 Run from the repository root on a machine with one NVIDIA GPU (Hopper,
 sm_90a), the CUDA toolkit and Triton:
@@ -9,21 +9,34 @@ sm_90a), the CUDA toolkit and Triton:
 Phases, each fatal on failure:
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
-  2. build: compiles the CUDA C++ kernels from csrc/ with nvcc and the
-     Triton kernel, and prints the build times and ptxas resource usage;
-  3. kernels: K1, K2 and K7 against their plain torch versions on the card,
-     at the main path's shapes plus a small and a ragged one; results must
-     be exactly equal; prints CUDA-event times of kernel and plain version;
-  4. main path, through the public API with every launch counter reset to
-     0 first: GF(2^8) multiply of 2^24 elements, then np.fft.fft / ifft and
-     ntt / intt over GF(3*2^30+1) at N = 2^20 (batch 32) and N = 2^24
-     (batch 4), with round trips and 16 bins against a direct DFT in NumPy;
-     every kernel must have been launched by this phase.
+  2. build: compiles the CUDA C++ sources in csrc/ with nvcc, one process
+     per source, all at once, then the Triton kernel, and prints the build
+     times and ptxas resource usage;
+  3. kernels: every kernel against its plain torch version on the card, at
+     the main paths' shapes plus small and ragged ones; results must be
+     exactly equal. K1 and K2 (NTT sides); K7 (GF(2^m) multiply) and K3 at
+     the same GF(2^8) inputs; K3-K6 (table gathers) on GF(2^8) and GF(3^5)
+     (uint8, shared-memory tables) and GF(2^16) (int64, global tables) at
+     2^24 elements, and GF(2^10) at a ragged 1,000,003. Prints CUDA-event
+     times of kernel and plain version (elementwise kernels timed by CUDA
+     graph replay, so that host time per call does not hide them);
+  4. main path 1, through the public API with every launch counter reset to
+     0 first: GF(2^8) multiply of 2^24 elements, then np.fft.fft / ifft over
+     GF(3*2^30+1) at N = 2^20 (batch 32) and N = 2^24 (batch 4) and ntt /
+     intt of one row, with round trips and 16 bins against a direct DFT in
+     NumPy; K1, K2 and K7 must have been launched;
+  5. main path 2, the same way: lookup mode ('jit-lookup') GF(2^8) at 2^24
+     (x * y, x / y, np.reciprocal, log, x ** e for an exponent array),
+     GF(2^16) x * y at 2^24, and default-mode GF(3^5) at 2^24 (x * y, x + y,
+     x - y, x / y), each held on a 2^16 prefix against NumPy references
+     written here; K3, K4, K5 and K6 must have been launched. The modes are
+     restored after.
 The line before the last is one JSON object with the kernels' routes,
-sources, launch counts, errors and times; the last line is the JSON
+sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
 """
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -33,10 +46,12 @@ import numpy as np
 import torch
 
 P = 3 * 2**30 + 1
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 
 
 def cuda_ms(fn, reps):
-    """Mean CUDA-event time of fn() over reps runs, after one warm-up run."""
+    """Mean CUDA-event time of fn() over reps eager runs, after one warm-up run."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -47,6 +62,35 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device time of fn() over reps runs captured in one CUDA graph
+    and replayed: the launches run back to back, without the host time of
+    each Python call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops=0):
+    """(ms, what bounds it): the larger of HBM bytes over 3.35 TB/s and int8
+    tensor-core operations over 1979 TOP/s."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def max_abs_err(a, b):
@@ -92,6 +136,37 @@ def np_gf2m_multiply(a, b, m, f):
     return acc
 
 
+def np_gfpm_multiply(a, b, p, f_asc):
+    """Independent NumPy reference for GF(p^m) products of int reprs: base-p
+    digit convolution, then long division by the monic f (ascending)."""
+    m = len(f_asc) - 1
+    da = np.stack([(a.astype(np.int64) // p**i) % p for i in range(m)], axis=-1)
+    db = np.stack([(b.astype(np.int64) // p**i) % p for i in range(m)], axis=-1)
+    full = np.zeros(da.shape[:-1] + (2 * m - 1,), dtype=np.int64)
+    for i in range(m):
+        for j in range(m):
+            full[..., i + j] += da[..., i] * db[..., j]
+    full %= p
+    for d in range(2 * m - 2, m - 1, -1):
+        c = full[..., d].copy()
+        for j in range(m + 1):
+            full[..., d - m + j] = (full[..., d - m + j] - c * f_asc[j]) % p
+    return (full[..., :m] * (p ** np.arange(m))).sum(axis=-1)
+
+
+def np_exp_log(mul, alpha, q):
+    """EXP (length q-1) and LOG (length q) tables from a reference multiply."""
+    exp = np.empty(q - 1, dtype=np.int64)
+    exp[0] = 1
+    for i in range(1, q - 1):
+        exp[i] = mul(exp[i - 1 : i], np.array([alpha]))[0]
+    if len(np.unique(exp)) != q - 1:
+        raise AssertionError(f"{alpha} does not generate GF({q})*")
+    log = np.zeros(q, dtype=np.int64)
+    log[exp] = np.arange(q - 1)
+    return exp, log
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available.", file=sys.stderr)
@@ -99,8 +174,10 @@ def main() -> int:
 
     import galois_tpu_torch as gt
     from galois_tpu_torch import _build
+    from galois_tpu_torch.ops import _lookup
     from galois_tpu_torch.ops._elementwise import gf2m_multiply, gf2m_multiply_plain
-    from galois_tpu_torch.ops._linalg import balanced_planes_np
+    from galois_tpu_torch.ops._kernels import get_ops
+    from galois_tpu_torch.ops._linalg import balanced_plane_count, balanced_planes_np
     from galois_tpu_torch.ops._plane_matmul import (
         plane_matmul_data_left,
         plane_matmul_data_left_plain,
@@ -117,12 +194,21 @@ def main() -> int:
     print(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- 2. build ------------------------------------------------------
+    def build(name):
+        t0 = time.perf_counter()
+        _build.load(name)
+        return time.perf_counter() - t0
+
+    sources = ("plane_matmul", "lookup")
     t0 = time.perf_counter()
-    _build.load("plane_matmul")
-    print(f"[build] nvcc plane_matmul.cu: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in _build.BUILD_LOGS.get("plane_matmul", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build]   {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        secs = dict(zip(sources, pool.map(build, sources)))
+    print(f"[build] nvcc, {len(sources)} sources at once: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in sources:
+        print(f"[build] {name}.cu: {secs[name]:.1f} s")
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build]   {line.strip()}")
     GF8 = gt.GF(2**8)
     f8 = GF8._meta.irreducible_poly_int
     t0 = time.perf_counter()
@@ -134,11 +220,13 @@ def main() -> int:
     # -- 3. kernels against their plain versions -------------------------
     report = {}
 
-    def record(name, err, ms=None, plain_ms=None):
+    def record(name, err, ms=None, plain_ms=None, bnd=None):
         r = report.setdefault(name, {"max_abs_err": 0, "ms": None, "plain_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if ms is not None:
             r["ms"], r["plain_ms"] = ms, plain_ms
+            r["bound_ms"], r["bound_by"] = bnd
+            r["library_ms"] = None  # no single PyTorch call computes any of these kernels
 
     gen = torch.Generator(device=dev).manual_seed(0)
     a8 = torch.randint(0, 256, (2**24,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
@@ -147,12 +235,32 @@ def main() -> int:
     torch.cuda.synchronize()
     want = gf2m_multiply_plain(a8, b8, 8, f8)
     err = max_abs_err(got, want)
-    ms = cuda_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
+    ms = graph_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
+    eager = cuda_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
     pms = cuda_ms(lambda: gf2m_multiply_plain(a8, b8, 8, f8), 10)
-    record("gf2m_multiply", err, ms, pms)
-    print(f"[kernel] K7 gf2m_multiply m=8 n=2^24: max_abs_err {err} | kernel {ms:.4f} ms | plain {pms:.4f} ms", flush=True)
+    record("gf2m_multiply", err, ms, pms, bound(3 * 2**24))
+    print(
+        f"[kernel] K7 gf2m_multiply m=8 n=2^24: max_abs_err {err} | kernel {ms:.4f} ms "
+        f"(eager calls {eager:.4f} ms) | plain {pms:.4f} ms",
+        flush=True,
+    )
     if err:
         raise AssertionError("K7 disagrees with its plain version")
+    # K3 on the same inputs: the table kernel beside the ladder kernel
+    ops8 = get_ops(GF8._meta, "jit-lookup")
+    exp8, log8 = (torch.from_numpy(t).to(dev) for t in (ops8.EXP, ops8.LOG))
+    got = _lookup.lookup_multiply(a8, b8, exp8, log8, 256)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K3 and K7 disagree on GF(2^8) products")
+    k3 = graph_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256), 50)
+    k3_eager = cuda_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256), 50)
+    print(
+        f"[kernel] GF(2^8) multiply n=2^24, same inputs: K3 table gathers {k3:.4f} ms "
+        f"(eager calls {k3_eager:.4f} ms) | K7 ladder {ms:.4f} ms (eager calls {eager:.4f} ms)",
+        flush=True,
+    )
+    del got, want
 
     rng = np.random.default_rng(1)
     shapes = [  # (M, K, N, batch, reps); None reps: check only
@@ -161,6 +269,7 @@ def main() -> int:
         (1024, 1024, 1024, 32, 5),  # NTT 2^20 sides
         (4096, 4096, 4096, 4, 2),  # NTT 2^24 sides
     ]
+    n_planes = balanced_plane_count(P)
     for M, K, N, B, reps in shapes:
         A = torch.from_numpy(balanced_planes_np(rng.integers(0, P, (M, K)), P)).to(dev)
         W = torch.from_numpy(balanced_planes_np(rng.integers(0, P, (K, N)), P)).to(dev)
@@ -168,6 +277,7 @@ def main() -> int:
         xr = torch.randint(0, P, (B, K, N), generator=gen, device=dev)
         xl = torch.randint(0, P, (B, M, K), generator=gen, device=dev)
         tag = f"{M}x{K}x{N} batch {B}"
+        side_ops = n_planes**2 * 2 * M * K * N * B  # int8 plane-pair products
 
         got = plane_matmul_data_right(A, xr, P, twiddle=T)
         torch.cuda.synchronize()
@@ -181,8 +291,9 @@ def main() -> int:
         if reps:
             ms = cuda_ms(lambda: plane_matmul_data_right(A, xr, P, twiddle=T), reps)
             pms = cuda_ms(lambda: plane_matmul_data_right_plain(A, xr, P, T), reps)
-            record("plane_matmul_data_right", err, ms, pms)
-            timing = f" | kernel {ms:.3f} ms | plain {pms:.3f} ms"
+            bnd = bound(n_planes * M * K + 8 * (B * K * N + M * N + B * M * N), side_ops)
+            record("plane_matmul_data_right", err, ms, pms, bnd)
+            timing = f" | kernel {ms:.3f} ms | plain {pms:.3f} ms | bound {bnd[0]:.3f} ms ({bnd[1]})"
         else:
             record("plane_matmul_data_right", err)
         print(f"[kernel] K1 data_right(+twiddle) {tag}: max_abs_err {err}{timing}", flush=True)
@@ -201,8 +312,9 @@ def main() -> int:
         if reps:
             ms = cuda_ms(lambda: plane_matmul_data_left(xl, W, P, transpose_out=True), reps)
             pms = cuda_ms(lambda: plane_matmul_data_left_plain(xl, W, P, True), reps)
-            record("plane_matmul_data_left", err, ms, pms)
-            timing = f" | kernel {ms:.3f} ms | plain {pms:.3f} ms"
+            bnd = bound(n_planes * K * N + 8 * (B * M * K + B * M * N), side_ops)
+            record("plane_matmul_data_left", err, ms, pms, bnd)
+            timing = f" | kernel {ms:.3f} ms | plain {pms:.3f} ms | bound {bnd[0]:.3f} ms ({bnd[1]})"
         else:
             record("plane_matmul_data_left", err)
         print(f"[kernel] K2 data_left(+transpose) {tag}: max_abs_err {err}{timing}", flush=True)
@@ -211,8 +323,73 @@ def main() -> int:
         del A, W, T, xr, xl
         torch.cuda.empty_cache()
 
-    # -- 4. main path through the public API -----------------------------
-    counters = (gf2m_multiply, plane_matmul_data_right, plane_matmul_data_left)
+    # K3-K6; the first field's times go into the report
+    lookup_cases = [  # (order, n, reps); None reps: check only
+        (2**8, 2**24, 50),
+        (3**5, 2**24, 50),
+        (2**16, 2**24, 20),
+        (2**10, 1_000_003, None),
+    ]
+    for q, n, reps in lookup_cases:
+        F = gt.GF(q)
+        ops = get_ops(F._meta, "jit-lookup")
+        exp_t, log_t = (torch.from_numpy(t).to(dev) for t in (ops.EXP, ops.LOG))
+        dt = F._meta.torch_dtype
+        a = torch.randint(0, q, (n,), generator=gen, device=dev).to(dt)
+        b = torch.randint(0, q, (n,), generator=gen, device=dev).to(dt)
+        a[::1009] = 0  # zeros on each side and on both, also where q is large
+        b[::997] = 0
+        width = a.element_size()
+        tables = 4 * (2 * (q - 1) + q)
+        place = "shared" if q <= _lookup.SMEM_MAX_ORDER else "global"
+        kernels = [
+            ("lookup_multiply", "K3", lambda: _lookup.lookup_multiply(a, b, exp_t, log_t, q),
+             lambda: _lookup.lookup_multiply_plain(a, b, exp_t, log_t, q), 3 * width * n + tables),
+            ("lookup_divide", "K4", lambda: _lookup.lookup_divide(a, b, exp_t, log_t, q),
+             lambda: _lookup.lookup_divide_plain(a, b, exp_t, log_t, q), 3 * width * n + tables),
+            ("lookup_reciprocal", "K5", lambda: _lookup.lookup_reciprocal(a, exp_t, log_t, q),
+             lambda: _lookup.lookup_reciprocal_plain(a, exp_t, log_t, q), 2 * width * n + tables),
+            ("lookup_log", "K6", lambda: _lookup.lookup_log(a, log_t, q),
+             lambda: _lookup.lookup_log_plain(a, log_t, q), (width + 8) * n + 4 * q),
+        ]
+        for name, tag, kernel, plain, nbytes in kernels:
+            got = kernel()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain())
+            del got
+            timing = ""
+            if reps:
+                ms = graph_ms(kernel, reps)
+                pms = cuda_ms(plain, max(2, reps // 10))
+                bnd = bound(nbytes)
+                if q == lookup_cases[0][0]:
+                    record(name, err, ms, pms, bnd)
+                else:
+                    record(name, err)
+                timing = f" | kernel {ms:.4f} ms | plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})"
+            else:
+                record(name, err)
+            print(f"[kernel] {tag} {name} GF({q}) n={n} ({dt}, {place} tables): max_abs_err {err}{timing}", flush=True)
+            if err:
+                raise AssertionError(f"{tag} disagrees with its plain version on GF({q})")
+        del a, b, exp_t, log_t
+        torch.cuda.empty_cache()
+
+    counters = (
+        plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply,
+        _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
+    )
+    launches = {}
+
+    def read_counts(phase, needed):
+        counts = {fn.__name__: fn.launches for fn in counters}
+        print(f"[main] launches during main path {phase}: {counts}", flush=True)
+        missing = [fn.__name__ for fn in needed if counts[fn.__name__] == 0]
+        if missing:
+            raise AssertionError(f"main path {phase} never launched {missing}")
+        launches.update({fn.__name__: counts[fn.__name__] for fn in needed})
+
+    # -- 4. main path 1: GF(2^8) multiply and the NTT ----------------------
     for fn in counters:
         fn.launches = 0
 
@@ -239,11 +416,12 @@ def main() -> int:
         first_s = time.perf_counter() - t0
         if X.shape != (batch, N) or X.device != dev or not torch.equal(xb._data, x._data):
             raise AssertionError(f"np.fft.ifft(np.fft.fft(x)) != x at N = 2^{log_n}")
-        Y = gt.ntt(x)
-        if not torch.equal(Y._data, X._data) or not torch.equal(gt.intt(Y)._data, x._data):
-            raise AssertionError(f"intt(ntt(x)) != x or ntt != np.fft.fft at N = 2^{log_n}")
+        row = x[batch - 1]
+        Y = gt.ntt(row)
+        if not torch.equal(Y._data, X[batch - 1]._data) or not torch.equal(gt.intt(Y)._data, row._data):
+            raise AssertionError(f"intt(ntt(x)) != x or ntt != np.fft.fft on a row at N = 2^{log_n}")
         bins = [0, 1, 2, 3, 5, N // 2, N - 1] + [int(k) for k in np.random.default_rng(log_n).integers(0, N, 9)]
-        want = direct_dft_bins(np.asarray(x[batch - 1]).astype(np.int64), bins, P, alpha)
+        want = direct_dft_bins(np.asarray(row).astype(np.int64), bins, P, alpha)
         got = np.asarray(X[batch - 1]).astype(np.int64)[bins]
         if not np.array_equal(got, want):
             raise AssertionError(f"NTT bins disagree with the direct DFT at N = 2^{log_n}")
@@ -253,19 +431,96 @@ def main() -> int:
             f"{batch * 1e3 / ms:.2f} transforms/s (plans built and first round trip {first_s:.1f} s)",
             flush=True,
         )
-        del x, X, xb, Y
+        del x, X, xb, Y, row
         torch.cuda.empty_cache()
+    read_counts(1, (plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply))
 
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"[main] launches during the main path: {launches}", flush=True)
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+    # -- 5. main path 2: lookup mode and GF(3^5) ----------------------------
+    for fn in counters:
+        fn.launches = 0
+    n_chk = 2**16
+    GF16, GF35 = gt.GF(2**16), gt.GF(3**5)
+    f16 = 0x1002D  # Conway: x^16 + x^5 + x^3 + x^2 + 1
+    f35 = [1, 2, 0, 0, 0, 1]  # Conway, ascending: x^5 + 2x + 1
+    if (f8, GF16._meta.irreducible_poly_int, GF35._meta.irreducible_poly_int) != (0x11D, f16, 250):
+        raise AssertionError("the fields' polynomials are not the Conway polynomials the references use")
+    try:
+        GF8.compile("jit-lookup")
+        GF16.compile("jit-lookup")
+        exp_r, log_r = np_exp_log(lambda u, v: np_gf2m_multiply(u, v, 8, 0x11D), int(GF8.primitive_element), 256)
+        x = GF8.Random(2**24, seed=3, device=dev)
+        y = GF8.Random(2**24, seed=4, low=1, device=dev)
+        e = np.random.default_rng(5).integers(0, 1000, 2**24)
+        results = {
+            "x * y": lambda: x * y,
+            "x / y": lambda: x / y,
+            "np.reciprocal(y)": lambda: np.reciprocal(y),
+            "y.log()": lambda: y.log(),
+            "x ** e": lambda: x**e,
+        }
+        xs, ys, es = (np.asarray(v[:n_chk]).astype(np.int64) for v in (x, y, e))
+        lx, ly = log_r[xs], log_r[ys]
+        refs = {
+            "x * y": np_gf2m_multiply(xs, ys, 8, 0x11D),
+            "x / y": np.where(xs == 0, 0, exp_r[(lx - ly) % 255]),
+            "np.reciprocal(y)": exp_r[(-ly) % 255],
+            "y.log()": ly,
+            "x ** e": np.where(xs == 0, (es == 0).astype(np.int64), exp_r[(lx * es) % 255]),
+        }
+        for label, fn in results.items():
+            out = fn()
+            got = out if isinstance(out, np.ndarray) else np.asarray(out)
+            if got.shape != (2**24,) or not np.array_equal(got[:n_chk].astype(np.int64), refs[label]):
+                raise AssertionError(f"lookup-mode GF(2^8) {label} disagrees with the NumPy reference")
+            ms = cuda_ms(fn, 5)
+            print(f"[main] GF(2^8) jit-lookup {label}, 2^24 elements: {ms:.4f} ms", flush=True)
+
+        x16 = GF16.Random(2**24, seed=6, device=dev)
+        y16 = GF16.Random(2**24, seed=7, device=dev)
+        z16 = x16 * y16
+        ref = np_gf2m_multiply(*(np.asarray(v[:n_chk]) for v in (x16, y16)), 16, f16)
+        if z16._data.dtype != torch.int64 or not np.array_equal(np.asarray(z16[:n_chk]).astype(np.int64), ref):
+            raise AssertionError("lookup-mode GF(2^16) multiply disagrees with the NumPy reference")
+        ms = cuda_ms(lambda: x16 * y16, 5)
+        print(f"[main] GF(2^16) jit-lookup x * y, 2^24 elements: {ms:.4f} ms", flush=True)
+        del x16, y16, z16
+
+        mul35 = lambda u, v: np_gfpm_multiply(u, v, 3, f35)  # noqa: E731
+        exp35, log35 = np_exp_log(mul35, int(GF35.primitive_element), 243)
+        x = GF35.Random(2**24, seed=8, device=dev)
+        y = GF35.Random(2**24, seed=9, low=1, device=dev)
+        xs, ys = (np.asarray(v[:n_chk]).astype(np.int64) for v in (x, y))
+        dx = np.stack([(xs // 3**i) % 3 for i in range(5)], axis=-1)
+        dy = np.stack([(ys // 3**i) % 3 for i in range(5)], axis=-1)
+        w = 3 ** np.arange(5)
+        results = {"x * y": lambda: x * y, "x + y": lambda: x + y, "x - y": lambda: x - y, "x / y": lambda: x / y}
+        refs = {
+            "x * y": mul35(xs, ys),
+            "x + y": ((dx + dy) % 3 * w).sum(-1),
+            "x - y": ((dx - dy) % 3 * w).sum(-1),
+            "x / y": np.where(xs == 0, 0, exp35[(log35[xs] - log35[ys]) % 242]),
+        }
+        for label, fn in results.items():
+            out = fn()
+            if out.shape != (2**24,) or not np.array_equal(np.asarray(out[:n_chk]).astype(np.int64), refs[label]):
+                raise AssertionError(f"GF(3^5) {label} disagrees with the NumPy reference")
+            ms = cuda_ms(fn, 3)
+            print(f"[main] GF(3^5) jit-calculate {label}, 2^24 elements: {ms:.4f} ms", flush=True)
+        del x, y
+    finally:
+        GF8.compile("auto")
+        GF16.compile("auto")
+    torch.cuda.empty_cache()
+    read_counts(2, (_lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),
         "plane_matmul_data_left": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:261"),
         "gf2m_multiply": ("triton", "galois_tpu_torch/ops/_elementwise.py", "galois_tpu/ops/_pallas/_elementwise.py:493"),
+        "lookup_multiply": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:324"),
+        "lookup_divide": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:341"),
+        "lookup_reciprocal": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:358"),
+        "lookup_log": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:372"),
     }
     kernels = [
         {"name": name, "route": route, "source": src, "replaces": rep, "launches": launches[name], **report[name]}

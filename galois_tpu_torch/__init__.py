@@ -1,14 +1,23 @@
 """galois_tpu_torch: the PyTorch and CUDA port of galois_tpu.
 
-Finite-field arrays GF(p) and GF(2^m) over torch tensors on an explicit
-device, and the number-theoretic transform over prime fields. The public
-names and results match the JAX package ``galois_tpu``; this package
-imports neither jax nor galois_tpu. On CUDA tensors the NTT's two matmul
-sides run hand-written CUDA C++ kernels and GF(2^m) multiply a Triton
-kernel; CPU tensors take the kernels' plain torch versions.
+Finite-field arrays over torch tensors (GF(p), GF(2^m) and GF(p^m) with
+p^m <= 2^31, in 'jit-calculate' and, for orders <= 2^20, 'jit-lookup'
+mode) and the number-theoretic transform over prime fields. New data goes
+to CUDA unless the caller asks for the CPU (``set_default_device``,
+``default_device``, or ``device=``). The public names and results match the
+JAX package ``galois_tpu``; this package imports neither jax nor
+galois_tpu. On CUDA tensors the NTT's two matmul sides and the lookup
+tables' gathers run hand-written CUDA C++ kernels and GF(2^m) multiply a
+Triton kernel; CPU tensors take the kernels' plain torch versions.
 """
 
-from ._options import get_printoptions, printoptions, set_printoptions
+from ._options import (
+    default_device,
+    get_printoptions,
+    printoptions,
+    set_default_device,
+    set_printoptions,
+)
 from . import typing
 from .fields import GF, GF2, Field, FieldArray, FieldArrayMeta
 from .nt import (

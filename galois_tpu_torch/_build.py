@@ -28,6 +28,7 @@ NVCC_FLAGS = [
 BUILD_LOGS: dict = {}
 
 _LOCK = threading.Lock()
+_LOCKS: dict = {}  # one per source, so that different sources build in parallel
 _LIBS: dict = {}
 
 
@@ -41,8 +42,11 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    Threads may build different sources at once."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = CSRC / f"{name}.cu"

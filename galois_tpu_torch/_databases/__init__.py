@@ -1,9 +1,8 @@
-"""Conway-polynomial lookup, read from the JAX package's data file by path.
+"""Conway-polynomial lookup.
 
-The packed table lives at ``galois_tpu/_databases/conway_polys.npz``. The
-port reads that file with ``numpy.load`` and does not import
-``galois_tpu._databases``: importing any ``galois_tpu`` submodule runs the
-JAX package's ``__init__``, which imports jax.
+The packed table ``conway_polys.npz`` ships in this package (a byte-for-byte
+copy of the JAX package's table, built from the public Luebeck tables); the
+port reads its own copy and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -16,9 +15,7 @@ import numpy as np
 
 __all__ = ["ConwayPolyDatabase"]
 
-_CONWAY_PATH = (
-    pathlib.Path(__file__).resolve().parents[2] / "galois_tpu" / "_databases" / "conway_polys.npz"
-)
+_CONWAY_PATH = pathlib.Path(__file__).resolve().parent / "conway_polys.npz"
 
 
 class _ConwayPolyDatabase:

@@ -1,9 +1,11 @@
 """FieldArray: the user-facing array class, over a ``torch.Tensor``.
 
 Port of ``galois_tpu/fields/_array.py``. An instance wraps one tensor in the
-field's int storage (``FieldMeta.torch_dtype``) on an explicit device;
-every result stays on its inputs' device. Arithmetic runs eagerly through
-the field's ops object (``ops/_kernels.py::get_ops``).
+field's int storage (``FieldMeta.torch_dtype``). Host input goes to the
+``device=`` argument or, when it is None, to the package's default device
+(``_options.py``, CUDA unless the caller asks for the CPU); every result
+stays on its inputs' device. Arithmetic runs eagerly through the ops object
+of the field and its ufunc mode (``ops/_kernels.py::get_ops``).
 
 NumPy interop matches the JAX package: ``np.asarray(x)`` gives the integer
 representation in ``meta.internal_dtype``, ``np.multiply(x, y)`` and friends
@@ -18,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .._options import resolve_device
 from ._meta import FieldMeta
 
 __all__ = ["FieldArray", "FieldArrayMeta"]
@@ -35,7 +38,8 @@ def _get_ops(meta: FieldMeta, mode: str):
 
 def _ints_to_storage(meta: FieldMeta, arr: np.ndarray, device=None) -> torch.Tensor:
     """NumPy array of int reprs (any integer or object dtype, values in
-    [0, order)) -> storage tensor on ``device`` (default: CPU)."""
+    [0, order)) -> storage tensor on ``device`` (None: the default device)."""
+    device = resolve_device(device)
     np_dt = np.uint8 if meta.torch_dtype == torch.uint8 else np.int64
     host = np.asarray(arr).astype(np.int64).astype(np_dt, order="C")
     return torch.from_numpy(host).to(device)
@@ -104,6 +108,30 @@ class FieldArrayMeta(type):
     def ufunc_mode(cls) -> str:
         return cls._mode
 
+    @property
+    def ufunc_modes(cls) -> list:
+        return list(cls._meta.ufunc_modes)
+
+    @property
+    def default_ufunc_mode(cls) -> str:
+        return cls._meta.default_ufunc_mode
+
+    def compile(cls, mode: str) -> None:
+        """Select the ufunc mode: 'auto' (the default mode), 'jit-calculate'
+        or, for orders <= 2^20, 'jit-lookup' (EXP/LOG table kernels; the
+        results are identical, only the speed differs)."""
+        if mode == "auto":
+            mode = cls._meta.default_ufunc_mode
+        if mode not in cls._meta.ufunc_modes:
+            raise ValueError(
+                f"Argument 'mode' must be in {['auto'] + cls._meta.ufunc_modes}, not {mode!r}."
+            )
+        if mode == "python-calculate":
+            raise NotImplementedError(
+                "The 'python-calculate' mode is not ported yet (ROADMAP.md, queue 1 item 2)."
+            )
+        cls._mode = mode
+
 
 # ----------------------------------------------------------------------
 # FieldArray
@@ -112,8 +140,9 @@ class FieldArrayMeta(type):
 class FieldArray(metaclass=FieldArrayMeta):
     """An array over GF(p^m). Instances wrap a torch.Tensor in the field's
     int storage; the class (manufactured by ``GF()``) carries the static
-    field descriptor. ``device`` places host input; tensor and FieldArray
-    input stays where it is unless ``device`` is given."""
+    field descriptor. ``device`` places host input (None: the package's
+    default device); tensor and FieldArray input stays where it is unless
+    ``device`` is given."""
 
     _meta: FieldMeta = None
     _mode: str = None
@@ -158,7 +187,7 @@ class FieldArray(metaclass=FieldArrayMeta):
     @classmethod
     def Zeros(cls, shape, dtype=None, *, device=None) -> "FieldArray":
         return cls._view(
-            torch.zeros(_as_shape(shape), dtype=cls._meta.torch_dtype, device=device),
+            torch.zeros(_as_shape(shape), dtype=cls._meta.torch_dtype, device=resolve_device(device)),
             _validate_dtype(cls, dtype),
         )
 
@@ -167,12 +196,14 @@ class FieldArray(metaclass=FieldArrayMeta):
         cls, shape=(), low=0, high=None, seed=None, dtype=None, *, generator=None, device=None
     ) -> "FieldArray":
         """Uniform elements in [low, high) drawn by ``torch.randint`` on
-        ``device``. Pass a ``torch.Generator`` on that device, or a ``seed``
-        from which one is made. The numbers differ from the JAX package's
-        ``Random`` for the same seed: tests make shared inputs with NumPy."""
+        ``device`` (None: the default device). Pass a ``torch.Generator`` on
+        that device, or a ``seed`` from which one is made. The numbers differ
+        from the JAX package's ``Random`` for the same seed: tests make shared
+        inputs with NumPy."""
         high = cls.order if high is None else int(high)
+        device = resolve_device(device)
         if generator is None and seed is not None:
-            generator = torch.Generator(device=device if device is not None else "cpu")
+            generator = torch.Generator(device=device)
             generator.manual_seed(int(seed))
         data = torch.randint(
             int(low), high, _as_shape(shape), generator=generator, device=device, dtype=torch.int64
@@ -265,6 +296,10 @@ class FieldArray(metaclass=FieldArrayMeta):
         except (TypeError, ValueError):
             return NotImplemented
         a, b = (o, self) if reflected else (self, o)
+        if opname == "multiply":
+            # the public elementwise multiply may ride a table kernel (K3 for
+            # small odd extension fields); composites keep ops.multiply
+            opname = "multiply_bulk"
         out = getattr(_get_ops(self._meta, self._mode), opname)(a._data, b._data)
         return type(self)._view(out, self._dtype)
 
@@ -339,6 +374,13 @@ class FieldArray(metaclass=FieldArrayMeta):
         out = _get_ops(self._meta, self._mode).reciprocal(self._data)
         return type(self)._view(out, self._dtype)
 
+    def log(self, base=None) -> np.ndarray:
+        """Discrete logarithm, as an int64 ndarray (base: the primitive
+        element unless given). Lookup mode reads the LOG table (kernel K6)."""
+        from ..ops._dlog import log as _log
+
+        return _log(self, base)
+
     def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
         name = ufunc.__name__
         if method != "__call__":
@@ -407,19 +449,27 @@ class FieldArray(metaclass=FieldArrayMeta):
 
 def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
     """x ** e for an integer ndarray exponent of any magnitude and sign:
-    e is reduced mod q-1 on the host (q - 1 < 2^32 for int storage)."""
+    e is reduced mod q-1 on the host (q - 1 < 2^32 for int storage), with
+    NumPy's non-negative remainder for integer dtypes and Python ints for
+    object arrays."""
     cls = type(x)
     meta = cls._meta
     q1 = meta.order - 1
-    e_obj = e.astype(object)
-    if (e_obj < 0).any():
-        _check_div_by_zero(x)
-    red = np.frompyfunc(lambda v: int(v) % q1, 1, 1)(e_obj).astype(np.int64)
+    if e.dtype == object:
+        if (e < 0).any():
+            _check_div_by_zero(x)
+        red = np.frompyfunc(lambda v: int(v) % q1, 1, 1)(e).astype(np.int64)
+    elif np.issubdtype(e.dtype, np.unsignedinteger):
+        red = (e.astype(np.uint64) % np.uint64(q1)).astype(np.int64)
+    else:
+        if (e < 0).any():
+            _check_div_by_zero(x)
+        red = e.astype(np.int64) % q1
     ops = _get_ops(meta, cls._mode)
     e_t = torch.as_tensor(red, device=x.device)
     out = ops.power(x._data, e_t, nbits=max(1, q1.bit_length()))
     # 0^e = 0 for e != 0 (the reduction mod q-1 may have zeroed e).
-    zero_fix = ops.is_zero(x._data) & torch.as_tensor(e_obj != 0, device=x.device)
+    zero_fix = ops.is_zero(x._data) & torch.as_tensor(e != 0, device=x.device)
     out = torch.where(zero_fix, torch.zeros_like(out), out)
     return cls._view(out, x._dtype)
 

@@ -1,21 +1,25 @@
 """The GF() class factory.
 
 Port of ``galois_tpu/fields/_factory.py``: manufactures FieldArray subclasses
-for GF(p) and GF(2^m), flyweight-cached per (p, m, irreducible poly,
-primitive element). GF(2^m) uses the Conway polynomial and x as the
-primitive element; a user-given irreducible polynomial needs the port of
-``polys/_hostpoly.py`` and is still to come.
+for GF(p^m) with int storage, flyweight-cached per (p, m, irreducible poly,
+primitive element). Extension fields default to the Conway polynomial and x
+as the primitive element; a user-given irreducible polynomial passes Rabin's
+irreducibility test, and without a given primitive element the smallest one
+is searched.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Optional
 
 import numpy as np
 
 from ..nt import factors, is_prime, is_primitive_root, primitive_root
+from ..polys._conversions import integer_to_poly, poly_to_integer, poly_to_str, str_to_integer
 from ._array import FieldArray, FieldArrayMeta
+from ._hostfield import HostField
 from ._meta import FieldMeta
 
 __all__ = ["GF", "Field"]
@@ -47,8 +51,10 @@ def GF(
 ):
     """Create a FieldArray subclass for GF(p^m).
 
-    Call as ``GF(order)`` or ``GF(characteristic, degree)``. Arrays of the
-    returned class take a ``device=`` argument; see ``FieldArray``.
+    Call as ``GF(order)`` or ``GF(characteristic, degree)``. ``compile``
+    sets the class's ufunc mode (``"auto"``, ``"jit-calculate"`` or, for
+    orders <= 2^20, ``"jit-lookup"``). Arrays of the returned class take a
+    ``device=`` argument; see ``FieldArray``.
     """
     if degree is not None:
         characteristic = int(order)
@@ -61,22 +67,49 @@ def GF(
     else:
         p, m = _factor_prime_power(int(order))
 
-    if compile not in (None, "auto", "jit-calculate"):
-        raise NotImplementedError(
-            f"Compile mode {compile!r} is not ported yet; the port runs 'jit-calculate' "
-            "(ROADMAP.md, queue 1 item 6)."
-        )
     if repr not in (None, "int"):
         raise NotImplementedError(f"Element repr {repr!r} is not ported yet; the port prints ints.")
 
     if m == 1:
-        return _GF_prime(p, alpha=primitive_element, verify=verify)
-    return _GF_extension(p, m, irreducible_poly=irreducible_poly, alpha=primitive_element)
+        cls = _GF_prime(p, alpha=primitive_element, verify=verify)
+    else:
+        cls = _GF_extension(
+            p, m, irreducible_poly=irreducible_poly, alpha=primitive_element, verify=verify
+        )
+    if compile is not None:
+        cls.compile(compile)
+    return cls
 
 
 def Field(*args, **kwargs):
     """Deprecated alias of GF()."""
     return GF(*args, **kwargs)
+
+
+def _poly_like_to_int(poly, p: int) -> int:
+    """An irreducible-poly argument (int, str or coefficient sequence,
+    descending degrees) -> its integer representation over GF(p)."""
+    if isinstance(poly, (int, np.integer)):
+        return int(poly)
+    if isinstance(poly, str):
+        return str_to_integer(poly, p)
+    if isinstance(poly, (list, tuple, np.ndarray)):
+        return poly_to_integer([int(c) for c in poly], p)
+    raise NotImplementedError(
+        f"Argument 'irreducible_poly' of type {type(poly).__name__} is not ported: give an int, "
+        "a str or a coefficient list (a Poly argument waits for the Poly layer, ROADMAP.md, "
+        "queue 1 item 4)."
+    )
+
+
+def _element_like_to_int(element, p: int) -> int:
+    if isinstance(element, (int, np.integer)):
+        return int(element)
+    if isinstance(element, str):
+        return str_to_integer(element, p)
+    if isinstance(element, FieldArray):
+        return int(element)
+    raise TypeError(f"Cannot interpret {type(element)} as a field element.")
 
 
 def _GF_prime(p: int, alpha=None, verify: bool = True):
@@ -85,9 +118,7 @@ def _GF_prime(p: int, alpha=None, verify: bool = True):
     if alpha is None:
         alpha = 1 if p == 2 else primitive_root(p)
     else:
-        if not isinstance(alpha, (int, np.integer)):
-            raise TypeError(f"Argument 'primitive_element' must be an int, not {type(alpha)}.")
-        alpha = int(alpha) % p
+        alpha = _element_like_to_int(alpha, p) % p
         if verify and p > 2 and not is_primitive_root(alpha, p):
             raise ValueError(
                 f"Argument 'primitive_element' must be a primitive root mod {p}, not {alpha}."
@@ -96,20 +127,73 @@ def _GF_prime(p: int, alpha=None, verify: bool = True):
     return _make_class(p, 1, f_int, alpha)
 
 
-def _GF_extension(p: int, m: int, irreducible_poly=None, alpha=None):
-    """GF(2^m) with the Conway polynomial, which is primitive, so x generates
-    the field."""
-    if p != 2 or irreducible_poly is not None or alpha is not None:
-        raise NotImplementedError(
-            "The torch port builds GF(2^m) with its default Conway polynomial only; other "
-            "extension fields and user-given polynomials or primitive elements wait for the "
-            "Poly layer (ROADMAP.md, queue 1 item 4)."
-        )
-    from .._databases import ConwayPolyDatabase
+def _GF_extension(p: int, m: int, irreducible_poly=None, alpha=None, verify: bool = True):
+    """GF(p^m): the Conway polynomial (primitive, so x generates the field)
+    unless the caller gives a polynomial, which is then checked for
+    irreducibility; a given primitive element is checked for primitivity."""
+    verify_poly = verify_element = verify
+    if irreducible_poly is None:
+        from .._databases import ConwayPolyDatabase
 
-    degrees, coeffs = ConwayPolyDatabase().fetch(p, m)
-    f_int = sum(c * p**d for d, c in zip(degrees, coeffs))
-    return _make_class(p, m, f_int, p)
+        degrees, coeffs = ConwayPolyDatabase().fetch(p, m)
+        f_int = sum(c * p**d for d, c in zip(degrees, coeffs))
+        verify_poly = False
+        if alpha is None:
+            alpha = p  # x
+            verify_element = False
+    else:
+        f_int = _poly_like_to_int(irreducible_poly, p)
+
+    if not p**m <= f_int < 2 * p**m:
+        raise ValueError(f"The irreducible polynomial must be monic of degree {m} over GF({p}).")
+    if verify_poly and not _is_irreducible_int(f_int, p, m):
+        raise ValueError(
+            f"Argument 'irreducible_poly' must be irreducible, "
+            f"{poly_to_str(integer_to_poly(f_int, p))} is not."
+        )
+
+    if alpha is None:
+        alpha = _smallest_primitive_element(p, m, f_int)
+        verify_element = False
+    else:
+        alpha = _element_like_to_int(alpha, p)
+    if verify_element and not HostField(FieldMeta(p, m, f_int, alpha)).is_primitive_element(alpha):
+        raise ValueError(f"Argument 'primitive_element' must be primitive, {alpha} is not.")
+    return _make_class(p, m, f_int, alpha)
+
+
+def _is_irreducible_int(f_int: int, p: int, m: int) -> bool:
+    """Rabin's irreducibility test on the integer poly representation:
+    x^(p^m) = x mod f, and gcd(f, x^(p^(m/r)) - x) = 1 for each prime r | m."""
+    from ..polys import _hostpoly as hp
+
+    F = HostField(GF(p)._meta)
+    f = integer_to_poly(f_int, p)[::-1]  # ascending
+    if f[0] == 0:
+        return False  # x divides f
+    x = [0, 1]
+    h = x
+    for _ in range(m):
+        h = hp.pow_mod(F, h, p, f)
+    if hp.trim(hp.sub(F, h, x)) != [0]:
+        return False
+    for r in factors(m)[0]:
+        h = x
+        for _ in range(m // r):
+            h = hp.pow_mod(F, h, p, f)
+        if hp.gcd(F, f, hp.sub(F, h, x)) != [1]:
+            return False
+    return True
+
+
+def _smallest_primitive_element(p: int, m: int, f_int: int) -> int:
+    """The JAX package's search order: the non-constant elements p .. p^m - 1
+    first, then the constants 2 .. p - 1."""
+    hf = HostField(FieldMeta(p, m, f_int, p))  # alpha placeholder
+    for a in itertools.chain(range(p, p**m), range(2, p)):
+        if hf.is_primitive_element(a):
+            return a
+    raise RuntimeError("No primitive element found: is the polynomial irreducible?")
 
 
 def _make_class(p: int, m: int, f_int: int, alpha: int):

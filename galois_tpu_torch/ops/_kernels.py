@@ -6,21 +6,30 @@ Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
 - ``GF2Ops``        GF(2), bitwise
 - ``BinaryExtOps``  GF(2^m), m <= 32; the multiply for m <= 16 is kernel K7
                     (``ops/_elementwise.py::gf2m_multiply``)
+- ``OddExtOps``     GF(p^m), p odd, p^m <= 2^31: base-p digit arithmetic;
+                    the public multiply of orders <= 4096 is kernel K3
+- ``LookupOps``     the 'jit-lookup' mode of any field of order <= 2^20:
+                    multiply, divide, reciprocal and log are kernels K3-K6
+                    (``ops/_lookup.py``), powers plain torch gathers
 
 Every op takes and returns tensors in the field's storage dtype and keeps
 its inputs' device. Arithmetic is widened to int64 inside each op: torch
-has no unsigned 16/32-bit arithmetic, and uint8 sums wrap. ``LookupOps``,
-``OddExtOps`` and the limb families are still to be ported.
+has no unsigned 16/32-bit arithmetic, and uint8 sums wrap. Dispatch
+depends on the field and mode only; the kernel wrappers alone look at the
+device. The limb families are still to be ported.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..fields._meta import FieldMeta
+from ..fields._tables import build_exp_log
 from ._elementwise import gf2m_multiply
+from ._lookup import lookup_divide, lookup_log, lookup_multiply, lookup_reciprocal
 
 __all__ = ["get_ops", "FieldOps", "mulmod"]
 
@@ -52,6 +61,12 @@ class FieldOps:
 
     def divide(self, a, b):
         return self.multiply(a, self.reciprocal(b))
+
+    def multiply_bulk(self, a, b):
+        """Elementwise multiply as the public ``*`` dispatches it: the same
+        map as ``multiply``, which a family may route to a table kernel
+        while composites (powers, transforms) keep ``multiply``."""
+        return self.multiply(a, b)
 
     def power_static(self, a, e: int):
         """a**e for a Python-int exponent (any size and sign)."""
@@ -215,17 +230,207 @@ class BinaryExtOps(FieldOps):
         return self.square(t)
 
 
+# ======================================================================
+# GF(p^m), p odd, int storage (p^m <= 2^31)
+# ======================================================================
+
+class _Tables:
+    """A field's EXP (length 2(q-1)) and LOG (length q) as int32 NumPy
+    arrays, and their copies on each device they are used on."""
+
+    def __init__(self, meta: FieldMeta, exp, log):
+        q = meta.order
+        exp, log = np.asarray(exp), np.asarray(log)
+        if exp.shape != (2 * (q - 1),) or log.shape != (q,):
+            raise ValueError(
+                f"{meta.name} needs EXP of length {2 * (q - 1)} and LOG of length {q}, "
+                f"not {exp.shape} and {log.shape}."
+            )
+        self.EXP = exp.astype(np.int32)
+        self.LOG = log.astype(np.int32)
+        self._on = {}
+
+    def on(self, device: torch.device):
+        if device not in self._on:
+            self._on[device] = (
+                torch.from_numpy(self.EXP).to(device),
+                torch.from_numpy(self.LOG).to(device),
+            )
+        return self._on[device]
+
+
+class OddExtOps(FieldOps):
+    """Base-p digit arithmetic on int storage, digits split on the fly.
+
+    p^m <= 2^31 with m >= 2 gives p < 2^16, so in int64 a digit product is
+    below 2^32 and a sum of m of them below 2^37: one ``% p`` after the
+    convolution and one after the fold by the reduction matrix are exact.
+    (The JAX package's three u32 regimes exist for the TPU.)"""
+
+    # Orders whose public multiply rides the table kernel K3 (the JAX
+    # package's multiply_bulk rule, galois_tpu/ops/_kernels.py:928).
+    BULK_LOOKUP_MAX_ORDER = 4096
+
+    def __init__(self, meta: FieldMeta):
+        super().__init__(meta)
+        self.p = meta.characteristic
+        self.m = meta.degree
+        self.R = np.asarray(meta.reduction_matrix)  # (m-1, m) int64
+        self._weights = [self.p**i for i in range(self.m)]
+        self._R_on = {}
+
+    def _digits(self, a):
+        x = a.to(torch.int64)
+        digs = []
+        for _ in range(self.m):
+            digs.append(x % self.p)
+            x = x // self.p
+        return torch.stack(digs, dim=-1)
+
+    def _undigits(self, d):
+        out = d[..., 0].clone()
+        for i in range(1, self.m):
+            out += d[..., i] * self._weights[i]
+        return out.to(self.dt)
+
+    def add(self, a, b):
+        return self._undigits((self._digits(a) + self._digits(b)) % self.p)
+
+    def negative(self, a):
+        return self._undigits((-self._digits(a)) % self.p)
+
+    def subtract(self, a, b):
+        return self._undigits((self._digits(a) - self._digits(b)) % self.p)
+
+    def multiply(self, a, b):
+        p, m = self.p, self.m
+        A, B = torch.broadcast_tensors(self._digits(a), self._digits(b))
+        full = torch.zeros(A.shape[:-1] + (2 * m - 1,), dtype=torch.int64, device=A.device)
+        for i in range(m):
+            full[..., i : i + m] += A[..., i : i + 1] * B
+        full %= p
+        if A.device not in self._R_on:
+            self._R_on[A.device] = torch.from_numpy(self.R).to(A.device)
+        R = self._R_on[A.device]
+        low = full[..., :m]
+        for k in range(m - 1):
+            low = low + full[..., m + k : m + k + 1] * R[k]
+        return self._undigits(low % p)
+
+    @functools.cached_property
+    def _tables(self) -> _Tables:
+        return _Tables(self.meta, *build_exp_log(self.meta))
+
+    def multiply_bulk(self, a, b):
+        if self.meta.order <= self.BULK_LOOKUP_MAX_ORDER:
+            exp_t, log_t = self._tables.on(a.device)
+            return lookup_multiply(a, b, exp_t, log_t, self.meta.order)
+        return self.multiply(a, b)
+
+    def reciprocal(self, a):
+        return self.power_static(a, self.meta.order - 2)
+
+
+# ======================================================================
+# Lookup-table mode (order <= 2^20, int storage)
+# ======================================================================
+
+class LookupOps:
+    """The 'jit-lookup' ops of a field: EXP/LOG table kernels K3-K6 for
+    multiply, divide, reciprocal and log, plain torch gathers for powers;
+    everything else delegates to the field's calculate ops.
+
+    Every order <= 2^20 takes the kernels, whatever the array size: the
+    JAX package's TPU routing (orders above 2^12 to the calculate kernels,
+    arrays below 2^13 elements to XLA gathers) answers XLA's gather lowering
+    and Mosaic's 128-entry chunks. The H100's 50 MB L2 holds the largest
+    table (12 MB). Results are identical either way."""
+
+    def __init__(self, calc: FieldOps):
+        self._calc = calc
+        self.meta = calc.meta
+        self.dt = calc.dt
+        self.load_tables(*build_exp_log(self.meta))
+
+    def __getattr__(self, name):
+        return getattr(self._calc, name)
+
+    def load_tables(self, exp, log) -> None:
+        """Install host tables (e.g. the JAX package's ``LookupOps.EXP`` and
+        ``LookupOps.LOG`` for the same field) in place of this object's own;
+        they are copied to each device at its first use."""
+        self._tables = _Tables(self.meta, exp, log)
+
+    @property
+    def EXP(self) -> np.ndarray:
+        return self._tables.EXP
+
+    @property
+    def LOG(self) -> np.ndarray:
+        return self._tables.LOG
+
+    def multiply(self, a, b):
+        exp_t, log_t = self._tables.on(a.device)
+        return lookup_multiply(a, b, exp_t, log_t, self.meta.order)
+
+    def multiply_bulk(self, a, b):
+        # without this override __getattr__ would hand out the calculate
+        # ops' multiply_bulk and leave lookup mode
+        return self.multiply(a, b)
+
+    def square(self, a):
+        return self.multiply(a, a)
+
+    def divide(self, a, b):
+        exp_t, log_t = self._tables.on(a.device)
+        return lookup_divide(a, b, exp_t, log_t, self.meta.order)
+
+    def reciprocal(self, a):
+        exp_t, log_t = self._tables.on(a.device)
+        return lookup_reciprocal(a, exp_t, log_t, self.meta.order)
+
+    def log_alpha(self, a):
+        """Discrete log base the field's primitive element (int64)."""
+        _, log_t = self._tables.on(a.device)
+        return lookup_log(a, log_t, self.meta.order)
+
+    def power(self, a, e, nbits: int = None):
+        """a**e for an int64 exponent tensor: alpha^(LOG[a] * e mod (q-1)),
+        with 0**0 = 1 and 0**e = 0 otherwise."""
+        q1 = self.meta.order - 1
+        exp_t, log_t = self._tables.on(a.device)
+        a, e = torch.broadcast_tensors(a, e.to(torch.int64))
+        idx = log_t[a.long()].long() * (e % q1) % q1
+        r = exp_t[idx].to(torch.int64)
+        r = torch.where(a == 0, (e == 0).to(torch.int64), r)
+        return r.to(self.dt)
+
+    def power_static(self, a, e: int):
+        """a**e for a Python-int exponent; a negative one inverts first."""
+        if e < 0:
+            return self.power_static(self.reciprocal(a), -e)
+        q1 = self.meta.order - 1
+        r = self.power(a, torch.tensor(e % q1, device=a.device))
+        if e != 0 and e % q1 == 0:
+            r = torch.where(a == 0, torch.zeros_like(r), r)
+        return r
+
+
 @functools.lru_cache(maxsize=None)
 def get_ops(meta: FieldMeta, mode: str):
-    """Return the ops object for (field, mode). The port has 'jit-calculate'
-    arithmetic only; the lookup-table mode waits for kernels K3-K6."""
-    if mode != "jit-calculate":
-        raise NotImplementedError(
-            f"Mode {mode!r} is not ported yet (ROADMAP.md, queue 1 item 6)."
-        )
+    """Return the ops object for (field, mode): 'jit-calculate' or
+    'jit-lookup' (orders <= 2^20, not GF(2))."""
     p, m = meta.characteristic, meta.degree
     if m == 1:
-        return GF2Ops(meta) if p == 2 else PrimeOps(meta)
-    if p == 2:
-        return BinaryExtOps(meta)
-    raise NotImplementedError(f"{meta.name}: OddExtOps is not ported yet (ROADMAP.md, queue 1 item 6).")
+        calc = GF2Ops(meta) if p == 2 else PrimeOps(meta)
+    elif p == 2:
+        calc = BinaryExtOps(meta)
+    else:
+        calc = OddExtOps(meta)
+    if mode == "jit-lookup":
+        if mode not in meta.ufunc_modes:
+            raise ValueError(f"{meta.name} does not support lookup mode.")
+        return LookupOps(calc)
+    if mode != "jit-calculate":
+        raise NotImplementedError(f"Mode {mode!r} is not ported yet (ROADMAP.md, queue 1 item 2).")
+    return calc

@@ -1,9 +1,10 @@
 """Public NTT API, as ``galois_tpu/transforms.py``.
 
-A FieldArray input over GF(modulus) is transformed where it lies, on its
-device, along its trailing axis (for 1-D input this is the JAX package's
-contract). Other input is converted on the host, as in the JAX package,
-and the result lies on the CPU.
+The JAX package's contract: ``size`` defaults to ``len(x)`` and the
+transform runs along the trailing axis, so ``ntt`` is for 1-D input;
+batched transforms are ``np.fft.fft``/``np.fft.ifft``. A FieldArray over
+GF(modulus) is transformed where it lies, on its device; other input is
+converted on the host and placed on the package's default device.
 """
 
 from __future__ import annotations
@@ -42,11 +43,10 @@ def intt(
 
 def _ntt(x, size=None, modulus=None, forward=True, scaled=True):
     if isinstance(x, FieldArray) and modulus == type(x).characteristic:
-        xf, length = x, x.shape[-1]
+        xf, length = x, len(x)
     else:
         arr = np.asarray(x)
-        length = arr.shape[-1]
-        xf = None
+        xf, length = None, len(arr)
     if size is None:
         size = length
     if modulus is None:

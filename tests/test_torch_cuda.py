@@ -14,7 +14,19 @@ import torch
 
 import galois_tpu_torch as gt
 from galois_tpu_torch.ops._elementwise import gf2m_multiply, gf2m_multiply_plain
+from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops._linalg import balanced_planes_np
+from galois_tpu_torch.ops._lookup import (
+    SMEM_MAX_ORDER,
+    lookup_divide,
+    lookup_divide_plain,
+    lookup_log,
+    lookup_log_plain,
+    lookup_multiply,
+    lookup_multiply_plain,
+    lookup_reciprocal,
+    lookup_reciprocal_plain,
+)
 from galois_tpu_torch.ops._plane_matmul import (
     plane_matmul_data_left,
     plane_matmul_data_left_plain,
@@ -91,7 +103,7 @@ def test_gf2m_multiply_kernel_matches_plain(cuda_device, m):
 
 def test_ntt_on_cuda_matches_cpu(cuda_device):
     F = gt.GF(P)
-    x = F.Random((3, 2**12), seed=4)
+    x = F.Random((3, 2**12), seed=4, device="cpu")
     X_cpu = np.fft.fft(x)
     before = (plane_matmul_data_right.launches, plane_matmul_data_left.launches)
     X_gpu = np.fft.fft(F(x._data, device=cuda_device))
@@ -104,11 +116,93 @@ def test_ntt_on_cuda_matches_cpu(cuda_device):
 def test_field_arithmetic_on_cuda_matches_cpu(cuda_device):
     for order in (2**8, 2**16, 257, P):
         F = gt.GF(order)
-        a = F.Random(1000, seed=1)
-        b = F.Random(1000, seed=2, low=1)
+        a = F.Random(1000, seed=1, device="cpu")
+        b = F.Random(1000, seed=2, low=1, device="cpu")
         ga, gb = F(a._data, device=cuda_device), F(b._data, device=cuda_device)
         for op in (lambda u, v: u * v, lambda u, v: u + v, lambda u, v: u - v, lambda u, v: u / v):
             got = op(ga, gb)
             assert got.device.type == "cuda"
             assert np.array_equal(np.asarray(got), np.asarray(op(a, b)))
         assert np.array_equal(np.asarray(ga ** 5), np.asarray(a ** 5))
+
+
+@pytest.mark.parametrize(
+    ["q", "n"],
+    [
+        (2**8, 100_003),  # uint8 storage, tables in shared memory
+        (3**5, 4097),  # uint8, odd characteristic
+        (2**10, 1_000_003),  # int64, shared memory
+        (2**14, 65_539),  # int64, the largest shared tables (96 KB, above the 48 KB default)
+        (2**16, 100_003),  # int64, tables in global memory
+        (2**20, 30_001),  # int64, the largest tables (12 MB)
+        (2**8, 1),
+    ],
+)
+def test_lookup_kernels_match_plain(cuda_device, q, n):
+    F = gt.GF(q)
+    ops = get_ops(F._meta, "jit-lookup")
+    exp_t, log_t = (torch.from_numpy(t).to(cuda_device) for t in (ops.EXP, ops.LOG))
+    dt = F._meta.torch_dtype
+    g = torch.Generator(device=cuda_device).manual_seed(q + n)
+    a = torch.randint(0, q, (n,), generator=g, device=cuda_device).to(dt)
+    b = torch.randint(0, q, (n,), generator=g, device=cuda_device).to(dt)
+    a[:: 7] = 0  # zeros on each side and on both
+    b[:: 5] = 0
+    before = [f.launches for f in (lookup_multiply, lookup_divide, lookup_reciprocal, lookup_log)]
+    cases = [
+        (lookup_multiply(a, b, exp_t, log_t, q), lookup_multiply_plain(a, b, exp_t, log_t, q)),
+        (lookup_divide(a, b, exp_t, log_t, q), lookup_divide_plain(a, b, exp_t, log_t, q)),
+        (lookup_reciprocal(a, exp_t, log_t, q), lookup_reciprocal_plain(a, exp_t, log_t, q)),
+        (lookup_log(a, log_t, q), lookup_log_plain(a, log_t, q)),
+    ]
+    torch.cuda.synchronize()
+    assert [f.launches for f in (lookup_multiply, lookup_divide, lookup_reciprocal, lookup_log)] == [
+        x + 1 for x in before
+    ]
+    for got, want in cases:
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert cases[3][0].dtype == torch.int64
+    assert (q <= SMEM_MAX_ORDER) == (q in (2**8, 3**5, 2**10, 2**14))
+
+
+def test_lookup_kernels_broadcast_and_refuse_bad_operands(cuda_device):
+    F = gt.GF(2**8)
+    ops = get_ops(F._meta, "jit-lookup")
+    exp_t, log_t = (torch.from_numpy(t).to(cuda_device) for t in (ops.EXP, ops.LOG))
+    col = torch.arange(256, dtype=torch.uint8, device=cuda_device).reshape(256, 1)
+    row = torch.arange(256, dtype=torch.uint8, device=cuda_device).reshape(1, 256)
+    got = lookup_multiply(col, row, exp_t, log_t, 256)
+    assert got.shape == (256, 256)
+    assert torch.equal(got, lookup_multiply_plain(col, row, exp_t, log_t, 256))
+    with pytest.raises(TypeError):
+        lookup_multiply(col, row.to(torch.int64), exp_t, log_t, 256)
+    with pytest.raises(ValueError):
+        lookup_multiply(col, row, exp_t[:-1], log_t, 256)
+    with pytest.raises(ValueError):
+        lookup_multiply(col, row.cpu(), exp_t, log_t, 256)
+
+
+def test_lookup_mode_on_cuda_matches_cpu(cuda_device):
+    for q, mode in ((2**8, "jit-lookup"), (2**16, "jit-lookup"), (3**5, "jit-lookup"), (3**5, "jit-calculate")):
+        F = gt.GF(q, compile=mode)
+        try:
+            a = F.Random(5000, seed=1, device="cpu")
+            b = F.Random(5000, seed=2, low=1, device="cpu")
+            ga, gb = F(a._data, device=cuda_device), F(b._data, device=cuda_device)
+            for op in (
+                lambda u, v: u * v,
+                lambda u, v: u / v,
+                lambda u, v: u + v,
+                lambda u, v: u - v,
+                lambda u, v: np.reciprocal(v),
+                lambda u, v: v ** np.arange(5000),
+                lambda u, v: v**-3,
+            ):
+                got = op(ga, gb)
+                assert got.device.type == "cuda"
+                assert np.array_equal(np.asarray(got), np.asarray(op(a, b)))
+            if mode == "jit-lookup":
+                assert np.array_equal(gb.log(), b.log())
+                assert np.array_equal(gb.log(int(F.primitive_element ** 7)), b.log(int(F.primitive_element ** 7)))
+        finally:
+            F.compile("auto")

@@ -25,6 +25,14 @@ ORDERS = [2, 2**8, 257, 2**31 - 1, 3 * 2**30 + 1]
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _on_cpu():
+    """These tests run the plain versions on the CPU: ask for it, since new
+    data goes to CUDA by default."""
+    with gt.default_device("cpu"):
+        yield
+
+
 def _operands(order, seed, n=64):
     """Random elements plus the corner values 0, 1 and order - 1."""
     rng = np.random.default_rng(seed)
@@ -128,7 +136,7 @@ def test_field_errors_match_jax_contract():
     with pytest.raises(TypeError):
         F([1]) + gt.GF(7)([1])
     with pytest.raises(NotImplementedError):
-        gt.GF(3**5)
+        gt.GF(3**20)  # digit storage (order > 2^31) is not ported
 
 
 def test_from_numpy_and_devices():
@@ -217,8 +225,42 @@ def test_import_leaves_jax_out():
 
 def test_port_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|galois_tpu)(\.|\s|$)", re.M)
-    for path in (REPO / "galois_tpu_torch").rglob("*.py"):
-        assert not pattern.search(path.read_text()), path
+    # a path or resource built into the JAX package: "galois_tpu" / ..., "galois_tpu._databases"
+    # or "galois_tpu/<file>"; "galois_tpu/<file>:<line>" names a kernel a port replaces
+    path_into_jax = re.compile(r"""["']galois_tpu["'.]|["']galois_tpu/[^"':]*["']""")
+    for path in [*(REPO / "galois_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+        text = path.read_text()
+        assert not pattern.search(text), path
+        assert not path_into_jax.search(text), path
+
+
+def test_conway_table_is_the_ports_own_copy():
+    from galois_tpu_torch import _databases
+
+    path = _databases._CONWAY_PATH
+    assert path.parent == REPO / "galois_tpu_torch" / "_databases" and path.exists()
+    assert path.read_bytes() == (REPO / "galois_tpu" / "_databases" / "conway_polys.npz").read_bytes()
+    assert gt.GF(3**10)._meta.irreducible_poly_int == gj.GF(3**10)._meta.irreducible_poly_int
+
+
+def test_new_arrays_default_to_cuda_and_never_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    F = gt.GF(2**8)
+    cpu = F([1, 2, 3])  # the module's CPU request
+    with gt.default_device("cuda"):
+        for make in (
+            lambda: F([1, 2]),
+            lambda: F.from_numpy(np.array([1, 2])),
+            lambda: F.Zeros(3),
+            lambda: F.Random(3, seed=1),
+            lambda: gt.ntt([1, 2, 3, 4], modulus=5),
+        ):
+            with pytest.raises(RuntimeError, match="set_default_device"):
+                make()
+        # data that already lies on a device stays there
+        assert (cpu * cpu).device == torch.device("cpu")
+        assert F(cpu._data).device == torch.device("cpu")
+    assert F([4]).device == torch.device("cpu")  # the context manager restored the CPU
 
 
 def test_poly_conversions_match_jax():

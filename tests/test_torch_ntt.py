@@ -18,6 +18,14 @@ from galois_tpu_torch.ops._plane_matmul import plane_matmul_data_left, plane_mat
 
 P = 3 * 2**30 + 1
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_cpu():
+    """These tests run the plain versions on the CPU: ask for it, since new
+    data goes to CUDA by default."""
+    with gt.default_device("cpu"):
+        yield
+
 NTT_LUTS = [
     ([1, 2, 3, 4], 5, [0, 4, 3, 2]),
     ([1, 2, 3, 4], 13, [10, 8, 11, 1]),
@@ -56,6 +64,25 @@ def test_ntt_default_modulus_and_errors():
         gt.ntt([1, 2, 3, 40], modulus=13)
     with pytest.raises(ValueError):
         gt.ntt([1, 2, 3, 4], modulus=3 * 256 + 2)
+
+
+@pytest.mark.parametrize("shape", [(8,), (2, 8), (4, 2), (16, 4)])
+def test_ntt_intt_shapes_match_jax(shape):
+    """size defaults to len(x) and the transform runs along the trailing
+    axis, as in the JAX package; batched transforms are np.fft.fft."""
+    x = np.random.default_rng(len(shape)).integers(0, 17, shape)
+    for kw in ({"modulus": 17}, {"modulus": 17, "size": 8}, {}):
+        try:
+            want = gj.ntt(x, **kw)
+        except ValueError:
+            with pytest.raises(ValueError):
+                gt.ntt(x, **kw)
+            continue
+        _same(gt.ntt(x, **kw), want)
+        _same(gt.intt(np.asarray(want), **kw), gj.intt(np.asarray(want), **kw))
+    Ft, Fj = gt.GF(17), gj.GF(17)
+    _same(gt.ntt(Ft(x)), gj.ntt(Fj(x)))
+    _same(gt.intt(Ft(x)), gj.intt(Fj(x)))
 
 
 @pytest.mark.parametrize("N", [2**10, 2**16, 3 * 2**10])

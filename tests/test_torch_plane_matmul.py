@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+import galois_tpu_torch as gt
 from galois_tpu.ops._linalg import _prime_matmul_planes as jax_prime_matmul_planes
 from galois_tpu.ops._linalg import balanced_plane_count as jax_plane_count
 from galois_tpu.ops._linalg import balanced_planes_np as jax_planes_np
@@ -30,6 +31,14 @@ from galois_tpu_torch.ops._plane_matmul import (
 
 P = 3 * 2**30 + 1
 M, K, N, B = 256, 512, 256, 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_cpu():
+    """These tests run the plain versions on the CPU: ask for it, since new
+    data goes to CUDA by default."""
+    with gt.default_device("cpu"):
+        yield
 
 
 @pytest.fixture(scope="module")
