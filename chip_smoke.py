@@ -10,16 +10,19 @@ Phases, each fatal on failure:
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
   2. build: compiles the CUDA C++ sources in csrc/ with nvcc, one process
-     per source, all at once, then the Triton kernel, and prints the build
-     times and ptxas resource usage;
+     per source, all at once, and prints the build times and ptxas resource
+     usage; then launches K11 (the device probe) before any other kernel,
+     prints its result and launch latency, and compiles the Triton kernel;
   3. kernels: every kernel against its plain torch version on the card, at
      the main paths' shapes plus small and ragged ones; results must be
      exactly equal. K1 and K2 (NTT sides); K7 (GF(2^m) multiply) and K3 at
      the same GF(2^8) inputs; K3-K6 (table gathers) on GF(2^8) and GF(3^5)
      (uint8, shared-memory tables) and GF(2^16) (int64, global tables) at
-     2^24 elements, and GF(2^10) at a ragged 1,000,003. Prints CUDA-event
-     times of kernel and plain version (elementwise kernels timed by CUDA
-     graph replay, so that host time per call does not hide them);
+     2^24 elements, and GF(2^10) at a ragged 1,000,003; K9 (GF(2^31 - 1)
+     multiply) and K10 (Goldilocks multiply, canonical and non-canonical
+     limbs) at 2^24 and a ragged 1,000,003 with their edge values. Prints
+     CUDA-event times of kernel and plain version (elementwise kernels timed
+     by CUDA graph replay, so that host time per call does not hide them);
   4. main path 1, through the public API with every launch counter reset to
      0 first: GF(2^8) multiply of 2^24 elements, then np.fft.fft / ifft over
      GF(3*2^30+1) at N = 2^20 (batch 32) and N = 2^24 (batch 4) and ntt /
@@ -30,7 +33,17 @@ Phases, each fatal on failure:
      GF(2^16) x * y at 2^24, and default-mode GF(3^5) at 2^24 (x * y, x + y,
      x - y, x / y), each held on a 2^16 prefix against NumPy references
      written here; K3, K4, K5 and K6 must have been launched. The modes are
-     restored after.
+     restored after;
+  6. main path 3, the same way: the Goldilocks field at 2^24 (x * y, x + y,
+     x - y, np.reciprocal(y), x / y), GF(2^31 - 1) at 2^24 (x * y, x / y)
+     and Poly evaluation of degree 255 at 2^21 points over both, each held
+     on a 2^12 prefix against Python-int references written here, with the
+     K9 and K10 launches of each call; K9 and K10 must have been launched.
+     Then, outside the counted run, K9 and K10 are held against their plain
+     versions at Horner's inner-step shape, (16, 2^21) times x of (1, 2^21)
+     passed by its period, and that step is timed in its parts: the multiply
+     with x by its period and with x materialized, and the torch add; a
+     degree-255 evaluation is timed both ways too.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -46,6 +59,8 @@ import numpy as np
 import torch
 
 P = 3 * 2**30 + 1
+M31 = 2**31 - 1
+GOLDILOCKS = 2**64 - 2**32 + 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 
@@ -154,6 +169,27 @@ def np_gfpm_multiply(a, b, p, f_asc):
     return (full[..., :m] * (p ** np.arange(m))).sum(axis=-1)
 
 
+def to_limbs(values, device):
+    """Python ints below 2^64 -> planar (4, n) uint16 limbs on ``device``."""
+    v = torch.tensor([x - 2**64 if x >= 2**63 else x for x in values], dtype=torch.int64, device=device)
+    return torch.stack([(v >> (16 * k)) & 0xFFFF for k in range(4)]).to(torch.uint16)
+
+
+def ints(x):
+    """A FieldArray's int reprs as a list of Python ints."""
+    return [int(v) for v in np.asarray(x, dtype=object).reshape(-1)]
+
+
+def horner(coeffs_desc, xs, p):
+    out = []
+    for x in xs:
+        acc = 0
+        for c in coeffs_desc:
+            acc = (acc * x + c) % p
+        out.append(acc)
+    return out
+
+
 def np_exp_log(mul, alpha, q):
     """EXP (length q-1) and LOG (length q) tables from a reference multiply."""
     exp = np.empty(q - 1, dtype=np.int64)
@@ -174,8 +210,17 @@ def main() -> int:
 
     import galois_tpu_torch as gt
     from galois_tpu_torch import _build
-    from galois_tpu_torch.ops import _lookup
-    from galois_tpu_torch.ops._elementwise import gf2m_multiply, gf2m_multiply_plain
+    from galois_tpu_torch.ops import _elementwise, _lookup
+    from galois_tpu_torch.ops._elementwise import (
+        device_probe,
+        device_probe_plain,
+        gf2m_multiply,
+        gf2m_multiply_plain,
+        goldilocks_multiply,
+        goldilocks_multiply_plain,
+        m31_multiply,
+        m31_multiply_plain,
+    )
     from galois_tpu_torch.ops._kernels import get_ops
     from galois_tpu_torch.ops._linalg import balanced_plane_count, balanced_planes_np
     from galois_tpu_torch.ops._plane_matmul import (
@@ -199,7 +244,7 @@ def main() -> int:
         _build.load(name)
         return time.perf_counter() - t0
 
-    sources = ("plane_matmul", "lookup")
+    sources = ("plane_matmul", "lookup", "prime_mul", "probe")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         secs = dict(zip(sources, pool.map(build, sources)))
@@ -209,6 +254,41 @@ def main() -> int:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line.strip()}")
+
+    report = {}
+
+    def record(name, err, ms=None, plain_ms=None, bnd=None, library_ms=None):
+        r = report.setdefault(name, {"max_abs_err": 0, "ms": None, "plain_ms": None})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if ms is not None:
+            r["ms"], r["plain_ms"] = ms, plain_ms
+            r["bound_ms"], r["bound_by"] = bnd
+            # one PyTorch call that computes the same function, where there is one
+            r["library_ms"] = library_ms
+
+    launches = {}
+
+    # K11 first: a broken toolchain or CUDA runtime shows here, apart from any kernel's own fault
+    device_probe.launches = 0
+    block = torch.zeros((8, 1024), dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    got = device_probe(block)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches["device_probe"] = device_probe.launches
+    err = max_abs_err(got, device_probe_plain(block))
+    if device_probe.launches != 1 or err or int(got.min()) != 1 or int(got.max()) != 1:
+        raise AssertionError(f"K11 device_probe failed: launches {device_probe.launches}, max_abs_err {err}")
+    ms = cuda_ms(lambda: device_probe(block), 200)
+    pms = cuda_ms(lambda: device_probe_plain(block), 200)
+    lib = cuda_ms(lambda: torch.add(block, 1), 200)
+    record("device_probe", err, ms, pms, bound(2 * 4 * block.numel()), lib)
+    print(
+        f"[build] K11 device_probe (8, 1024) int32: every element 1, max_abs_err {err} | first launch "
+        f"{first_s * 1e3:.3f} ms host wall | launch latency {ms:.4f} ms per eager call (CUDA events) | "
+        f"plain x + 1 {pms:.4f} ms",
+        flush=True,
+    )
     GF8 = gt.GF(2**8)
     f8 = GF8._meta.irreducible_poly_int
     t0 = time.perf_counter()
@@ -218,16 +298,6 @@ def main() -> int:
     print(f"[build] triton gf2m_multiply (first launch): {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. kernels against their plain versions -------------------------
-    report = {}
-
-    def record(name, err, ms=None, plain_ms=None, bnd=None):
-        r = report.setdefault(name, {"max_abs_err": 0, "ms": None, "plain_ms": None})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if ms is not None:
-            r["ms"], r["plain_ms"] = ms, plain_ms
-            r["bound_ms"], r["bound_by"] = bnd
-            r["library_ms"] = None  # no single PyTorch call computes any of these kernels
-
     gen = torch.Generator(device=dev).manual_seed(0)
     a8 = torch.randint(0, 256, (2**24,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
     b8 = torch.randint(0, 256, (2**24,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
@@ -375,11 +445,48 @@ def main() -> int:
         del a, b, exp_t, log_t
         torch.cuda.empty_cache()
 
+    # K9 and K10: 2^24 (timed) and a ragged 1,000,003, edge values first
+    gold_edges = [0, 1, GOLDILOCKS - 1, 2**32 - 1, 2**32, 2**64 - 1, GOLDILOCKS, GOLDILOCKS + 5]
+    for n, reps in ((2**24, 50), (1_000_003, None)):
+        a = torch.randint(0, M31, (n,), generator=gen, device=dev)
+        b = torch.randint(0, M31, (n,), generator=gen, device=dev)
+        a[:6] = torch.tensor([0, 1, M31 - 1, M31 - 1, 0, 1], device=dev)
+        b[:6] = torch.tensor([M31 - 1, M31 - 1, M31 - 1, 1, 0, 1], device=dev)
+        # random limbs: values anywhere in [0, 2^64), canonical or not
+        A = torch.randint(0, 2**16, (4, n), generator=gen, device=dev).to(torch.uint16)
+        B = torch.randint(0, 2**16, (4, n), generator=gen, device=dev).to(torch.uint16)
+        A[:, : len(gold_edges)] = to_limbs(gold_edges, dev)
+        B[:, : len(gold_edges)] = to_limbs(gold_edges[::-1], dev)
+        B[:, len(gold_edges) : 2 * len(gold_edges)] = to_limbs(gold_edges, dev)
+        cases = [
+            ("m31_multiply", "K9", lambda: m31_multiply(a, b), lambda: m31_multiply_plain(a, b)),
+            ("goldilocks_multiply", "K10", lambda: goldilocks_multiply(A, B), lambda: goldilocks_multiply_plain(A, B)),
+        ]
+        for name, tag, kernel, plain in cases:
+            got = kernel()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain())
+            del got
+            timing = ""
+            if reps:
+                ms = graph_ms(kernel, reps)
+                pms = cuda_ms(plain, 5)
+                bnd = bound(24 * n)  # two operands in, one out, 8 bytes each
+                record(name, err, ms, pms, bnd)
+                timing = f" | kernel {ms:.4f} ms | plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})"
+            else:
+                record(name, err)
+            print(f"[kernel] {tag} {name} n={n}: max_abs_err {err}{timing}", flush=True)
+            if err:
+                raise AssertionError(f"{tag} disagrees with its plain version at n = {n}")
+        del a, b, A, B
+        torch.cuda.empty_cache()
+
     counters = (
         plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply,
         _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
+        m31_multiply, goldilocks_multiply, device_probe,
     )
-    launches = {}
 
     def read_counts(phase, needed):
         counts = {fn.__name__: fn.launches for fn in counters}
@@ -513,6 +620,118 @@ def main() -> int:
     torch.cuda.empty_cache()
     read_counts(2, (_lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log))
 
+    # -- 6. main path 3: large prime fields and batched Poly evaluation ----
+    for fn in counters:
+        fn.launches = 0
+    n_chk = 2**12
+    for p, n_elem, seeds in ((GOLDILOCKS, 2**24, (11, 12)), (M31, 2**24, (13, 14))):
+        F = gt.GF(p)
+        tag = "Goldilocks" if p == GOLDILOCKS else "GF(2^31-1)"
+        x = F.Random(n_elem, seed=seeds[0], device=dev)
+        y = F.Random(n_elem, seed=seeds[1], low=1, device=dev)
+        xs, ys = ints(x[:n_chk]), ints(y[:n_chk])
+        results = {"x * y": lambda: x * y, "x / y": lambda: x / y}
+        refs = {
+            "x * y": [u * v % p for u, v in zip(xs, ys)],
+            "x / y": [u * pow(v, -1, p) % p for u, v in zip(xs, ys)],
+        }
+        if p == GOLDILOCKS:
+            results.update({"x + y": lambda: x + y, "x - y": lambda: x - y, "np.reciprocal(y)": lambda: np.reciprocal(y)})
+            refs.update({
+                "x + y": [(u + v) % p for u, v in zip(xs, ys)],
+                "x - y": [(u - v) % p for u, v in zip(xs, ys)],
+                "np.reciprocal(y)": [pow(v, -1, p) for v in ys],
+            })
+        for label, fn in results.items():
+            k9, k10 = m31_multiply.launches, goldilocks_multiply.launches
+            out = fn()
+            torch.cuda.synchronize()
+            k9, k10 = m31_multiply.launches - k9, goldilocks_multiply.launches - k10
+            if out.shape != (n_elem,) or out.device != dev or ints(out[:n_chk]) != refs[label]:
+                raise AssertionError(f"{tag} {label} disagrees with the Python-int reference")
+            ms = cuda_ms(fn, 3)
+            print(f"[main] {tag} {label}, 2^24 elements: {ms:.4f} ms | K9 launches {k9}, K10 launches {k10} per call", flush=True)
+        del x, y
+        torch.cuda.empty_cache()
+
+        f = gt.Poly.Random(255, seed=seeds[0], field=F)
+        coeffs = ints(f.coefficients())
+        pts = F.Random(2**21, seed=seeds[1] + 100, device=dev)
+        k9, k10 = m31_multiply.launches, goldilocks_multiply.launches
+        t0 = time.perf_counter()
+        out = f(pts)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        k9, k10 = m31_multiply.launches - k9, goldilocks_multiply.launches - k10
+        if out.shape != (2**21,) or out.device != dev or ints(out[:n_chk]) != horner(coeffs, ints(pts[:n_chk]), p):
+            raise AssertionError(f"{tag} Poly evaluation disagrees with the Python-int Horner reference")
+        ms = cuda_ms(lambda: f(pts), 3)
+        print(
+            f"[main] {tag} Poly(degree 255)(x), 2^21 points: {ms:.3f} ms (first call {first_s * 1e3:.1f} ms) | "
+            f"K9 launches {k9}, K10 launches {k10} per call",
+            flush=True,
+        )
+        del pts, out
+        torch.cuda.empty_cache()
+    read_counts(3, (m31_multiply, goldilocks_multiply))
+
+    # Horner's inner step at its (16, 2^21) shape, outside the counted run.
+    # K9 and K10 against their plain versions on the operands the path gives
+    # them: x of shape (1, 2^21) goes in with its period (the kernels' 2-D
+    # grid). Then where the step's time goes: the multiply with the period,
+    # the multiply with x materialized to (16, 2^21) first (copy included),
+    # the torch add beside it; and a whole evaluation both ways.
+    for p, name, tag, plain in (
+        (GOLDILOCKS, "goldilocks_multiply", "K10", goldilocks_multiply_plain),
+        (M31, "m31_multiply", "K9", m31_multiply_plain),
+    ):
+        F = gt.GF(p)
+        ops = get_ops(F._meta, F._mode)
+        acc = F.Random((16, 2**21), seed=15, device=dev)._data
+        lead = acc.ndim - 2  # the planar limb axis, if any
+        xb = F.Random((1, 2**21), seed=16, device=dev)._data
+        cj = F.Random((16, 1), seed=17, device=dev)._data
+        got = ops.multiply(acc, xb)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain(acc, xb))
+        del got
+        record(name, err)
+        field = "Goldilocks" if p == GOLDILOCKS else "GF(2^31-1)"
+        shape = f"16 x 2^21{' (4 limb planes)' if lead else ''}"
+        print(f"[kernel] {tag} {name} {shape} times x of 1 x 2^21 by its period: max_abs_err {err}", flush=True)
+        if err:
+            raise AssertionError(f"{tag} disagrees with its plain version at Horner's inner-step shape")
+        mul_ms = cuda_ms(lambda: ops.multiply(acc, xb), 10)
+        full_ms = cuda_ms(lambda: ops.multiply(acc, xb.expand(acc.shape).contiguous()), 10)
+        add_ms = cuda_ms(lambda: ops.add(acc, cj), 10)
+        print(
+            f"[main] {field} Horner inner step at {shape}: multiply {mul_ms:.4f} ms with x by its period, "
+            f"{full_ms:.4f} ms with x materialized; add {add_ms:.4f} ms",
+            flush=True,
+        )
+        del acc, xb, cj
+
+        f = gt.Poly.Random(255, seed=18, field=F)
+        pts = F.Random(2**21, seed=19, device=dev)
+        want = f(pts)
+        per_ms = cuda_ms(lambda: f(pts), 3)
+        saved = _elementwise._MIN_PERIOD
+        _elementwise._MIN_PERIOD = 2**63  # every broadcast operand materialized
+        try:
+            same = torch.equal(f(pts)._data, want._data)
+            full_ms = cuda_ms(lambda: f(pts), 3)
+        finally:
+            _elementwise._MIN_PERIOD = saved
+        if not same:
+            raise AssertionError(f"{field} Poly evaluation differs with the broadcast materialized")
+        print(
+            f"[main] {field} Poly(degree 255)(x), 2^21 points: {per_ms:.3f} ms with x by its period, "
+            f"{full_ms:.3f} ms with every broadcast materialized",
+            flush=True,
+        )
+        del pts, want
+        torch.cuda.empty_cache()
+
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),
         "plane_matmul_data_left": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:261"),
@@ -521,6 +740,9 @@ def main() -> int:
         "lookup_divide": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:341"),
         "lookup_reciprocal": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:358"),
         "lookup_log": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:372"),
+        "m31_multiply": ("cuda", "galois_tpu_torch/csrc/prime_mul.cu", "galois_tpu/ops/_pallas/_elementwise.py:89"),
+        "goldilocks_multiply": ("cuda", "galois_tpu_torch/csrc/prime_mul.cu", "galois_tpu/ops/_pallas/_elementwise.py:186"),
+        "device_probe": ("cuda", "galois_tpu_torch/csrc/probe.cu", "galois_tpu/ops/_pallas/_elementwise.py:73"),
     }
     kernels = [
         {"name": name, "route": route, "source": src, "replaces": rep, "launches": launches[name], **report[name]}

@@ -1,14 +1,17 @@
 """galois_tpu_torch: the PyTorch and CUDA port of galois_tpu.
 
-Finite-field arrays over torch tensors (GF(p), GF(2^m) and GF(p^m) with
-p^m <= 2^31, in 'jit-calculate' and, for orders <= 2^20, 'jit-lookup'
-mode) and the number-theoretic transform over prime fields. New data goes
+Finite-field arrays over torch tensors (GF(p) of any size, GF(2^m) with
+m <= 32 and GF(p^m) with p^m <= 2^31, in 'jit-calculate' and, for orders
+<= 2^20, 'jit-lookup' mode), polynomials over them (``Poly``, with batched
+evaluation) and the number-theoretic transform over prime fields up to
+2^32. New data goes
 to CUDA unless the caller asks for the CPU (``set_default_device``,
 ``default_device``, or ``device=``). The public names and results match the
 JAX package ``galois_tpu``; this package imports neither jax nor
-galois_tpu. On CUDA tensors the NTT's two matmul sides and the lookup
-tables' gathers run hand-written CUDA C++ kernels and GF(2^m) multiply a
-Triton kernel; CPU tensors take the kernels' plain torch versions.
+galois_tpu. On CUDA tensors the NTT's two matmul sides, the lookup tables'
+gathers and the GF(2^31 - 1) and Goldilocks multiplies run hand-written
+CUDA C++ kernels and GF(2^m) multiply a Triton kernel; CPU tensors take the
+kernels' plain torch versions.
 """
 
 from ._options import (
@@ -20,6 +23,7 @@ from ._options import (
 )
 from . import typing
 from .fields import GF, GF2, Field, FieldArray, FieldArrayMeta
+from .polys import Poly
 from .nt import (
     carmichael_lambda,
     crt,

@@ -1,27 +1,33 @@
 """FieldArray: the user-facing array class, over a ``torch.Tensor``.
 
 Port of ``galois_tpu/fields/_array.py``. An instance wraps one tensor in the
-field's int storage (``FieldMeta.torch_dtype``). Host input goes to the
+field's storage (``FieldMeta.torch_dtype``): one integer per element, or
+for GF(p) with p > 2^32 planar uint16 limbs of shape (L, *shape), the limb
+axis leading as in the JAX package; ``shape``, indexing, reshapes and
+broadcasting act on the element axes only. Host input goes to the
 ``device=`` argument or, when it is None, to the package's default device
 (``_options.py``, CUDA unless the caller asks for the CPU); every result
 stays on its inputs' device. Arithmetic runs eagerly through the ops object
 of the field and its ufunc mode (``ops/_kernels.py::get_ops``).
 
 NumPy interop matches the JAX package: ``np.asarray(x)`` gives the integer
-representation in ``meta.internal_dtype``, ``np.multiply(x, y)`` and friends
+representation in the array's dtype (an object array of Python ints for
+orders above 2^63), ``np.multiply(x, y)`` and friends
 go through ``__array_ufunc__``, and ``np.fft.fft``/``np.fft.ifft`` through
 ``__array_function__``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from .._options import resolve_device
-from ._meta import FieldMeta
+from ..ops._limbs import align_planar, normalize_limbs
+from ._meta import STORAGE_INT, FieldMeta, int_to_limbs
 
 __all__ = ["FieldArray", "FieldArrayMeta"]
 
@@ -40,14 +46,47 @@ def _ints_to_storage(meta: FieldMeta, arr: np.ndarray, device=None) -> torch.Ten
     """NumPy array of int reprs (any integer or object dtype, values in
     [0, order)) -> storage tensor on ``device`` (None: the default device)."""
     device = resolve_device(device)
-    np_dt = np.uint8 if meta.torch_dtype == torch.uint8 else np.int64
-    host = np.asarray(arr).astype(np.int64).astype(np_dt, order="C")
+    arr = np.asarray(arr)
+    if meta.storage == STORAGE_INT:
+        np_dt = np.uint8 if meta.torch_dtype == torch.uint8 else np.int64
+        host = arr.astype(np.int64).astype(np_dt, order="C")
+    else:
+        host = _ints_to_limbs(meta.storage_width, arr)
     return torch.from_numpy(host).to(device)
 
 
-def _storage_to_ints(data: torch.Tensor) -> np.ndarray:
-    """Storage tensor (any device) -> int64 NumPy array of int reprs."""
-    return data.cpu().numpy().astype(np.int64)
+def _ints_to_limbs(L: int, arr: np.ndarray) -> np.ndarray:
+    """Int reprs -> planar (L, *shape) uint16 limbs, little-endian. Values
+    below 2^64 (L <= 4) split in NumPy uint64; larger ones in object-array
+    ops, one vectorized pass per limb."""
+    out = np.empty((L,) + arr.shape, dtype=np.uint16)
+    if L <= 4:
+        x = arr.astype(np.uint64)
+        for k in range(L):
+            out[k] = (x >> np.uint64(16 * k)) & np.uint64(0xFFFF)
+        return out
+    v = arr.reshape(-1).astype(object)
+    for k in range(L):
+        out[k] = (v & 0xFFFF).astype(np.uint16).reshape(arr.shape)
+        v = v >> 16
+    return out
+
+
+def _storage_to_ints(meta: FieldMeta, data: torch.Tensor) -> np.ndarray:
+    """Storage tensor (any device) -> NumPy array of int reprs: int64, or
+    object (Python ints) for orders above 2^63, as the JAX package."""
+    host = data.cpu().numpy()
+    if meta.storage == STORAGE_INT:
+        return host.astype(np.int64)
+    if host.shape[0] <= 4:
+        x = np.zeros(host.shape[1:], dtype=np.uint64)
+        for k in range(host.shape[0]):
+            x |= host[k].astype(np.uint64) << np.uint64(16 * k)
+        return x.astype(np.int64) if meta.order <= 2**63 else x.astype(object)
+    acc = np.zeros(host.shape[1:], dtype=object)
+    for k in reversed(range(host.shape[0])):
+        acc = acc * 65536 + host[k].astype(object)
+    return np.asarray(acc, dtype=object)
 
 
 # ----------------------------------------------------------------------
@@ -79,6 +118,12 @@ class FieldArrayMeta(type):
         return cls._meta.order
 
     @property
+    def irreducible_poly(cls):
+        from ..polys._poly import Poly
+
+        return Poly.Int(cls._meta.irreducible_poly_int, field=cls.prime_subfield)
+
+    @property
     def primitive_element(cls) -> "FieldArray":
         return cls(cls._meta.primitive_element_int)
 
@@ -88,7 +133,8 @@ class FieldArrayMeta(type):
 
     @property
     def default_dtype(cls):
-        return np.dtype(cls._meta.dtypes[0])
+        d = cls._meta.dtypes[0]
+        return np.object_ if d is np.object_ else np.dtype(d)
 
     @property
     def is_prime_field(cls) -> bool:
@@ -139,10 +185,11 @@ class FieldArrayMeta(type):
 
 class FieldArray(metaclass=FieldArrayMeta):
     """An array over GF(p^m). Instances wrap a torch.Tensor in the field's
-    int storage; the class (manufactured by ``GF()``) carries the static
-    field descriptor. ``device`` places host input (None: the package's
-    default device); tensor and FieldArray input stays where it is unless
-    ``device`` is given."""
+    storage; the class (manufactured by ``GF()``) carries the static field
+    descriptor. ``device`` places host input (None: the package's default
+    device); tensor and FieldArray input stays where it is unless ``device``
+    is given. A tensor is taken as storage, unverified: int reprs for int
+    storage, planar (L, *shape) limbs for limb storage."""
 
     _meta: FieldMeta = None
     _mode: str = None
@@ -154,8 +201,10 @@ class FieldArray(metaclass=FieldArrayMeta):
                 "FieldArray is abstract; create a concrete field with GF(p**m)."
             )
         data = _convert_to_storage(cls, x, device)
-        if ndmin and data.ndim < ndmin:
-            data = data.reshape((1,) * (ndmin - data.ndim) + tuple(data.shape))
+        lead = cls._storage_ndim()
+        if ndmin and data.ndim - lead < ndmin:
+            pad = (1,) * (ndmin - data.ndim + lead)
+            data = data.reshape(tuple(data.shape[:lead]) + pad + tuple(data.shape[lead:]))
         self._data = data
         self._dtype = _validate_dtype(cls, dtype)
 
@@ -167,29 +216,34 @@ class FieldArray(metaclass=FieldArrayMeta):
         obj._dtype = dtype if dtype is not None else cls.default_dtype
         return obj
 
+    @classmethod
+    def _storage_ndim(cls) -> int:
+        """1 for planar limb storage (the leading limb axis), else 0."""
+        return 0 if cls._meta.storage == STORAGE_INT else 1
+
     # ------------------------------------------------------------------
     # Alternate constructors
     # ------------------------------------------------------------------
 
     @classmethod
     def from_numpy(cls, arr: np.ndarray, dtype=None, *, device=None) -> "FieldArray":
-        """Integer ndarray of int reprs -> FieldArray on ``device``.
+        """Integer or object ndarray of int reprs -> FieldArray on ``device``.
 
-        Takes ``np.asarray`` of a ``galois_tpu`` array of the same field; the
-        range check is vectorized, so this is the fast path for large host
-        data."""
+        Takes ``np.asarray`` of a ``galois_tpu`` array of the same field (an
+        object array of Python ints above order 2^63); the range check and
+        the limb split are vectorized, so this is the fast path for large
+        host data."""
         arr = np.asarray(arr)
-        if not np.issubdtype(arr.dtype, np.integer):
+        if arr.dtype != object and not np.issubdtype(arr.dtype, np.integer):
             raise TypeError(f"{cls.name} arrays must have integer dtypes, not {arr.dtype}.")
         _check_range(cls, arr)
         return cls._view(_ints_to_storage(cls._meta, arr, device), _validate_dtype(cls, dtype))
 
     @classmethod
     def Zeros(cls, shape, dtype=None, *, device=None) -> "FieldArray":
-        return cls._view(
-            torch.zeros(_as_shape(shape), dtype=cls._meta.torch_dtype, device=resolve_device(device)),
-            _validate_dtype(cls, dtype),
-        )
+        full = (cls._meta.storage_width,) * cls._storage_ndim() + _as_shape(shape)
+        zeros = torch.zeros(full, dtype=torch.int64, device=resolve_device(device))
+        return cls._view(zeros.to(cls._meta.torch_dtype), _validate_dtype(cls, dtype))
 
     @classmethod
     def Random(
@@ -199,12 +253,16 @@ class FieldArray(metaclass=FieldArrayMeta):
         ``device`` (None: the default device). Pass a ``torch.Generator`` on
         that device, or a ``seed`` from which one is made. The numbers differ
         from the JAX package's ``Random`` for the same seed: tests make shared
-        inputs with NumPy."""
+        inputs with NumPy. Limb fields draw their limbs on the device too,
+        with rejection of the draws at or above high - low."""
         high = cls.order if high is None else int(high)
         device = resolve_device(device)
         if generator is None and seed is not None:
             generator = torch.Generator(device=device)
             generator.manual_seed(int(seed))
+        if cls._storage_ndim():
+            data = _random_limbs(cls._meta.storage_width, int(low), high, _as_shape(shape), generator, device)
+            return cls._view(data.to(cls._meta.torch_dtype), _validate_dtype(cls, dtype))
         data = torch.randint(
             int(low), high, _as_shape(shape), generator=generator, device=device, dtype=torch.int64
         )
@@ -216,15 +274,15 @@ class FieldArray(metaclass=FieldArrayMeta):
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        return tuple(self._data.shape)
+        return tuple(self._data.shape[self._storage_ndim() :])
 
     @property
     def ndim(self) -> int:
-        return self._data.ndim
+        return self._data.ndim - self._storage_ndim()
 
     @property
     def size(self) -> int:
-        return self._data.numel()
+        return math.prod(self.shape)
 
     @property
     def dtype(self):
@@ -240,12 +298,15 @@ class FieldArray(metaclass=FieldArrayMeta):
         return self.shape[0]
 
     def __getitem__(self, index) -> "FieldArray":
+        if self._storage_ndim():
+            index = _expand_index(index, self.ndim)
         return type(self)._view(self._data[index], self._dtype)
 
     def reshape(self, *shape) -> "FieldArray":
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
-        return type(self)._view(self._data.reshape(tuple(int(s) for s in shape)), self._dtype)
+        lead = tuple(self._data.shape[: self._storage_ndim()])
+        return type(self)._view(self._data.reshape(lead + tuple(int(s) for s in shape)), self._dtype)
 
     def copy(self) -> "FieldArray":
         return type(self)._view(self._data.clone(), self._dtype)
@@ -254,7 +315,8 @@ class FieldArray(metaclass=FieldArrayMeta):
         return type(self)._view(self._data, _validate_dtype(type(self), dtype))
 
     def item(self):
-        return int(self._data.reshape(-1)[0].item())
+        first = self._data.reshape(tuple(self._data.shape[: self._storage_ndim()]) + (-1,))[..., 0]
+        return int(_storage_to_ints(self._meta, first))
 
     def __int__(self):
         if self.ndim != 0:
@@ -265,7 +327,7 @@ class FieldArray(metaclass=FieldArrayMeta):
         return self.__int__()
 
     def __array__(self, dtype=None, copy=None):
-        ints = _storage_to_ints(self._data)
+        ints = _storage_to_ints(self._meta, self._data)
         return ints.astype(dtype if dtype is not None else self._dtype)
 
     # ------------------------------------------------------------------
@@ -360,6 +422,10 @@ class FieldArray(metaclass=FieldArrayMeta):
             o = self._coerce(other)
         except (TypeError, ValueError):
             return NotImplemented
+        if self._storage_ndim():
+            # planar limbs: align the element axes behind the limb axis
+            a, b = align_planar(self._data.to(torch.int32), o._data.to(torch.int32))
+            return (a == b).all(dim=0).cpu().numpy()
         return (self._data == o._data).cpu().numpy()
 
     def __ne__(self, other):
@@ -437,7 +503,7 @@ class FieldArray(metaclass=FieldArrayMeta):
         return self._to_string()
 
     def _to_string(self) -> str:
-        arr = _storage_to_ints(self._data)
+        arr = _storage_to_ints(self._meta, self._data)
         if not arr.shape:
             return str(int(arr))
         return np.array2string(arr, separator=", ")
@@ -449,34 +515,79 @@ class FieldArray(metaclass=FieldArrayMeta):
 
 def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
     """x ** e for an integer ndarray exponent of any magnitude and sign:
-    e is reduced mod q-1 on the host (q - 1 < 2^32 for int storage), with
-    NumPy's non-negative remainder for integer dtypes and Python ints for
-    object arrays."""
+    e is reduced mod q-1 on the host, with NumPy's non-negative remainder
+    for integer dtypes (q - 1 < 2^32 for int storage) and Python ints
+    otherwise. Limb fields pass the reduced exponent as 62-bit words."""
     cls = type(x)
     meta = cls._meta
     q1 = meta.order - 1
-    if e.dtype == object:
-        if (e < 0).any():
-            _check_div_by_zero(x)
-        red = np.frompyfunc(lambda v: int(v) % q1, 1, 1)(e).astype(np.int64)
-    elif np.issubdtype(e.dtype, np.unsignedinteger):
-        red = (e.astype(np.uint64) % np.uint64(q1)).astype(np.int64)
-    else:
-        if (e < 0).any():
-            _check_div_by_zero(x)
-        red = e.astype(np.int64) % q1
+    nbits = max(1, q1.bit_length())
     ops = _get_ops(meta, cls._mode)
-    e_t = torch.as_tensor(red, device=x.device)
-    out = ops.power(x._data, e_t, nbits=max(1, q1.bit_length()))
+    if (e < 0).any():
+        _check_div_by_zero(x)
+    if e.dtype == object or meta.storage != STORAGE_INT:
+        red = np.frompyfunc(lambda v: int(v) % q1, 1, 1)(e.astype(object))
+        words = []
+        for s in range(0, nbits, 62):
+            w = np.frompyfunc(lambda v: (v >> s) & (2**62 - 1), 1, 1)(red)
+            words.append(torch.as_tensor(np.asarray(w).astype(np.int64), device=x.device))
+        out = ops.power_words(x._data, words, nbits) if len(words) > 1 else ops.power(x._data, words[0], nbits)
+    else:
+        if np.issubdtype(e.dtype, np.unsignedinteger):
+            red = (e.astype(np.uint64) % np.uint64(q1)).astype(np.int64)
+        else:
+            red = e.astype(np.int64) % q1
+        out = ops.power(x._data, torch.as_tensor(red, device=x.device), nbits=nbits)
     # 0^e = 0 for e != 0 (the reduction mod q-1 may have zeroed e).
     zero_fix = ops.is_zero(x._data) & torch.as_tensor(e != 0, device=x.device)
-    out = torch.where(zero_fix, torch.zeros_like(out), out)
-    return cls._view(out, x._dtype)
+    return cls._view(ops.zero_where(zero_fix, out), x._dtype)
 
 
 # ----------------------------------------------------------------------
 # Helpers
 # ----------------------------------------------------------------------
+
+def _expand_index(index, ndim: int):
+    """An index of the element axes -> an index of planar storage: the
+    leading limb axis is kept whole, and an ellipsis is expanded so that it
+    cannot swallow it."""
+    if not isinstance(index, tuple):
+        index = (index,)
+    if any(ix is Ellipsis for ix in index):
+        pos = index.index(Ellipsis)
+        n_specified = sum(1 for ix in index if ix is not None and ix is not Ellipsis)
+        index = index[:pos] + (slice(None),) * (ndim - n_specified) + index[pos + 1 :]
+    return (slice(None),) + index
+
+
+def _random_limbs(L: int, low: int, high: int, shape, generator, device) -> torch.Tensor:
+    """Uniform int reprs in [low, high) as int64 limbs (L, *shape), drawn on
+    ``device``: limbs of span - 1's bit length, and redraws of the values at
+    or above the span (fewer than half of them per round)."""
+    span = high - low
+    if span < 1:
+        raise ValueError(f"Argument 'high' must be larger than 'low', not {high} <= {low}.")
+    bits = (span - 1).bit_length()
+    masks = torch.tensor([(1 << min(max(bits - 16 * k, 0), 16)) - 1 for k in range(L)], device=device)
+    span_limbs = torch.tensor(int_to_limbs(span, L), device=device).reshape(L, 1)
+
+    def draw(n):
+        r = torch.randint(0, 2**16, (L, n), generator=generator, device=device, dtype=torch.int64)
+        return r & masks.reshape(L, 1)
+
+    def at_or_above_span(v):
+        return normalize_limbs(v - span_limbs)[1] == 0  # no borrow out of v - span
+
+    v = draw(math.prod(shape))
+    bad = at_or_above_span(v)
+    while bool(bad.any()):
+        idx = bad.nonzero().reshape(-1)
+        v[:, idx] = draw(idx.numel())
+        bad = torch.zeros_like(bad)
+        bad[idx] = at_or_above_span(v[:, idx])
+    v, _ = normalize_limbs(v + torch.tensor(int_to_limbs(low, L), device=device).reshape(L, 1))
+    return v.reshape((L,) + tuple(shape))
+
 
 def _as_shape(shape) -> Tuple[int, ...]:
     if isinstance(shape, (int, np.integer)):
@@ -487,8 +598,12 @@ def _as_shape(shape) -> Tuple[int, ...]:
 def _validate_dtype(cls, dtype):
     if dtype is None:
         return cls.default_dtype
+    if dtype is np.object_ or np.dtype(dtype) == np.dtype(object):
+        if np.object_ not in cls._meta.dtypes:
+            raise TypeError(f"Argument 'dtype' must be in {cls.dtypes}, not object.")
+        return np.object_
     dt = np.dtype(dtype)
-    if not any(dt == np.dtype(d) for d in cls._meta.dtypes):
+    if not any(dt == np.dtype(d) for d in cls._meta.dtypes if d is not np.object_):
         raise TypeError(
             f"Argument 'dtype' must be in {[np.dtype(d).name for d in cls._meta.dtypes]}, "
             f"not {dt.name!r}."
@@ -508,11 +623,17 @@ def _is_integer_like(x) -> bool:
 
 
 def _check_range(cls, arr: np.ndarray) -> None:
-    """Raise ValueError naming the first value outside [0, order)."""
+    """Raise ValueError naming the first value outside [0, order); object
+    arrays must hold integers."""
+    flat = arr.reshape(-1)
     if arr.dtype == object:
-        bad = [int(v) for v in arr.reshape(-1) if not 0 <= int(v) < cls._meta.order]
+        if not all(isinstance(v, (int, np.integer)) for v in flat):
+            raise TypeError(f"{cls.name} arrays must hold integers.")
+        order = cls._meta.order
+        bad = [int(v) for v in flat[np.asarray((flat < 0) | (flat >= order), dtype=bool)][:1]]
+    elif np.iinfo(arr.dtype).max < cls._meta.order:  # only negatives can be out of range
+        bad = flat[flat < 0][:1].tolist()
     else:
-        flat = arr.reshape(-1)
         bad = flat[(flat < 0) | (flat >= cls._meta.order)][:1].tolist()
     if bad:
         raise ValueError(
@@ -528,7 +649,13 @@ def _convert_to_storage(cls, x, device) -> torch.Tensor:
             raise TypeError(f"Cannot convert {type(x).name} array to {cls.name}.")
         return x._data.to(device) if device is not None else x._data
     if isinstance(x, torch.Tensor):
-        # Trusted device input: int reprs already in [0, order), not verified.
+        # Trusted device input, not verified: int reprs in [0, order), or
+        # planar limbs with the leading limb axis.
+        if cls._storage_ndim() and (x.ndim < 1 or x.shape[0] != meta.storage_width):
+            raise ValueError(
+                f"Tensor input to {cls.name} must have a leading (planar) limb axis of length "
+                f"{meta.storage_width}, not shape {tuple(x.shape)}."
+            )
         data = x.to(meta.torch_dtype)
         return data.to(device) if device is not None else data
     arr = _parse_host(cls, x)
@@ -563,5 +690,5 @@ def _parse_nested(cls, x):
 
 
 def _check_div_by_zero(x: FieldArray):
-    if bool((x._data == 0).any()):
+    if bool(_get_ops(x._meta, x._mode).is_zero(x._data).any()):
         raise ZeroDivisionError("Cannot compute the multiplicative inverse of 0 in a Galois field.")

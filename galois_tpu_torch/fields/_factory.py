@@ -87,19 +87,19 @@ def Field(*args, **kwargs):
 
 
 def _poly_like_to_int(poly, p: int) -> int:
-    """An irreducible-poly argument (int, str or coefficient sequence,
+    """An irreducible-poly argument (int, str, Poly or coefficient sequence,
     descending degrees) -> its integer representation over GF(p)."""
+    from ..polys._poly import Poly
+
     if isinstance(poly, (int, np.integer)):
         return int(poly)
     if isinstance(poly, str):
         return str_to_integer(poly, p)
+    if isinstance(poly, Poly):
+        return int(poly)
     if isinstance(poly, (list, tuple, np.ndarray)):
         return poly_to_integer([int(c) for c in poly], p)
-    raise NotImplementedError(
-        f"Argument 'irreducible_poly' of type {type(poly).__name__} is not ported: give an int, "
-        "a str or a coefficient list (a Poly argument waits for the Poly layer, ROADMAP.md, "
-        "queue 1 item 4)."
-    )
+    raise TypeError(f"Cannot interpret {type(poly)} as an irreducible polynomial.")
 
 
 def _element_like_to_int(element, p: int) -> int:

@@ -2,15 +2,23 @@
 
 The port's counterpart of ``galois_tpu/fields/_meta.py``. It keeps the field
 parameters, the device storage format and the host constants built from
-them. Only int storage (one integer per element) is ported: GF(p) with
-p <= 2^32, GF(2^m) with m <= 32 and GF(p^m), p odd, with p^m <= 2^31. The
-digit and limb storage kinds of the JAX package are still to be ported.
+them. Two storage kinds are ported:
 
-Storage dtypes follow torch's integer support: ``torch.uint8`` for order
-<= 2^8, else ``torch.int64``. torch's ``uint16``/``uint32`` lack ``+``,
-``>>``, ``%`` and ``<``, so the JAX package's u16/u32 storage does not carry
-over. ``internal_dtype`` stays the JAX package's NumPy dtype: it is what
-``np.asarray`` of an array returns.
+- int storage, one integer per element: GF(p) with p <= 2^32, GF(2^m) with
+  m <= 32 and GF(p^m), p odd, with p^m <= 2^31. Its dtypes follow torch's
+  integer support: ``torch.uint8`` for order <= 2^8, else ``torch.int64``
+  (torch's ``uint16``/``uint32`` lack ``+``, ``>>``, ``%`` and ``<``, so the
+  JAX package's u16/u32 int storage does not carry over);
+- limb storage, GF(p) with p > 2^32: L little-endian base-2^16 limbs per
+  element in ``torch.uint16``, PLANAR, with the limb axis leading, shape
+  (L, *shape), exactly the JAX package's layout. The arithmetic widens the
+  limbs to int64 (``ops/_kernels.py``); the Goldilocks multiply kernel K10
+  reads the planes as they are, 8 bytes per element.
+
+The digit storage of odd extension fields above 2^31 and the limb storage
+of GF(2^m), m > 32, are still to be ported. ``internal_dtype`` stays the
+JAX package's NumPy dtype: with ``dtypes`` it decides what ``np.asarray``
+of an array returns (object arrays of Python ints above 2^63).
 """
 
 from __future__ import annotations
@@ -32,6 +40,10 @@ DTYPES = [np.uint8, np.uint16, np.uint32, np.int8, np.int16, np.int32, np.int64]
 LOOKUP_TABLE_MAX_ORDER = 2**20
 
 STORAGE_INT = "int"  # one integer per element
+STORAGE_LIMBS = "limbs"  # (L, ...) planar base-2^16 limbs, limb axis leading
+
+LIMB_BITS = 16
+LIMB_BASE = 1 << LIMB_BITS
 
 
 class FieldMeta:
@@ -59,18 +71,31 @@ class FieldMeta:
         self.is_extension_field = m > 1
 
         q = self.order
-        int_storage = q <= 2**32 if m == 1 else (m <= 32 if p == 2 else q <= 2**31)
-        if not int_storage:
+        if p == 2 and m > 32:
             raise NotImplementedError(
-                f"GF({p}^{m}) needs digit or limb storage, which the torch port does not "
-                "have yet (ROADMAP.md, queue 1 item 6)."
+                f"GF(2^{m}) needs the limb storage of binary fields (LimbBinaryOps), which the "
+                "torch port does not have yet (ROADMAP.md, queue 1 item 6)."
             )
-        self.storage = STORAGE_INT
-        self.internal_dtype = np.uint32 if q > 2**16 else (np.uint16 if q > 2**8 else np.uint8)
-        self.torch_dtype = torch.uint8 if q <= 2**8 else torch.int64
+        if m > 1 and p > 2 and q > 2**31:
+            raise NotImplementedError(
+                f"GF({p}^{m}) needs digit storage, which the torch port does not have yet "
+                "(ROADMAP.md, queue 1 item 6)."
+            )
+        if m == 1 and q > 2**32:
+            self.storage = STORAGE_LIMBS
+            self.internal_dtype = np.uint16
+            self.torch_dtype = torch.uint16
+            self.storage_width = -(-(q - 1).bit_length() // LIMB_BITS)
+        else:
+            self.storage = STORAGE_INT
+            self.internal_dtype = np.uint32 if q > 2**16 else (np.uint16 if q > 2**8 else np.uint8)
+            self.torch_dtype = torch.uint8 if q <= 2**8 else torch.int64
+            self.storage_width = 0  # scalar storage, no limb axis
+        # True when the storage axis leads (planar limbs).
+        self.storage_first = self.storage == STORAGE_LIMBS
 
         # Valid external dtypes are those that can hold order-1.
-        self.dtypes = [d for d in DTYPES if np.iinfo(d).max >= q - 1]
+        self.dtypes = [d for d in DTYPES if np.iinfo(d).max >= q - 1] or [np.object_]
         self.default_ufunc_mode = "jit-calculate"
         # GF(2) has no lookup mode: its bitwise ops are already optimal.
         self.ufunc_modes = (
@@ -121,6 +146,21 @@ class FieldMeta:
             rows.append(cur[:])
         return np.array(rows, dtype=np.int64)
 
+    @functools.cached_property
+    def limb_count(self) -> int:
+        return self.storage_width if self.storage == STORAGE_LIMBS else 0
+
+    @functools.cached_property
+    def prime_limbs(self) -> np.ndarray:
+        """p as base-2^16 limbs, little-endian, length limb_count."""
+        return int_to_limbs(self.characteristic, self.limb_count)
+
+    @functools.cached_property
+    def barrett_mu_limbs(self) -> np.ndarray:
+        """floor(4^(16*L) / p) as L + 1 limbs, for Barrett reduction."""
+        L = self.limb_count
+        return int_to_limbs((1 << (2 * LIMB_BITS * L)) // self.characteristic, L + 1)
+
     def int_to_digits(self, x: int) -> List[int]:
         """Int repr -> base-p digits ascending, length m."""
         p, m = self.characteristic, self.degree
@@ -129,3 +169,21 @@ class FieldMeta:
     def digits_to_int(self, digits) -> int:
         p = self.characteristic
         return sum(int(d) * p**i for i, d in enumerate(digits))
+
+
+def int_to_limbs(x: int, count: int) -> np.ndarray:
+    """Python int -> little-endian base-2^16 limb array (int64) of length `count`."""
+    limbs = []
+    for _ in range(count):
+        limbs.append(x & (LIMB_BASE - 1))
+        x >>= LIMB_BITS
+    if x:
+        raise OverflowError("integer does not fit in the requested limb count")
+    return np.array(limbs, dtype=np.int64)
+
+
+def limbs_to_int(limbs) -> int:
+    x = 0
+    for i, limb in enumerate(limbs):
+        x |= int(limb) << (LIMB_BITS * i)
+    return x

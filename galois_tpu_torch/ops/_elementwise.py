@@ -1,6 +1,14 @@
-"""Kernel K7: GF(2^m) elementwise multiply, m <= 16, in Triton.
+"""Elementwise field kernels: K7 (GF(2^m) multiply, Triton), K9 and K10
+(prime-field multiplies, CUDA C++ in ``csrc/prime_mul.cu``) and K11 (the
+device probe, ``csrc/probe.cu``).
 
-Replaces ``gf2m_multiply_pallas`` (``galois_tpu/ops/_pallas/_elementwise.py:493``):
+Each wrapper serves CPU tensors with its plain torch version, launches its
+kernel for CUDA tensors and counts the launch in ``<wrapper>.launches``, and
+raises on anything else. The CUDA sources' heads say what bounds K9-K11 on
+the H100 and how their design differs from the TPU's. K10's plain version
+uses the int64 limb helpers of ``ops/_limbs.py``, as ``LimbPrimeOps`` does.
+
+K7 replaces ``gf2m_multiply_pallas`` (``galois_tpu/ops/_pallas/_elementwise.py:493``):
 an m-step shift-AND-XOR carry-less product, then reduction by f from bit
 2m - 2 down to bit m. It is the kernel behind ``BinaryExtOps.multiply`` for
 int storage, so the headline GF(2^8) multiply runs on it.
@@ -24,11 +32,27 @@ on machines without Triton; there the wrapper serves CPU tensors only.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import torch
 
-__all__ = ["gf2m_multiply", "gf2m_multiply_plain"]
+from ._limbs import align_planar, mul_limbs, normalize_limbs
+
+__all__ = [
+    "gf2m_multiply",
+    "gf2m_multiply_plain",
+    "m31_multiply",
+    "m31_multiply_plain",
+    "goldilocks_multiply",
+    "goldilocks_multiply_plain",
+    "device_probe",
+    "device_probe_plain",
+]
+
+M31 = 2**31 - 1
+GOLDILOCKS_P = 2**64 - 2**32 + 1
 
 _BLOCK = 1024
 
@@ -104,3 +128,182 @@ def gf2m_multiply(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> torch
 
 
 gf2m_multiply.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K9 and K10: prime-field multiplies (csrc/prime_mul.cu)
+# ----------------------------------------------------------------------
+
+# Below this period the broadcast operand is materialized instead: the
+# kernel's grid covers one period per block row.
+_MIN_PERIOD = 4096
+
+
+def m31_multiply_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^31 - 1 for int64 storage (broadcast): the int64 product
+    (< 2^62) and ``%``."""
+    return a.to(torch.int64) * b.to(torch.int64) % M31
+
+
+def goldilocks_multiply_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Goldilocks product of planar (4, ...) uint16 limb tensors, as
+    ``GoldilocksOps.multiply_t`` of the JAX package: the 4 x 4 schoolbook
+    product of 16-bit limbs carry-normalized to 8 digits g, then the folds
+    2^64 = 2^32 - 1 and 2^96 = -1 (mod p) in signed 16-bit columns and one
+    conditional subtract of p. Any 64-bit operands, also those in
+    [p, 2^64), give the canonical residue."""
+    a, b = align_planar(a, b)
+    g = mul_limbs(a.to(torch.int64), b.to(torch.int64))  # < 2^128: 8 digits
+    cols = torch.stack([g[0] - g[4] - g[6], g[1] - g[5] - g[7], g[2] + g[4], g[3] + g[5]])
+    nd = cols.ndim - 1
+    fold = torch.tensor([-1, 0, 1, 0], device=cols.device).reshape((4,) + (1,) * nd)
+    for _ in range(2):
+        cols, carry = normalize_limbs(cols)
+        cols = cols + carry * fold  # carry * 2^64 = carry * (2^32 - 1)
+    cols, _ = normalize_limbs(cols)  # the end carry is 0 here
+    p_limbs = torch.tensor([1, 0, 0xFFFF, 0xFFFF], device=cols.device).reshape((4,) + (1,) * nd)
+    diff, borrow = normalize_limbs(cols - p_limbs)
+    return torch.where(borrow == 0, diff, cols).to(torch.uint16)
+
+
+@functools.lru_cache(maxsize=None)
+def _prime_lib():
+    from .._build import load
+
+    lib = load("prime_mul")
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    for fn in (lib.m31_multiply_launch, lib.goldilocks_multiply_launch):
+        fn.argtypes = [vp, vp, vp, i64, i64, vp]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _is_period(es, shape) -> bool:
+    """True when an operand of element shape ``es`` broadcast to ``shape``
+    repeats its own elements in order: ones, then the trailing axes of
+    ``shape``."""
+    es = (1,) * (len(shape) - len(es)) + tuple(es)
+    j = next((i for i, s in enumerate(es) if s != 1), len(es))
+    return es[j:] == tuple(shape[j:])
+
+
+def _periodic(a, b, lead: int):
+    """Operands for a launch: (a, b, shape, n, nb) with a contiguous over
+    ``lead`` leading storage axes and the element ``shape``, and b
+    contiguous with nb elements per plane that repeat every nb elements of
+    a. The product is commutative, so b is whichever operand repeats;
+    neither does, or too short a period, materializes the broadcast."""
+    ea, eb = tuple(a.shape[lead:]), tuple(b.shape[lead:])
+    shape = tuple(torch.broadcast_shapes(ea, eb))
+    n = math.prod(shape)
+    if ea != shape and eb == shape:
+        a, b, ea, eb = b, a, eb, ea
+    nb = math.prod(eb)
+    if ea != shape or not _is_period(eb, shape) or (nb < _MIN_PERIOD and nb != n):
+        full = tuple(a.shape[:lead]) + shape
+        a, b, nb = a.expand(full), b.expand(full), n
+    return a.contiguous(), b.contiguous(), shape, n, nb
+
+
+def _launch_prime(fn: str, a, b, out, n: int, nb: int) -> None:
+    with torch.cuda.device(a.device):
+        rc = getattr(_prime_lib(), f"{fn}_launch")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, nb,
+            ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}.")
+
+
+def _check_cuda(fn: str, a, b, dtype) -> None:
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{fn}: operands on {a.device} and {b.device}; need one CUDA device.")
+    if a.dtype != dtype or b.dtype != dtype:
+        raise TypeError(f"{fn}: storage dtypes {a.dtype}, {b.dtype}; need {dtype}.")
+
+
+def m31_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K9: GF(2^31 - 1) product of two int64 storage tensors (broadcast).
+
+    CPU tensors take ``m31_multiply_plain``; CUDA tensors launch the kernel
+    (counted in ``m31_multiply.launches``) or raise."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return m31_multiply_plain(a, b)
+    _check_cuda("m31_multiply", a, b, torch.int64)
+    a, b, shape, n, nb = _periodic(a, b, lead=0)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if n:
+        _launch_prime("m31_multiply", a, b, out, n, nb)
+        m31_multiply.launches += 1
+    return out
+
+
+def goldilocks_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K10: Goldilocks product of planar (4, ...) uint16 limb tensors; the
+    element axes broadcast right-aligned behind the limb axis.
+
+    CPU tensors take ``goldilocks_multiply_plain``; CUDA tensors launch the
+    kernel (counted in ``goldilocks_multiply.launches``) or raise. A
+    broadcast operand that repeats, such as x of shape (4, 1, N) against
+    (4, k, N) in Horner's inner step, is passed with its period, not
+    materialized."""
+    a, b = align_planar(a, b)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return goldilocks_multiply_plain(a, b)
+    _check_cuda("goldilocks_multiply", a, b, torch.uint16)
+    if a.shape[0] != 4 or b.shape[0] != 4:
+        raise ValueError(f"goldilocks_multiply: needs 4 limb planes, got {a.shape[0]} and {b.shape[0]}.")
+    a, b, shape, n, nb = _periodic(a, b, lead=1)
+    out = torch.empty((4,) + shape, dtype=torch.uint16, device=a.device)
+    if n:
+        _launch_prime("goldilocks_multiply", a, b, out, n, nb)
+        goldilocks_multiply.launches += 1
+    return out
+
+
+m31_multiply.launches = 0
+goldilocks_multiply.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K11: the device probe (csrc/probe.cu)
+# ----------------------------------------------------------------------
+
+def device_probe_plain(x: torch.Tensor) -> torch.Tensor:
+    """x + 1."""
+    return x + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_lib():
+    from .._build import load
+
+    lib = load("probe")
+    lib.probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    lib.probe_launch.restype = ctypes.c_int
+    return lib
+
+
+def device_probe(x: torch.Tensor) -> torch.Tensor:
+    """K11: x + 1 for an int32 tensor, such as the (8, 1024) block of the
+    TPU probe. CPU tensors take the plain version; a CUDA tensor launches
+    the kernel (counted in ``device_probe.launches``) or raises."""
+    if x.device.type == "cpu":
+        return device_probe_plain(x)
+    if x.device.type != "cuda" or x.dtype != torch.int32:
+        raise ValueError(f"device_probe: needs an int32 CUDA tensor, got {x.dtype} on {x.device}.")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        with torch.cuda.device(x.device):
+            rc = _probe_lib().probe_launch(
+                x.data_ptr(), out.data_ptr(), x.numel(),
+                ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+            )
+        if rc != 0:
+            raise RuntimeError(f"device_probe: kernel launch failed with CUDA error {rc}.")
+        device_probe.launches += 1
+    return out
+
+
+device_probe.launches = 0

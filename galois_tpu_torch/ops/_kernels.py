@@ -2,7 +2,9 @@
 
 Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
 
-- ``PrimeOps``      GF(p), p <= 2^32, int64 (or uint8) storage
+- ``PrimeOps``      GF(p), p <= 2^32, int64 (or uint8) storage; the
+                    multiply of GF(2^31 - 1) is kernel K9
+                    (``ops/_elementwise.py::m31_multiply``)
 - ``GF2Ops``        GF(2), bitwise
 - ``BinaryExtOps``  GF(2^m), m <= 32; the multiply for m <= 16 is kernel K7
                     (``ops/_elementwise.py::gf2m_multiply``)
@@ -11,12 +13,23 @@ Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
 - ``LookupOps``     the 'jit-lookup' mode of any field of order <= 2^20:
                     multiply, divide, reciprocal and log are kernels K3-K6
                     (``ops/_lookup.py``), powers plain torch gathers
+- ``LimbPrimeOps``  GF(p), p > 2^32, planar (L, ...) uint16 limb storage:
+                    schoolbook products and Barrett reduction on int64
+                    planes of 16-bit limbs
+- ``GoldilocksOps`` p = 2^64 - 2^32 + 1: the multiply and square are kernel
+                    K10 (``ops/_elementwise.py::goldilocks_multiply``)
 
 Every op takes and returns tensors in the field's storage dtype and keeps
 its inputs' device. Arithmetic is widened to int64 inside each op: torch
 has no unsigned 16/32-bit arithmetic, and uint8 sums wrap. Dispatch
 depends on the field and mode only; the kernel wrappers alone look at the
-device. The limb families are still to be ported.
+device. ``LimbBinaryOps`` (GF(2^m), m > 32) is still to be ported.
+
+The JAX package's limb-tuple protocol (``split_limbs``/``*_t``), its MXU
+diagonal fold for L > 4 and its compact fori_loop powers exist for the TPU's
+lanes and XLA's compile times; eager torch needs none of them, so the limb
+families work on the storage tensor directly and ``power_static`` is the
+plain square-and-multiply.
 """
 
 from __future__ import annotations
@@ -26,9 +39,10 @@ import functools
 import numpy as np
 import torch
 
-from ..fields._meta import FieldMeta
+from ..fields._meta import STORAGE_LIMBS, FieldMeta
 from ..fields._tables import build_exp_log
-from ._elementwise import gf2m_multiply
+from ._elementwise import GOLDILOCKS_P, M31, gf2m_multiply, goldilocks_multiply, m31_multiply
+from ._limbs import align_planar, mul_limbs, normalize_limbs
 from ._lookup import lookup_divide, lookup_log, lookup_multiply, lookup_reciprocal
 
 __all__ = ["get_ops", "FieldOps", "mulmod"]
@@ -98,8 +112,15 @@ class FieldOps:
     def one_like(self, a):
         return torch.ones_like(a)
 
+    def zero_like(self, a):
+        return torch.zeros_like(a)
+
     def is_zero(self, a):
         return a == 0
+
+    def zero_where(self, mask, a):
+        """a with the elements where ``mask`` holds set to 0."""
+        return torch.where(mask, torch.zeros_like(a), a)
 
 
 # ======================================================================
@@ -124,6 +145,10 @@ class PrimeOps(FieldOps):
         return torch.where(d < 0, d + self.p, d).to(self.dt)
 
     def multiply(self, a, b):
+        if self.p == M31:
+            # the map of the JAX package's _mul_mersenne31 (its Pallas
+            # counterpart prime_multiply_pallas), here kernel K9
+            return m31_multiply(a, b)
         return mulmod(a.to(torch.int64), b.to(torch.int64), self.p).to(self.dt)
 
     def reciprocal(self, a):
@@ -416,12 +441,129 @@ class LookupOps:
         return r
 
 
+# ======================================================================
+# GF(p), p > 2^32: planar base-2^16 limbs
+# ======================================================================
+
+class LimbPrimeOps(FieldOps):
+    """GF(p) for p > 2^32 on planar (L, *shape) uint16 storage: each op
+    widens the limbs to int64, computes on whole limb planes, and stores
+    uint16 again. Multiply: the schoolbook product of 16-bit limbs and
+    Barrett reduction (HAC Algorithm 14.42, b = 2^16, mu = floor(b^(2L) / p)),
+    as the JAX package. Binary ops align the operands' element axes behind
+    the limb axis, so they broadcast as the elements do."""
+
+    def __init__(self, meta: FieldMeta):
+        super().__init__(meta)
+        self.L = meta.storage_width
+        self.p = meta.characteristic
+        self._consts = {}
+
+    def _const(self, name: str, nd: int, device) -> torch.Tensor:
+        """p's limbs zero-padded to L + 1 ("p"), or Barrett's mu ("mu"), as
+        an int64 (K, 1, ..., 1) tensor on ``device``."""
+        key = (name, nd, device)
+        if key not in self._consts:
+            limbs = self.meta.barrett_mu_limbs if name == "mu" else np.append(self.meta.prime_limbs, 0)
+            self._consts[key] = torch.tensor(limbs, dtype=torch.int64, device=device).reshape((-1,) + (1,) * nd)
+        return self._consts[key]
+
+    def _wide2(self, a, b):
+        a, b = align_planar(a, b)
+        return a.to(torch.int64), b.to(torch.int64)
+
+    def _sub_if_ge_p(self, r: torch.Tensor) -> torch.Tensor:
+        """r - p where r >= p, over L + 1 normalized limbs."""
+        d, borrow = normalize_limbs(r - self._const("p", r.ndim - 1, r.device))
+        return torch.where(borrow == 0, d, r)
+
+    def _reduce(self, X: torch.Tensor) -> torch.Tensor:
+        """X (2L normalized limbs, X < b^(2L)) mod p -> L limbs (int64)."""
+        L, nd = self.L, X.ndim - 1
+        q3 = mul_limbs(X[L - 1 :], self._const("mu", nd, X.device))[L + 1 :]
+        r2 = mul_limbs(q3, self._const("p", nd, X.device)[:L])[: L + 1]
+        r, _ = normalize_limbs(X[: L + 1] - r2)  # mod b^(L+1): r in [0, 3p)
+        return self._sub_if_ge_p(self._sub_if_ge_p(r))[:L]
+
+    def multiply(self, a, b):
+        A, B = self._wide2(a, b)
+        return self._reduce(mul_limbs(A, B)).to(self.dt)
+
+    def add(self, a, b):
+        A, B = self._wide2(a, b)
+        S = A + B
+        S = torch.cat([S, torch.zeros_like(S[:1])])
+        return self._sub_if_ge_p(normalize_limbs(S)[0])[: self.L].to(self.dt)
+
+    def subtract(self, a, b):
+        A, B = self._wide2(a, b)
+        return self._sub_wide(A, B).to(self.dt)
+
+    def _sub_wide(self, A, B):
+        D, borrow = normalize_limbs(A - B)
+        E, _ = normalize_limbs(D + self._const("p", D.ndim - 1, D.device)[: self.L])  # mod b^L
+        return torch.where(borrow < 0, E, D)
+
+    def negative(self, a):
+        A = a.to(torch.int64)
+        return self._sub_wide(torch.zeros_like(A), A).to(self.dt)
+
+    def reciprocal(self, a):
+        return self.power_static(a, self.p - 2)
+
+    def one_like(self, a):
+        one = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+        one[0] = 1
+        return one.to(self.dt)
+
+    def zero_like(self, a):
+        return torch.zeros(a.shape, dtype=torch.int64, device=a.device).to(self.dt)
+
+    def is_zero(self, a):
+        return (a.to(torch.int32) == 0).all(dim=0)
+
+    def zero_where(self, mask, a):
+        return (a.to(torch.int64) * (~mask).to(torch.int64)).to(self.dt)
+
+    def power(self, a, e, nbits: int):
+        return self.power_words(a, [e], nbits)
+
+    def power_words(self, a, words, nbits: int):
+        """a**e for e = sum_i words[i] * 2^(62 i), non-negative int64 word
+        tensors, below 2^nbits: a binary ladder over the bits (0**0 = 1)."""
+        eshape = torch.broadcast_shapes(a.shape[1:], *(w.shape for w in words))
+        a = a.reshape(a.shape[:1] + (1,) * (len(eshape) - (a.ndim - 1)) + a.shape[1:])
+        base = a.expand((self.L,) + tuple(eshape))
+        result = self.one_like(base)
+        for i in range(nbits):
+            bit = ((words[i // 62] >> (i % 62)) & 1).bool().expand(eshape)
+            prod = self.multiply(result, base).to(torch.int64)
+            result = torch.where(bit, prod, result.to(torch.int64)).to(self.dt)
+            if i + 1 < nbits:
+                base = self.square(base)
+        return result
+
+
+class GoldilocksOps(LimbPrimeOps):
+    """p = 2^64 - 2^32 + 1 on planar (4, ...) uint16 storage: multiply and
+    square are kernel K10 (its plain version serves CPU tensors); add,
+    subtract and negative are the limb ops of ``LimbPrimeOps``."""
+
+    def multiply(self, a, b):
+        return goldilocks_multiply(a, b)
+
+    def square(self, a):
+        return goldilocks_multiply(a, a)
+
+
 @functools.lru_cache(maxsize=None)
 def get_ops(meta: FieldMeta, mode: str):
     """Return the ops object for (field, mode): 'jit-calculate' or
     'jit-lookup' (orders <= 2^20, not GF(2))."""
     p, m = meta.characteristic, meta.degree
-    if m == 1:
+    if meta.storage == STORAGE_LIMBS:
+        calc = GoldilocksOps(meta) if p == GOLDILOCKS_P else LimbPrimeOps(meta)
+    elif m == 1:
         calc = GF2Ops(meta) if p == 2 else PrimeOps(meta)
     elif p == 2:
         calc = BinaryExtOps(meta)

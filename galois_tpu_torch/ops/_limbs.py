@@ -1,0 +1,50 @@
+"""Int64 arithmetic on planar 16-bit limbs.
+
+The limb storage of GF(p), p > 2^32 (``fields/_meta.py``), keeps L
+little-endian base-2^16 limbs per element with the limb axis leading,
+shape (L, *shape). The helpers below work on that layout once the limbs
+are widened to int64, and serve the field arrays (``fields/_array.py``),
+``LimbPrimeOps`` (``ops/_kernels.py``) and K10's plain version
+(``ops/_elementwise.py``). They import only torch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["align_planar", "normalize_limbs", "mul_limbs"]
+
+
+def align_planar(a: torch.Tensor, b: torch.Tensor):
+    """Pad the element axes of the lower-rank planar (limbs-first) operand
+    just after its limb axis, so that the element axes broadcast
+    right-aligned."""
+    nd = max(a.ndim, b.ndim)
+    a = a.reshape(a.shape[:1] + (1,) * (nd - a.ndim) + a.shape[1:])
+    b = b.reshape(b.shape[:1] + (1,) * (nd - b.ndim) + b.shape[1:])
+    return a, b
+
+
+def normalize_limbs(c: torch.Tensor):
+    """Carry-propagate int64 limb columns c (K, ...) into 16-bit limbs;
+    returns (limbs, carry out). Columns may be negative (``>>`` is
+    arithmetic, so a borrow moves as a carry of -1)."""
+    out = []
+    carry = 0
+    for k in range(c.shape[0]):
+        t = c[k] + carry
+        out.append(t & 0xFFFF)
+        carry = t >> 16
+    return torch.stack(out), carry
+
+
+def mul_limbs(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product of int64 limb tensors A (L, ...) and B (K, ...)
+    with aligned element axes -> (L + K) normalized limbs. A column holds at
+    most min(L, K) products below 2^32, far inside int64."""
+    L, K = A.shape[0], B.shape[0]
+    shape = torch.broadcast_shapes(A.shape[1:], B.shape[1:])
+    C = torch.zeros((L + K,) + tuple(shape), dtype=torch.int64, device=A.device)
+    for i in range(L):
+        C[i : i + K] += A[i] * B
+    return normalize_limbs(C)[0]

@@ -15,7 +15,8 @@ device):
 Plans hold their tables as tensors on the device they were built for.
 Host tables are built with vectorized NumPy uint64 modular arithmetic
 (residues < 2^32, so products < 2^64). Recursive 6-step sub-plans
-(N > 2^24) and the limb-storage branch are still to be ported.
+(N > 2^24) and the limb-storage branch are still to be ported; limb
+fields raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -304,6 +305,11 @@ def fft_data(cls, data: torch.Tensor, N: int, inverse: bool = False, scale: bool
     """Transform the trailing axis of a storage tensor on its device.
     ``scale`` defaults to False forward and True inverse (NumPy's norm)."""
     meta = cls._meta
+    if meta.storage_first:
+        raise NotImplementedError(
+            f"The NTT over {meta.name} needs the limb branch of MatmulFFTPlan (ops/_limb_matmul.py), "
+            "which the torch port does not have yet (ROADMAP.md, queue 1 item 7)."
+        )
     hf = get_host_field(meta)
     omega = _get_omega(cls, N)
     if scale is None:

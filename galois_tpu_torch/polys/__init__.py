@@ -1,2 +1,7 @@
-"""Polynomial helpers of the port. Only the host-side representation
-conversions are ported so far; the ``Poly`` layer is still to come."""
+"""Polynomials over Galois fields: the core of ``Poly`` (construction,
+host arithmetic, batched evaluation) and the host representation
+conversions."""
+
+from ._poly import Poly
+
+__all__ = ["Poly"]

@@ -11,9 +11,10 @@ Poly's host arithmetic.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import TYPE_CHECKING, List, Tuple
 
-from ..fields._hostfield import HostField
+if TYPE_CHECKING:  # a type only: fields/_meta.py imports this package
+    from ..fields._hostfield import HostField
 
 Coeffs = List[int]
 

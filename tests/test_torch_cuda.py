@@ -13,7 +13,16 @@ import pytest
 import torch
 
 import galois_tpu_torch as gt
-from galois_tpu_torch.ops._elementwise import gf2m_multiply, gf2m_multiply_plain
+from galois_tpu_torch.ops._elementwise import (
+    device_probe,
+    device_probe_plain,
+    gf2m_multiply,
+    gf2m_multiply_plain,
+    goldilocks_multiply,
+    goldilocks_multiply_plain,
+    m31_multiply,
+    m31_multiply_plain,
+)
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops._linalg import balanced_planes_np
 from galois_tpu_torch.ops._lookup import (
@@ -35,6 +44,9 @@ from galois_tpu_torch.ops._plane_matmul import (
 )
 
 P = 3 * 2**30 + 1
+M31 = 2**31 - 1
+GOLDILOCKS = 2**64 - 2**32 + 1
+BLS_R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 pytestmark = pytest.mark.cuda
 
 
@@ -206,3 +218,116 @@ def test_lookup_mode_on_cuda_matches_cpu(cuda_device):
                 assert np.array_equal(gb.log(int(F.primitive_element ** 7)), b.log(int(F.primitive_element ** 7)))
         finally:
             F.compile("auto")
+
+
+def test_device_probe_kernel_matches_plain(cuda_device):
+    x = torch.arange(8 * 1024, dtype=torch.int32, device=cuda_device).reshape(8, 1024)
+    launches = device_probe.launches
+    got = device_probe(x)
+    torch.cuda.synchronize()
+    assert device_probe.launches == launches + 1
+    assert torch.equal(got, device_probe_plain(x))
+
+
+@pytest.mark.parametrize("n", [1_000_003, 2**20, 1, 7])
+def test_m31_multiply_kernel_matches_plain(cuda_device, n):
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    a = torch.randint(0, M31, (n,), generator=g, device=cuda_device)
+    b = torch.randint(0, M31, (n,), generator=g, device=cuda_device)
+    edges = torch.tensor([0, 1, M31 - 1, M31 - 1, 2**16, 2**30], device=cuda_device)
+    a[: min(n, 6)] = edges[: min(n, 6)]
+    b[: min(n, 6)] = edges.flip(0)[: min(n, 6)]
+    launches = m31_multiply.launches
+    got = m31_multiply(a, b)
+    torch.cuda.synchronize()
+    assert m31_multiply.launches == launches + 1
+    assert got.dtype == torch.int64 and torch.equal(got, m31_multiply_plain(a, b))
+    if n > 1:  # an odd offset takes the kernel's scalar loop
+        assert torch.equal(m31_multiply(a[1:], b[1:]), m31_multiply_plain(a[1:], b[1:]))
+
+
+def _limbs(values, device):
+    v = torch.tensor([int(x) - 2**64 if x >= 2**63 else int(x) for x in values], dtype=torch.int64, device=device)
+    return torch.stack([(v >> (16 * k)) & 0xFFFF for k in range(4)]).to(torch.uint16)
+
+
+@pytest.mark.parametrize("n", [2**20, 1_000_003, 8, 3])
+def test_goldilocks_multiply_kernel_matches_plain(cuda_device, n):
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    # random limbs: values anywhere in [0, 2^64), non-canonical ones included
+    a = torch.randint(0, 2**16, (4, n), generator=g, device=cuda_device).to(torch.uint16)
+    b = torch.randint(0, 2**16, (4, n), generator=g, device=cuda_device).to(torch.uint16)
+    edges = [0, 1, GOLDILOCKS - 1, 2**32 - 1, 2**32, 2**64 - 1, GOLDILOCKS, GOLDILOCKS + 5]
+    m = min(n, len(edges))
+    a[:, :m] = _limbs(edges[:m], cuda_device)
+    b[:, :m] = _limbs(edges[::-1][:m], cuda_device)
+    launches = goldilocks_multiply.launches
+    got = goldilocks_multiply(a, b)
+    torch.cuda.synchronize()
+    assert goldilocks_multiply.launches == launches + 1
+    assert got.dtype == torch.uint16 and torch.equal(got, goldilocks_multiply_plain(a, b))
+    assert torch.equal(got.cpu(), goldilocks_multiply_plain(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("shape", [(16, 4096), (3, 5, 8192), (5, 100), (7, 4099)])
+def test_prime_multiply_kernels_take_a_period(cuda_device, shape):
+    """Horner's inner step: (k, N) against (1, N) passes N as the period
+    (or, below 4096 elements, materializes the broadcast)."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    row = (1,) + shape[1:]
+    a = torch.randint(0, M31, shape, generator=g, device=cuda_device)
+    x = torch.randint(0, M31, row, generator=g, device=cuda_device)
+    assert torch.equal(m31_multiply(a, x), m31_multiply_plain(a, x))
+    assert torch.equal(m31_multiply(x, a), m31_multiply_plain(a, x))
+    A = torch.randint(0, 2**16, (4,) + shape, generator=g, device=cuda_device).to(torch.uint16)
+    X = torch.randint(0, 2**16, (4,) + row, generator=g, device=cuda_device).to(torch.uint16)
+    want = goldilocks_multiply_plain(A, X)
+    assert torch.equal(goldilocks_multiply(A, X), want)
+    assert torch.equal(goldilocks_multiply(X, A), want)
+    assert torch.equal(goldilocks_multiply(A, X[:, 0]), want)  # fewer element axes
+
+
+def test_main_path_3_small_on_cuda_matches_cpu(cuda_device):
+    n = 2**12
+    for p in (GOLDILOCKS, M31):
+        F = gt.GF(p)
+        x = F.Random(n, seed=1, device="cpu")
+        y = F.Random(n, seed=2, low=1, device="cpu")
+        gx, gy = F(x._data, device=cuda_device), F(y._data, device=cuda_device)
+        ops = [lambda u, v: u * v, lambda u, v: u / v]
+        if p == GOLDILOCKS:
+            ops += [lambda u, v: u + v, lambda u, v: u - v, lambda u, v: np.reciprocal(v), lambda u, v: -u]
+        for op in ops:
+            got = op(gx, gy)
+            assert got.device.type == "cuda"
+            assert np.array_equal(np.asarray(got), np.asarray(op(x, y)))
+        f = gt.Poly.Random(255, seed=3, field=F)
+        counter = goldilocks_multiply if p == GOLDILOCKS else m31_multiply
+        launches = counter.launches
+        got = f(gx)
+        torch.cuda.synchronize()
+        assert counter.launches == launches + 36  # 16 inner + 4 for x^16 + 16 outer
+        assert got.device.type == "cuda"
+        assert np.array_equal(np.asarray(got), np.asarray(f(x)))
+
+
+def test_limb_fields_on_cuda_match_cpu(cuda_device):
+    for p in (BLS_R, GOLDILOCKS, 1099511627791):
+        F = gt.GF(p)
+        x = F.Random((3, 40), seed=4, device=cuda_device)
+        vals = np.asarray(x, dtype=object)
+        assert x._data.dtype == torch.uint16 and x.device.type == "cuda"
+        assert all(0 <= int(v) < p for v in vals.reshape(-1))
+        cx = F(x._data.cpu())
+        y = F.Random(40, seed=5, low=1, device=cuda_device)
+        cy = F(y._data.cpu())
+        for op in (
+            lambda u, v: u * v, lambda u, v: u + v, lambda u, v: u - v, lambda u, v: -u,
+            lambda u, v: u**5, lambda u, v: u == v, lambda u, v: u[1:, ::3], lambda u, v: u.reshape(120),
+            lambda u, v: v ** np.arange(40),
+        ):
+            assert np.array_equal(np.asarray(op(x, y)), np.asarray(op(cx, cy)))
+        assert np.array_equal(np.asarray(x[0] / y[:1]), np.asarray(cx[0] / cy[:1]))
+        assert np.array_equal(np.asarray(F.Zeros(4, device=cuda_device)), np.asarray(F.Zeros(4, device="cpu")))
+        with pytest.raises(ZeroDivisionError):
+            x / F.Zeros(40, device=cuda_device)

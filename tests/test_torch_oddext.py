@@ -111,8 +111,9 @@ def test_bad_field_arguments_raise_like_jax():
             pkg.GF(2**8, primitive_element=1)  # not primitive
         with pytest.raises(ValueError):
             pkg.GF(3**5, primitive_element=2)  # in GF(3): order 2
-    with pytest.raises(NotImplementedError):
-        gt.GF(2**8, irreducible_poly=gj.Poly.Str("x^8 + x^4 + x^3 + x^2 + 1"))  # Poly layer not ported
+    with pytest.raises(TypeError):
+        # the port takes its own Poly (tests/test_torch_poly.py), not another package's
+        gt.GF(2**8, irreducible_poly=gj.Poly.Str("x^8 + x^4 + x^3 + x^2 + 1"))
     # verify=False takes the polynomial as given, in both packages
     kw = dict(irreducible_poly="x^5 + x + 1", primitive_element=3, verify=False)
     assert gt.GF(3**5, **kw)._meta.irreducible_poly_int == gj.GF(3**5, **kw)._meta.irreducible_poly_int
