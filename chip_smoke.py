@@ -15,8 +15,11 @@ Phases, each fatal on failure:
      prints its result and launch latency, and compiles the Triton kernel;
   3. kernels: every kernel against its plain torch version on the card, at
      the main paths' shapes plus small and ragged ones; results must be
-     exactly equal. K1 and K2 (NTT sides); K7 (GF(2^m) multiply) and K3 at
-     the same GF(2^8) inputs; K3-K6 (table gathers) on GF(2^8) and GF(3^5)
+     exactly equal. K8 (GF(2^m) multiply, m <= 8, four elements per word) at
+     2^24, at a ragged 1,000,003, on an unaligned view and at the RS
+     decoder's (65536, 33) shape, then K8, K7 and K3 timed on the same GF(2^8)
+     inputs; K7 (GF(2^m) multiply, 9 <= m <= 16) on GF(2^9) at 2^24 and at
+     the BCH decoder's shape; K1 and K2 (NTT sides); K3-K6 (table gathers) on GF(2^8) and GF(3^5)
      (uint8, shared-memory tables) and GF(2^16) (int64, global tables) at
      2^24 elements, and GF(2^10) at a ragged 1,000,003; K9 (GF(2^31 - 1)
      multiply) and K10 (Goldilocks multiply, canonical and non-canonical
@@ -27,7 +30,7 @@ Phases, each fatal on failure:
      0 first: GF(2^8) multiply of 2^24 elements, then np.fft.fft / ifft over
      GF(3*2^30+1) at N = 2^20 (batch 32) and N = 2^24 (batch 4) and ntt /
      intt of one row, with round trips and 16 bins against a direct DFT in
-     NumPy; K1, K2 and K7 must have been launched;
+     NumPy; K1, K2 and K8 must have been launched;
   5. main path 2, the same way: lookup mode ('jit-lookup') GF(2^8) at 2^24
      (x * y, x / y, np.reciprocal, log, x ** e for an exponent array),
      GF(2^16) x * y at 2^24, and default-mode GF(3^5) at 2^24 (x * y, x + y,
@@ -43,7 +46,17 @@ Phases, each fatal on failure:
      versions at Horner's inner-step shape, (16, 2^21) times x of (1, 2^21)
      passed by its period, and that step is timed in its parts: the multiply
      with x by its period and with x materialized, and the torch add; a
-     degree-255 evaluation is timed both ways too.
+     degree-255 evaluation is timed both ways too;
+  7. main path 4, the same way: RS(255,223) over GF(2^8) (f = 0x11D, from
+     matlab_primitive_poly) encodes 65536 random messages, gets 0-16 symbol
+     errors per row (40 in every 16th row) and decodes them; a second batch
+     of 65536 goes through the erasure path with 2e + f <= 32; BCH(511,493)
+     (GF(2^9) syndromes, f = 529) decodes 16384 words with 0-2 bit errors
+     (3-6 in every 16th row). Rows within the capability must give back
+     their message and error count, rows beyond it -1 or a codeword; K8 must
+     have been launched in the RS decodes and K7 in the BCH decode. Prints
+     codewords/s per decode, the encode time, the peak device memory, a
+     torch.profiler table of one RS decode and its time stage by stage.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -210,12 +223,15 @@ def main() -> int:
 
     import galois_tpu_torch as gt
     from galois_tpu_torch import _build
+    from galois_tpu_torch.codes._decoder import make_decoder
     from galois_tpu_torch.ops import _elementwise, _lookup
     from galois_tpu_torch.ops._elementwise import (
         device_probe,
         device_probe_plain,
         gf2m_multiply,
         gf2m_multiply_plain,
+        gf2m_multiply_swar,
+        gf2m_multiply_swar_plain,
         goldilocks_multiply,
         goldilocks_multiply_plain,
         m31_multiply,
@@ -230,6 +246,7 @@ def main() -> int:
         plane_matmul_data_right_plain,
     )
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -244,7 +261,7 @@ def main() -> int:
         _build.load(name)
         return time.perf_counter() - t0
 
-    sources = ("plane_matmul", "lookup", "prime_mul", "probe")
+    sources = ("plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         secs = dict(zip(sources, pool.map(build, sources)))
@@ -301,36 +318,87 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     a8 = torch.randint(0, 256, (2**24,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
     b8 = torch.randint(0, 256, (2**24,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
-    got = gf2m_multiply(a8, b8, 8, f8)
-    torch.cuda.synchronize()
-    want = gf2m_multiply_plain(a8, b8, 8, f8)
-    err = max_abs_err(got, want)
-    ms = graph_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
-    eager = cuda_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
-    pms = cuda_ms(lambda: gf2m_multiply_plain(a8, b8, 8, f8), 10)
-    record("gf2m_multiply", err, ms, pms, bound(3 * 2**24))
+    # K8: its 16-byte path at 2^24, the byte tail at a ragged 1,000,003, byte
+    # loads throughout on a view one byte off alignment, the RS decoder's
+    # (65536, 33) times (65536, 1), and every m < 8 at the ragged length
+    k8_cases = [
+        (8, f8, "n=2^24", a8, b8),
+        (8, f8, "ragged n=1,000,003", a8[:1_000_003], b8[:1_000_003]),
+        (8, f8, "unaligned view n=2^24-1", a8[1:], b8[:-1]),
+        (8, f8, "(65536, 33) x (65536, 1)", a8[: 65536 * 33].reshape(65536, 33), b8[:65536].reshape(65536, 1)),
+    ]
+    for m in range(2, 8):
+        mask = 2**m - 1
+        k8_cases.append((m, gt.GF(2**m)._meta.irreducible_poly_int, "ragged n=1,000,003",
+                         a8[:1_000_003] & mask, b8[:1_000_003] & mask))
+    for m, f, tag, x, y in k8_cases:
+        got = gf2m_multiply_swar(x, y, m, f)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got, gf2m_multiply_swar_plain(x, y, m, f)), max_abs_err(got, gf2m_multiply_plain(x, y, m, f)))
+        record("gf2m_multiply_swar", err)
+        print(f"[kernel] K8 gf2m_multiply_swar m={m} {tag}: max_abs_err {err} (against its plain version and the ladder)", flush=True)
+        if err:
+            raise AssertionError(f"K8 disagrees with its plain version at m = {m}, {tag}")
+    del got
+    k8 = graph_ms(lambda: gf2m_multiply_swar(a8, b8, 8, f8), 50)
+    k8_eager = cuda_ms(lambda: gf2m_multiply_swar(a8, b8, 8, f8), 50)
+    pms = cuda_ms(lambda: gf2m_multiply_swar_plain(a8, b8, 8, f8), 5)
+    bnd = bound(3 * 2**24)
+    record("gf2m_multiply_swar", 0, k8, pms, bnd)
     print(
-        f"[kernel] K7 gf2m_multiply m=8 n=2^24: max_abs_err {err} | kernel {ms:.4f} ms "
-        f"(eager calls {eager:.4f} ms) | plain {pms:.4f} ms",
+        f"[kernel] K8 gf2m_multiply_swar m=8 n=2^24: kernel {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
+        f"plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})",
         flush=True,
     )
-    if err:
-        raise AssertionError("K7 disagrees with its plain version")
-    # K3 on the same inputs: the table kernel beside the ladder kernel
+    # K7 and K3 on the same GF(2^8) inputs: the three kernels that compute this map
+    want = gf2m_multiply_plain(a8, b8, 8, f8)
+    got = gf2m_multiply(a8, b8, 8, f8)
+    torch.cuda.synchronize()
+    if max_abs_err(got, want):
+        raise AssertionError("K7 disagrees with its plain version on GF(2^8)")
+    record("gf2m_multiply", 0)
     ops8 = get_ops(GF8._meta, "jit-lookup")
     exp8, log8 = (torch.from_numpy(t).to(dev) for t in (ops8.EXP, ops8.LOG))
     got = _lookup.lookup_multiply(a8, b8, exp8, log8, 256)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("K3 and K7 disagree on GF(2^8) products")
+    k7 = graph_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
+    k7_eager = cuda_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
     k3 = graph_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256), 50)
     k3_eager = cuda_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256), 50)
     print(
-        f"[kernel] GF(2^8) multiply n=2^24, same inputs: K3 table gathers {k3:.4f} ms "
-        f"(eager calls {k3_eager:.4f} ms) | K7 ladder {ms:.4f} ms (eager calls {eager:.4f} ms)",
+        f"[kernel] GF(2^8) multiply n=2^24, same inputs: K8 SWAR {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
+        f"K7 ladder {k7:.4f} ms (eager calls {k7_eager:.4f} ms) | K3 table gathers {k3:.4f} ms "
+        f"(eager calls {k3_eager:.4f} ms)",
         flush=True,
     )
     del got, want
+    # K7 on its main path's field: GF(2^9) (BCH(511)'s syndromes), int64 storage
+    f9 = 529  # x^9 + x^4 + 1
+    a9 = torch.randint(0, 512, (2**24,), generator=gen, device=dev)
+    b9 = torch.randint(0, 512, (2**24,), generator=gen, device=dev)
+    for tag, x, y in (("n=2^24", a9, b9), ("(16384, 5) x (16384, 1)", a9[: 16384 * 5].reshape(16384, 5), b9[:16384].reshape(16384, 1))):
+        got = gf2m_multiply(x, y, 9, f9)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, gf2m_multiply_plain(x, y, 9, f9))
+        record("gf2m_multiply", err)
+        print(f"[kernel] K7 gf2m_multiply m=9 (int64) {tag}: max_abs_err {err}", flush=True)
+        if err:
+            raise AssertionError(f"K7 disagrees with its plain version on GF(2^9), {tag}")
+    del got
+    ms = graph_ms(lambda: gf2m_multiply(a9, b9, 9, f9), 20)
+    eager = cuda_ms(lambda: gf2m_multiply(a9, b9, 9, f9), 20)
+    pms = cuda_ms(lambda: gf2m_multiply_plain(a9, b9, 9, f9), 5)
+    bnd = bound(3 * 8 * 2**24)
+    record("gf2m_multiply", 0, ms, pms, bnd)
+    print(
+        f"[kernel] K7 gf2m_multiply m=9 (int64) n=2^24: kernel {ms:.4f} ms (eager calls {eager:.4f} ms) | "
+        f"plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})",
+        flush=True,
+    )
+    del a9, b9
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(1)
     shapes = [  # (M, K, N, batch, reps); None reps: check only
@@ -483,7 +551,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     counters = (
-        plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply,
+        plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply, gf2m_multiply_swar,
         _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
         m31_multiply, goldilocks_multiply, device_probe,
     )
@@ -540,7 +608,7 @@ def main() -> int:
         )
         del x, X, xb, Y, row
         torch.cuda.empty_cache()
-    read_counts(1, (plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply))
+    read_counts(1, (plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply_swar))
 
     # -- 5. main path 2: lookup mode and GF(3^5) ----------------------------
     for fn in counters:
@@ -732,10 +800,163 @@ def main() -> int:
         del pts, want
         torch.cuda.empty_cache()
 
+    # -- 7. main path 4: RS(255,223) and BCH(511,493) decoding ----------------
+    for fn in counters:
+        fn.launches = 0
+    gen = torch.Generator(device=dev).manual_seed(40)
+
+    def ranks(B, n):
+        """Each row's positions in a random order: rank[i, j] is the place of
+        position j in row i's permutation."""
+        return torch.rand((B, n), generator=gen, device=dev).argsort(dim=1).argsort(dim=1)
+
+    def corrupt(data, hit, q):
+        """XOR a random nonzero symbol into the positions where ``hit`` holds."""
+        noise = torch.randint(1, q, data.shape, generator=gen, device=dev)
+        return data ^ torch.where(hit, noise, 0).to(data.dtype)
+
+    def check_decode(code, label, msg, counts, dec, nerr):
+        """Rows within the capability: their message and error count; rows
+        beyond it: -1, or a codeword (a legal miscorrection)."""
+        cnt = counts.cpu().numpy()
+        ok = cnt <= code.t
+        same = (dec._data[:, : code.k] == msg._data).all(dim=1).cpu().numpy()
+        if dec.shape != (msg.shape[0], code.n) or not same[ok].all() or not np.array_equal(nerr[ok], cnt[ok]):
+            raise AssertionError(f"{label}: rows within the capability did not give back their message and count")
+        claimed = ~ok & (nerr >= 0)
+        if claimed.any() and code.detect(dec[torch.from_numpy(claimed).to(dev)]).any():
+            raise AssertionError(f"{label}: a row beyond the capability decoded to a word that is not a codeword")
+        return (
+            f"{int(ok.sum())} rows within the capability exact; beyond it {int((nerr[~ok] == -1).sum())} "
+            f"rows -1 and {int(claimed.sum())} miscorrected to a codeword"
+        )
+
+    def timed_decode(code, label, x, msg, counts, kw, reps):
+        k7, k8 = gf2m_multiply.launches, gf2m_multiply_swar.launches
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dec, nerr = code.decode(x, output="codeword", errors=True, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        k7, k8 = gf2m_multiply.launches - k7, gf2m_multiply_swar.launches - k8
+        # the syndrome field's products: K8 for GF(2^m), m <= 8, else K7
+        if (k8 if getattr(code, "extension_field", code.field).degree <= 8 else k7) == 0:
+            raise AssertionError(f"{label} did not launch its syndrome field's multiply kernel")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        result = check_decode(code, label, msg, counts, dec, nerr)
+        ms = cuda_ms(lambda: code.decode(x, **kw), reps)
+        B = x.shape[0]
+        print(
+            f"[main] {label}, {B} codewords: {ms:.3f} ms per decode, {B / ms * 1e3:.0f} codewords/s "
+            f"(first call {first_s * 1e3:.1f} ms) | K8 launches {k8}, K7 launches {k7} per decode | "
+            f"peak device memory {peak:.2f} GiB | {result}",
+            flush=True,
+        )
+        return ms
+
+    t0 = time.perf_counter()
+    rs = gt.ReedSolomon(255, 223)
+    bch = gt.BCH(511, 493)
+    print(f"[main] RS(255,223) and BCH(511,493) built in {time.perf_counter() - t0:.2f} s", flush=True)
+    if (rs.field._meta.irreducible_poly_int, bch.extension_field._meta.irreducible_poly_int) != (0x11D, 529):
+        raise AssertionError("RS(255,223) or BCH(511,493) did not pick Matlab's primitive polynomial")
+
+    B = 65536
+    msg = rs.field.Random((B, rs.k), generator=gen, device=dev)
+    cw = rs.encode(msg)
+    torch.cuda.synchronize()
+    enc_ms = cuda_ms(lambda: rs.encode(msg), 5)
+    if cw.shape != (B, rs.n) or rs.detect(cw).any() or not torch.equal(cw._data[:, : rs.k], msg._data):
+        raise AssertionError("RS(255,223) encode did not give systematic codewords")
+    print(f"[main] RS(255,223) encode, {B} messages: {enc_ms:.3f} ms, {B / enc_ms * 1e3:.0f} codewords/s", flush=True)
+    counts = torch.randint(0, rs.t + 1, (B,), generator=gen, device=dev)
+    counts[::16] = 40
+    x = rs.field._view(corrupt(cw._data, ranks(B, rs.n) < counts[:, None], 256))
+    rs_ms = timed_decode(rs, "RS(255,223) decode", x, msg, counts, {}, 3)
+
+    # the erasure path: f erasures and e errors with 2e + f <= d - 1 = 32,
+    # at disjoint positions, garbage under the erasures
+    msg2 = rs.field.Random((B, rs.k), generator=gen, device=dev)
+    f_cnt = torch.randint(0, rs.d, (B,), generator=gen, device=dev)
+    e_cnt = (torch.rand(B, generator=gen, device=dev) * ((rs.d - 1 - f_cnt) // 2 + 1)).long()
+    rk = ranks(B, rs.n)
+    era = rk < f_cnt[:, None]
+    x2 = rs.field._view(corrupt(rs.encode(msg2)._data, rk < (f_cnt + e_cnt)[:, None], 256))
+    timed_decode(rs, "RS(255,223) decode with erasures", x2, msg2, e_cnt, {"erasures": era}, 3)
+    del msg2, x2, era, rk
+
+    # one RS decode under torch.profiler: where the device time goes
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rs.decode(x)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+        groups = {"K8 swar_kernel": 0.0, "matmul kernels": 0.0, "other kernels": 0.0}
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.key.lower()
+            key = "K8 swar_kernel" if "swar_kernel" in name else "matmul kernels" if "gemm" in name or "matmul" in name else "other kernels"
+            groups[key] += e.self_device_time_total / 1e3
+        busy = sum(groups.values())
+        print(
+            f"[main] RS(255,223) decode, device time by kernel (torch.profiler): "
+            + ", ".join(f"{k} {v:.3f} ms ({v / max(busy, 1e-9):.1%})" for k, v in groups.items())
+            + f"; device busy {busy:.3f} ms of a {rs_ms:.3f} ms decode (CUDA events)",
+            flush=True,
+        )
+    except Exception as exc:  # a diagnostic: the checks above do not depend on it
+        print(f"[main] torch.profiler gave no table: {type(exc).__name__}: {exc}", flush=True)
+
+    # the same decode stage by stage (CUDA events around each Python call,
+    # so host time shows where the device waits)
+    dec = make_decoder(rs.field._meta, rs.field._mode, rs.field.order, rs.n, rs.n, rs.d, rs.c, int(rs.alpha), False)
+    K = dec.consts(dev)
+    r = x._data.flip(1)
+    S = dec.fmatmul(r, K["W"])
+    u = torch.zeros(B, dtype=torch.int64, device=dev)
+    C, v = dec.berlekamp_massey(S, u)
+    stages = {
+        "syndromes (bit-plane product)": lambda: dec.fmatmul(r, K["W"]),
+        f"Berlekamp-Massey ({dec.nroots} steps)": lambda: dec.berlekamp_massey(S, u),
+        "Chien (bit-plane product)": lambda: dec.fmatmul(C, K["CH_T"]),
+        "Chien, Forney and correction": lambda: dec.finish(x._data, r, C, S, C, v, u, 2 * v > dec.nroots),
+        f"one reciprocal of ({B},) (the scan does one per step)": lambda: dec.ops.reciprocal(S[:, 0]),
+        f"one K8 multiply of ({B}, {rs.d}) (the scan's dot)": lambda: dec.ops.multiply(C, S[:, :1]),
+    }
+    print(
+        f"[main] RS(255,223) decode by stage, {B} codewords: "
+        + "; ".join(f"{name} {cuda_ms(fn, 3):.3f} ms" for name, fn in stages.items()),
+        flush=True,
+    )
+    del dec, K, r, S, u, C, v, stages
+    del msg, cw, x
+    torch.cuda.empty_cache()
+
+    B = 16384
+    msg = bch.field.Random((B, bch.k), generator=gen, device=dev)
+    cw = bch.encode(msg)
+    torch.cuda.synchronize()
+    enc_ms = cuda_ms(lambda: bch.encode(msg), 5)
+    if bch.detect(cw).any() or not torch.equal(cw._data[:, : bch.k], msg._data):
+        raise AssertionError("BCH(511,493) encode did not give systematic codewords")
+    print(f"[main] BCH(511,493) encode, {B} messages: {enc_ms:.3f} ms, {B / enc_ms * 1e3:.0f} codewords/s", flush=True)
+    counts = torch.randint(0, bch.t + 1, (B,), generator=gen, device=dev)
+    counts[::16] = torch.randint(bch.t + 1, 7, (B // 16,), generator=gen, device=dev)
+    x = bch.field._view(corrupt(cw._data, ranks(B, bch.n) < counts[:, None], 2))
+    timed_decode(bch, "BCH(511,493) decode", x, msg, counts, {}, 3)
+    del msg, cw, x
+    torch.cuda.empty_cache()
+    read_counts(4, (gf2m_multiply_swar, gf2m_multiply))
+
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),
         "plane_matmul_data_left": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:261"),
         "gf2m_multiply": ("triton", "galois_tpu_torch/ops/_elementwise.py", "galois_tpu/ops/_pallas/_elementwise.py:493"),
+        "gf2m_multiply_swar": ("cuda", "galois_tpu_torch/csrc/gf2m_swar.cu", "galois_tpu/ops/_pallas/_elementwise.py:447"),
         "lookup_multiply": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:324"),
         "lookup_divide": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:341"),
         "lookup_reciprocal": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:358"),
@@ -748,6 +969,7 @@ def main() -> int:
         {"name": name, "route": route, "source": src, "replaces": rep, "launches": launches[name], **report[name]}
         for name, (route, src, rep) in sources.items()
     ]
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

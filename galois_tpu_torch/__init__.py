@@ -2,16 +2,18 @@
 
 Finite-field arrays over torch tensors (GF(p) of any size, GF(2^m) with
 m <= 32 and GF(p^m) with p^m <= 2^31, in 'jit-calculate' and, for orders
-<= 2^20, 'jit-lookup' mode), polynomials over them (``Poly``, with batched
-evaluation) and the number-theoretic transform over prime fields up to
-2^32. New data goes
-to CUDA unless the caller asks for the CPU (``set_default_device``,
-``default_device``, or ``device=``). The public names and results match the
-JAX package ``galois_tpu``; this package imports neither jax nor
-galois_tpu. On CUDA tensors the NTT's two matmul sides, the lookup tables'
-gathers and the GF(2^31 - 1) and Goldilocks multiplies run hand-written
-CUDA C++ kernels and GF(2^m) multiply a Triton kernel; CPU tensors take the
-kernels' plain torch versions.
+<= 2^20, 'jit-lookup' mode) with the field matmul, polynomials over them
+(``Poly``, with batched and matrix evaluation, irreducible and primitive
+polynomial tests and searches), Reed-Solomon and BCH codes with batched
+decoding, and the number-theoretic transform over prime fields up to 2^32.
+New data goes to CUDA unless the caller asks for the CPU
+(``set_default_device``, ``default_device``, or ``device=``). The public
+names and results match the JAX package ``galois_tpu``; this package imports
+neither jax nor galois_tpu. On CUDA tensors the NTT's two matmul sides, the
+lookup tables' gathers, the GF(2^m) multiply for m <= 8 (four elements per
+word) and the GF(2^31 - 1) and Goldilocks multiplies run hand-written CUDA
+C++ kernels, and the GF(2^m) multiply for 9 <= m <= 16 a Triton kernel; CPU
+tensors take the kernels' plain torch versions.
 """
 
 from ._options import (
@@ -23,7 +25,20 @@ from ._options import (
 )
 from . import typing
 from .fields import GF, GF2, Field, FieldArray, FieldArrayMeta
-from .polys import Poly
+from .polys import (
+    Poly,
+    irreducible_poly,
+    irreducible_polys,
+    matlab_primitive_poly,
+    primitive_poly,
+    primitive_polys,
+)
+from .codes import (
+    BCH,
+    ReedSolomon,
+    generator_to_parity_check_matrix,
+    parity_check_to_generator_matrix,
+)
 from .nt import (
     carmichael_lambda,
     crt,

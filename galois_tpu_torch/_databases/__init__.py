@@ -1,8 +1,9 @@
-"""Conway-polynomial lookup.
+"""Conway-polynomial and minimal-term irreducible-polynomial lookup.
 
-The packed table ``conway_polys.npz`` ships in this package (a byte-for-byte
-copy of the JAX package's table, built from the public Luebeck tables); the
-port reads its own copy and nothing of the JAX package.
+The packed tables ``conway_polys.npz`` and ``irreducible_polys.npz`` ship in
+this package (byte-for-byte copies of the JAX package's tables, built from
+the public Luebeck and Wolfram tables); the port reads its own copies and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -13,12 +14,13 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-__all__ = ["ConwayPolyDatabase"]
+__all__ = ["ConwayPolyDatabase", "IrreduciblePolyDatabase"]
 
 _CONWAY_PATH = pathlib.Path(__file__).resolve().parent / "conway_polys.npz"
+_IRREDUCIBLE_PATH = _CONWAY_PATH.with_name("irreducible_polys.npz")
 
 
-class _ConwayPolyDatabase:
+class _SparsePolyDatabase:
     """Maps (characteristic, degree) -> (nonzero_degrees, nonzero_coeffs)."""
 
     def __init__(self, path: pathlib.Path = _CONWAY_PATH):
@@ -34,7 +36,7 @@ class _ConwayPolyDatabase:
         key = (int(characteristic), int(degree))
         if key not in self._table:
             raise LookupError(
-                f"ConwayPolyDatabase has no entry for GF({characteristic}^{degree})."
+                f"{type(self).__name__} has no entry for GF({characteristic}^{degree})."
             )
         off, cnt = self._table[key]
         return (
@@ -43,6 +45,19 @@ class _ConwayPolyDatabase:
         )
 
 
+class _ConwayPolyDatabase(_SparsePolyDatabase):
+    pass
+
+
+class _IrreduciblePolyDatabase(_SparsePolyDatabase):
+    pass
+
+
 @functools.lru_cache(maxsize=None)
 def ConwayPolyDatabase() -> _ConwayPolyDatabase:
     return _ConwayPolyDatabase()
+
+
+@functools.lru_cache(maxsize=None)
+def IrreduciblePolyDatabase() -> _IrreduciblePolyDatabase:
+    return _IrreduciblePolyDatabase(_IRREDUCIBLE_PATH)

@@ -246,6 +246,10 @@ class FieldArray(metaclass=FieldArrayMeta):
         return cls._view(zeros.to(cls._meta.torch_dtype), _validate_dtype(cls, dtype))
 
     @classmethod
+    def Identity(cls, size: int, dtype=None, *, device=None) -> "FieldArray":
+        return cls(np.eye(int(size), dtype=np.int64), dtype=dtype, device=device)
+
+    @classmethod
     def Random(
         cls, shape=(), low=0, high=None, seed=None, dtype=None, *, generator=None, device=None
     ) -> "FieldArray":
@@ -307,6 +311,13 @@ class FieldArray(metaclass=FieldArrayMeta):
             shape = tuple(shape[0])
         lead = tuple(self._data.shape[: self._storage_ndim()])
         return type(self)._view(self._data.reshape(lead + tuple(int(s) for s in shape)), self._dtype)
+
+    @property
+    def T(self) -> "FieldArray":
+        """The element axes reversed (a planar limb axis stays first)."""
+        lead = self._storage_ndim()
+        axes = tuple(range(lead)) + tuple(lead + a for a in reversed(range(self.ndim)))
+        return type(self)._view(self._data.permute(axes), self._dtype)
 
     def copy(self) -> "FieldArray":
         return type(self)._view(self._data.clone(), self._dtype)
@@ -397,6 +408,16 @@ class FieldArray(metaclass=FieldArrayMeta):
     __floordiv__ = __truediv__
     __rfloordiv__ = __rtruediv__
 
+    def __matmul__(self, other):
+        from ..ops._linalg import matmul
+
+        return matmul(self, self._coerce(other))
+
+    def __rmatmul__(self, other):
+        from ..ops._linalg import matmul
+
+        return matmul(self._coerce(other), self)
+
     def __neg__(self):
         out = _get_ops(self._meta, self._mode).negative(self._data)
         return type(self)._view(out, self._dtype)
@@ -469,6 +490,7 @@ class FieldArray(metaclass=FieldArrayMeta):
             "divide": lambda a, b: a.__truediv__(b),
             "floor_divide": lambda a, b: a.__truediv__(b),
             "power": lambda a, b: a.__pow__(b),
+            "matmul": lambda a, b: a.__matmul__(b),
         }
         unary = {
             "negative": lambda a: -a,

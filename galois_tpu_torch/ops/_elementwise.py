@@ -1,17 +1,22 @@
-"""Elementwise field kernels: K7 (GF(2^m) multiply, Triton), K9 and K10
-(prime-field multiplies, CUDA C++ in ``csrc/prime_mul.cu``) and K11 (the
-device probe, ``csrc/probe.cu``).
+"""Elementwise field kernels: K7 (GF(2^m) multiply, Triton), K8 (GF(2^m)
+multiply for m <= 8, four elements per word, CUDA C++ in
+``csrc/gf2m_swar.cu``), K9 and K10 (prime-field multiplies, CUDA C++ in
+``csrc/prime_mul.cu``) and K11 (the device probe, ``csrc/probe.cu``).
 
 Each wrapper serves CPU tensors with its plain torch version, launches its
 kernel for CUDA tensors and counts the launch in ``<wrapper>.launches``, and
-raises on anything else. The CUDA sources' heads say what bounds K9-K11 on
+raises on anything else. The CUDA sources' heads say what bounds K8-K11 on
 the H100 and how their design differs from the TPU's. K10's plain version
 uses the int64 limb helpers of ``ops/_limbs.py``, as ``LimbPrimeOps`` does.
 
+``BinaryExtOps.multiply`` routes by field: GF(2^m) with 2 <= m <= 8 (uint8
+storage) to K8, 9 <= m <= 16 to K7, larger m to a torch ladder. So the
+headline GF(2^8) multiply and the Reed-Solomon decoder run K8, and BCH
+decoding with GF(2^9) syndromes runs K7.
+
 K7 replaces ``gf2m_multiply_pallas`` (``galois_tpu/ops/_pallas/_elementwise.py:493``):
 an m-step shift-AND-XOR carry-less product, then reduction by f from bit
-2m - 2 down to bit m. It is the kernel behind ``BinaryExtOps.multiply`` for
-int storage, so the headline GF(2^8) multiply runs on it.
+2m - 2 down to bit m.
 
 What bounds it on the H100: the integer ALUs, not memory. A GF(2^8)
 product moves 3 bytes but costs about 60 int32 shift/AND/XOR operations
@@ -20,11 +25,16 @@ product moves 3 bytes but costs about 60 int32 shift/AND/XOR operations
 of HBM traffic (measured: 0.063 ms on an H100 80GB HBM3 at its 700 W
 power limit). The design is one fused
 pass: masked block loads of the storage dtype (uint8 or int64) straight
-into int32 registers, the whole ladder in registers, one store. Packing
-four GF(2^8) elements per word (the TPU's K8 SWAR kernel) is the known way
-to cut the operation count. The TPU version's cast to u32 and padding to
-(8, 1024) tiles are layout work for the TPU and are not carried over; the
-ragged tail is masked.
+into int32 registers, the whole ladder in registers, one store. The TPU
+version's cast to u32 and padding to (8, 1024) tiles are layout work for
+the TPU and are not carried over; the ragged tail is masked.
+
+K8 replaces ``gf2m_multiply_swar_pallas``
+(``galois_tpu/ops/_pallas/_elementwise.py:447``): the same map for
+2 <= m <= 8 with four uint8 elements per 32-bit word, nibble-Karatsuba
+carry-less products in byte slots and constant folds by f, about half K7's
+operations per product. Its plain version below is the same SWAR
+algorithm in torch int64 arithmetic.
 
 Triton is imported inside the launching function, so this module imports
 on machines without Triton; there the wrapper serves CPU tensors only.
@@ -43,6 +53,8 @@ from ._limbs import align_planar, mul_limbs, normalize_limbs
 __all__ = [
     "gf2m_multiply",
     "gf2m_multiply_plain",
+    "gf2m_multiply_swar",
+    "gf2m_multiply_swar_plain",
     "m31_multiply",
     "m31_multiply_plain",
     "goldilocks_multiply",
@@ -128,6 +140,135 @@ def gf2m_multiply(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> torch
 
 
 gf2m_multiply.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K8: GF(2^m) multiply, 2 <= m <= 8, four elements per word (csrc/gf2m_swar.cu)
+# ----------------------------------------------------------------------
+
+_ONES = 0x01010101  # bit 0 of every byte
+_NIB = 0x0F0F0F0F  # low nibble of every byte
+_EVEN = 0x00FF00FF  # the even bytes
+
+
+def _swar_rep(v: int, slot_bits: int) -> int:
+    """An integer constant replicated into every ``slot_bits`` slot of a word."""
+    return sum(v << (slot_bits * k) for k in range(32 // slot_bits))
+
+
+def _swar_fold(c, slot_bits: int, width: int, m: int, f: int):
+    """Reduce ``width``-bit slot values mod f inside ``slot_bits`` slots."""
+    r = f ^ (1 << m)
+    deg_r = max(0, r.bit_length() - 1)
+    low_mask = _swar_rep((1 << m) - 1, slot_bits)
+    while width > m:
+        h = (c >> m) & _swar_rep((1 << (width - m)) - 1, slot_bits)
+        t = torch.zeros_like(c)
+        for k in range(r.bit_length()):
+            if (r >> k) & 1:
+                t = t ^ (h << k)
+        c = (c & low_mask) ^ t
+        width = max(m, width - m + deg_r)
+    return c
+
+
+def _swar_nib_ladder(x, y, nbits: int):
+    """Byte-slot carry-less product of x (at most 4-bit slots) and the
+    ``nbits`` low bits of y: each slot's 0/1 bit widens to a 0x7F mask as
+    (bit << 7) - bit, and no borrow crosses a slot."""
+    acc = torch.zeros_like(x)
+    for i in range(nbits):
+        bit = (y >> i) & _ONES
+        acc = acc ^ ((x << i) & ((bit << 7) - bit))
+    return acc
+
+
+def _swar_mul_core(A, B, m: int, f: int):
+    """GF(2^m) products, m <= 8, of int64 tensors holding u32 words of four
+    packed uint8 elements: nibble Karatsuba keeps every partial product
+    under 8 bits, then the 15-bit products are re-slotted into the 16-bit
+    slots of the even and the odd bytes for the folds by f. The values stay
+    non-negative and below 2^36, so int64 ``>>`` is the logical shift."""
+    if m <= 4:
+        return _swar_fold(_swar_nib_ladder(A, B, m), 8, 2 * m - 1, m, f)
+    al, ah = A & _NIB, (A >> 4) & _NIB
+    bl, bh = B & _NIB, (B >> 4) & _NIB
+    ll = _swar_nib_ladder(al, bl, 4)
+    hh = _swar_nib_ladder(ah, bh, m - 4)
+    mid = _swar_nib_ladder(al ^ ah, bl ^ bh, 4) ^ ll ^ hh
+    pe = ((hh & _EVEN) << 8) ^ ((mid & _EVEN) << 4) ^ (ll & _EVEN)
+    po = (((hh >> 8) & _EVEN) << 8) ^ (((mid >> 8) & _EVEN) << 4) ^ ((ll >> 8) & _EVEN)
+    pe = _swar_fold(pe, 16, 2 * m - 1, m, f)
+    po = _swar_fold(po, 16, 2 * m - 1, m, f)
+    return pe | (po << 8)
+
+
+def _check_swar(a, b, m: int, f_int: int) -> None:
+    if a.dtype != torch.uint8 or b.dtype != torch.uint8:
+        raise TypeError(f"gf2m_multiply_swar: storage dtypes {a.dtype}, {b.dtype}; need uint8.")
+    if not 2 <= m <= 8 or f_int >> m != 1:
+        raise ValueError(f"gf2m_multiply_swar: needs 2 <= m <= 8 and a degree-m f, got m={m}, f={f_int}.")
+
+
+def gf2m_multiply_swar_plain(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> torch.Tensor:
+    """K8's algorithm in torch, on any device: pad to a multiple of 4
+    elements, reinterpret the bytes as int32 words, widen them to int64
+    (torch has no uint32 arithmetic, and int32's ``>>`` is arithmetic), run
+    the SWAR core and reinterpret the words as bytes again."""
+    a, b = torch.broadcast_tensors(a, b)
+    _check_swar(a, b, m, f_int)
+    shape, n = a.shape, a.numel()
+
+    def words(x):
+        buf = torch.zeros(n + (-n) % 4, dtype=torch.uint8, device=x.device)
+        buf[:n] = x.reshape(-1)
+        return buf.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    w = _swar_mul_core(words(a), words(b), m, f_int)
+    w = torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+    return w.view(torch.uint8)[:n].reshape(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _swar_lib():
+    from .._build import load
+
+    lib = load("gf2m_swar")
+    vp = ctypes.c_void_p
+    lib.gf2m_swar_launch.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, vp]
+    lib.gf2m_swar_launch.restype = ctypes.c_int
+    return lib
+
+
+def gf2m_multiply_swar(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> torch.Tensor:
+    """K8: GF(2^m) product of two uint8 storage tensors (broadcast), 2 <= m <= 8.
+
+    CPU tensors take ``gf2m_multiply_swar_plain``; CUDA tensors launch the
+    kernel (counted in ``gf2m_multiply_swar.launches``) or raise. A
+    broadcast operand is materialized first."""
+    a, b = torch.broadcast_tensors(a, b)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return gf2m_multiply_swar_plain(a, b, m, f_int)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"gf2m_multiply_swar: operands on {a.device} and {b.device}; need one CUDA device.")
+    _check_swar(a, b, m, f_int)
+    a = a.contiguous()
+    b = b.contiguous()
+    out = torch.empty(a.shape, dtype=torch.uint8, device=a.device)
+    n = a.numel()
+    if n:
+        with torch.cuda.device(a.device):
+            rc = _swar_lib().gf2m_swar_launch(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, f_int,
+                ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+            )
+        if rc != 0:
+            raise RuntimeError(f"gf2m_multiply_swar: kernel launch failed with CUDA error {rc}.")
+        gf2m_multiply_swar.launches += 1
+    return out
+
+
+gf2m_multiply_swar.launches = 0
 
 
 # ----------------------------------------------------------------------

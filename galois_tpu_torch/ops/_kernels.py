@@ -6,8 +6,10 @@ Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
                     multiply of GF(2^31 - 1) is kernel K9
                     (``ops/_elementwise.py::m31_multiply``)
 - ``GF2Ops``        GF(2), bitwise
-- ``BinaryExtOps``  GF(2^m), m <= 32; the multiply for m <= 16 is kernel K7
-                    (``ops/_elementwise.py::gf2m_multiply``)
+- ``BinaryExtOps``  GF(2^m), m <= 32; the multiply is kernel K8 for
+                    2 <= m <= 8 (``ops/_elementwise.py::gf2m_multiply_swar``,
+                    uint8 storage) and kernel K7 for 9 <= m <= 16
+                    (``gf2m_multiply``), a torch ladder above
 - ``OddExtOps``     GF(p^m), p odd, p^m <= 2^31: base-p digit arithmetic;
                     the public multiply of orders <= 4096 is kernel K3
 - ``LookupOps``     the 'jit-lookup' mode of any field of order <= 2^20:
@@ -41,7 +43,14 @@ import torch
 
 from ..fields._meta import STORAGE_LIMBS, FieldMeta
 from ..fields._tables import build_exp_log
-from ._elementwise import GOLDILOCKS_P, M31, gf2m_multiply, goldilocks_multiply, m31_multiply
+from ._elementwise import (
+    GOLDILOCKS_P,
+    M31,
+    gf2m_multiply,
+    gf2m_multiply_swar,
+    goldilocks_multiply,
+    m31_multiply,
+)
 from ._limbs import align_planar, mul_limbs, normalize_limbs
 from ._lookup import lookup_divide, lookup_log, lookup_multiply, lookup_reciprocal
 
@@ -207,6 +216,9 @@ class BinaryExtOps(FieldOps):
         return a
 
     def multiply(self, a, b):
+        # by field only, so CPU tensors follow the card's routing
+        if self.m <= 8:
+            return gf2m_multiply_swar(a, b, self.m, self.f)
         if self.m <= 16:
             return gf2m_multiply(a, b, self.m, self.f)
         return self._reduce(self._clmul(a.to(torch.int64), b.to(torch.int64)))

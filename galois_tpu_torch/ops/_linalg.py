@@ -1,6 +1,18 @@
-"""Exact prime-field matmul on balanced int8 digit planes.
+"""Field matrix products: the public ``matmul`` and the exact prime-field
+matmul on balanced int8 digit planes.
 
-Port of the plane helpers of ``galois_tpu/ops/_linalg.py``. A residue x in
+Port of ``matmul``, ``_gf2_matmul``, ``_generic_matmul`` and the plane
+helpers of ``galois_tpu/ops/_linalg.py``. ``matmul`` follows NumPy's rules
+(1-D promotion, batch broadcasting) and routes by field: GF(2) to a float32
+product mod 2, GF(p) to ``_prime_matmul``, GF(2^m) to the bit planes of
+``ops/_binary_matmul.py``, GF(p^m) to the digit planes of
+``ops/_digit_matmul.py`` where their sums stay exact, and anything else to
+a loop of field multiply-adds over the contraction axis. Limb fields need
+``ops/_limb_matmul.py``, which is still to be ported (ROADMAP.md, queue 1
+item 7). Row reduction, inverse, determinant and solve are still to be
+ported too.
+
+The prime-field planes: A residue x in
 [0, p) maps to its symmetric residue x' = x - p*(x > p//2), |x'| <= p/2, and
 x' = sum_i d_i 256^i with balanced digits d_i in [-128, 127]. The plane
 products of two operands, summed by diagonal s = i + j, fold back to the
@@ -17,7 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._kernels import mulmod
+from ..fields._meta import STORAGE_INT
+from ._kernels import get_ops, mulmod
+
+__all__ = ["matmul"]
 
 _PLANE_BITS = 8
 _PLANE_BASE = 1 << _PLANE_BITS
@@ -92,3 +107,74 @@ def _prime_matmul(a, b, p: int, K: int, a_planes=None, b_planes=None) -> torch.T
     if a_planes is not None or b_planes is not None or (p - 1) ** 2 * K >= 2**53:
         return _prime_matmul_planes(a, b, p, K, a_planes=a_planes, b_planes=b_planes)
     return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int64) % p
+
+
+# ----------------------------------------------------------------------
+# The public matmul
+# ----------------------------------------------------------------------
+
+def matmul(A, B):
+    """Matrix product of two FieldArrays of one field with NumPy matmul
+    semantics (1-D promotion, batched broadcasting), on their device."""
+    cls = type(A)
+    if A.ndim == 0 or B.ndim == 0:
+        raise ValueError("matmul is not defined for 0-D inputs.")
+    out = _matmul_data(cls._meta, cls._mode, A._data, B._data, A.ndim == 1, B.ndim == 1)
+    return cls._view(out, A._dtype)
+
+
+def _matmul_data(meta, mode: str, a, b, a_vec: bool, b_vec: bool):
+    if meta.storage != STORAGE_INT:
+        raise NotImplementedError(
+            f"matmul over {meta.name} needs the limb matmul of ops/_limb_matmul.py, which the torch "
+            "port does not have yet (ROADMAP.md, queue 1 item 7)."
+        )
+    from ._binary_matmul import binary_matmul
+    from ._binary_matmul import supports as bin_supports
+    from ._digit_matmul import digit_matmul
+    from ._digit_matmul import supports as dig_supports
+
+    if a_vec:
+        a = a.unsqueeze(-2)
+    if b_vec:
+        b = b.unsqueeze(-1)
+    if a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"matmul: contraction lengths differ, {a.shape[-1]} and {b.shape[-2]}.")
+    p, K = meta.characteristic, a.shape[-1]
+    if meta.degree == 1:
+        if p == 2:
+            out = _gf2_matmul(a, b, K)
+        else:
+            out = _prime_matmul(a.to(torch.int64), b.to(torch.int64), p, K).to(meta.torch_dtype)
+    elif bin_supports(meta, K):
+        out = binary_matmul(meta, a, b)
+    elif dig_supports(meta, K):
+        out = digit_matmul(meta, a, b)
+    else:
+        out = _generic_matmul(get_ops(meta, mode), a, b)
+    if a_vec:
+        out = out.squeeze(-2)
+    if b_vec:
+        out = out.squeeze(-1)
+    return out
+
+
+def _gf2_matmul(a, b, K: int):
+    """GF(2): float32 products of 0/1 (exact while K < 2^24), in blocks of
+    2^23 whose parities XOR together."""
+    blk = 2**23
+    acc = None
+    for s in range(0, K, blk):
+        c = torch.matmul(a[..., s : s + blk].to(torch.float32), b[..., s : s + blk, :].to(torch.float32))
+        part = c.to(torch.int32) & 1
+        acc = part if acc is None else acc ^ part
+    return acc.to(a.dtype)
+
+
+def _generic_matmul(ops, a, b):
+    """Any int-storage field: field multiply-adds over the contraction axis."""
+    shape = torch.broadcast_shapes(a.shape[:-1] + (1,), b.shape[:-2] + (1, b.shape[-1]))
+    out = torch.zeros(shape, dtype=a.dtype, device=a.device)
+    for k in range(a.shape[-1]):
+        out = ops.add(out, ops.multiply(a[..., :, k : k + 1], b[..., k : k + 1, :]))
+    return out

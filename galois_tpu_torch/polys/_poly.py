@@ -7,12 +7,16 @@ batched device Horner of ``ops/_poly_eval.py``. Three representations, as
 in the JAX package: "dense" (int-repr coefficient tuple), "binary" (one
 packed Python int) and "sparse" (nonzero terms, for huge degrees).
 
-Not ported yet (ROADMAP.md, queue 1 item 4): the device product and
-division (``ops/_convolve.py``, ``ops/_poly_div.py``) that the JAX package
-takes above ``_DEVICE_POLY_WORK`` coefficient operations, where the host
-path below gives the same polynomials; matrix evaluation (it needs the
-field matmul); roots, factorization, the irreducibility, primitivity and
-Conway tests. Those methods raise ``NotImplementedError``.
+Matrix evaluation ``f(X, elementwise=False)`` runs on the field matmul
+(``ops/_linalg.py``); ``is_irreducible`` and ``is_primitive`` are the host
+tests of ``polys/_irreducible.py`` and ``polys/_primitive.py``.
+
+Not ported yet (ROADMAP.md, queue 1 item 4): the device product
+(``ops/_convolve.py``) and the device division (``ops/_poly_div.py`` has
+it, unwired) that the JAX package takes above ``_DEVICE_POLY_WORK``
+coefficient operations, where the host path below gives the same
+polynomials; roots, factorization and the Conway tests. Those methods raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -616,16 +620,27 @@ class Poly:
                 result = result + Poly([c], field=self._field) * (at**d)
             return result
 
-        if not elementwise:
-            raise NotImplementedError(
-                "Matrix evaluation of a Poly needs the field matmul, which the torch port does not "
-                "have yet (ROADMAP.md, queue 1 item 4)."
-            )
         field = self._field if field is None else field
         x = field(at)
+        if not elementwise:
+            if x.ndim != 2 or x.shape[0] != x.shape[1]:
+                raise ValueError("Matrix evaluation requires a square matrix.")
+            return self._evaluate_matrix(x)
         from ..ops._poly_eval import evaluate as dev_evaluate
 
         return dev_evaluate(self, x)
+
+    def _evaluate_matrix(self, X):
+        """Horner's rule with matrix products: f(X) = (..(c_d X + c_{d-1} I) X ..) + c_0 I."""
+        from ..ops._linalg import matmul
+
+        field = type(X)
+        n = X.shape[0]
+        I = field.Identity(n, device=X.device)
+        result = field.Zeros((n, n), device=X.device)
+        for c in [int(v) for v in np.asarray(self.coefficients(), dtype=object)]:  # descending
+            result = matmul(result, X) + I * field(c, device=X.device)
+        return result
 
     def derivative(self, k: int = 1) -> "Poly":
         if k <= 0:
@@ -642,9 +657,8 @@ class Poly:
                 coefs.append(cur)
         return Poly._from_sparse(degs, coefs, self._field)
 
-    # Roots, factorization and the predicates of polys/_roots.py,
-    # _factor.py, _irreducible.py, _primitive.py and _conway.py of the JAX
-    # package are still to be ported.
+    # Roots, factorization and the Conway predicates of polys/_roots.py,
+    # _factor.py and _conway.py of the JAX package are still to be ported.
 
     def roots(self, multiplicity: bool = False):
         _not_ported("roots")
@@ -665,10 +679,14 @@ class Poly:
         _not_ported("is_square_free")
 
     def is_irreducible(self) -> bool:
-        _not_ported("is_irreducible")
+        from ._irreducible import is_irreducible
+
+        return is_irreducible(self)
 
     def is_primitive(self) -> bool:
-        _not_ported("is_primitive")
+        from ._primitive import is_primitive
+
+        return is_primitive(self)
 
     def is_conway(self) -> bool:
         _not_ported("is_conway")

@@ -18,6 +18,8 @@ from galois_tpu_torch.ops._elementwise import (
     device_probe_plain,
     gf2m_multiply,
     gf2m_multiply_plain,
+    gf2m_multiply_swar,
+    gf2m_multiply_swar_plain,
     goldilocks_multiply,
     goldilocks_multiply_plain,
     m31_multiply,
@@ -111,6 +113,55 @@ def test_gf2m_multiply_kernel_matches_plain(cuda_device, m):
     assert got.dtype == dt
     assert torch.equal(got, gf2m_multiply_plain(a, b, m, f))
     assert torch.equal(got.cpu(), gf2m_multiply_plain(a.cpu(), b.cpu(), m, f))
+
+
+@pytest.mark.parametrize("m", range(2, 9))
+def test_gf2m_multiply_swar_kernel_matches_plain(cuda_device, m):
+    """K8 at 2^20 (the 16-byte path), a ragged length (its byte tail) and an
+    offset view (every chunk on byte loads)."""
+    F = gt.GF(2**m)
+    f = F._meta.irreducible_poly_int
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    a = torch.randint(0, 2**m, (2**20 + 3,), generator=g, device=cuda_device).to(torch.uint8)
+    b = torch.randint(0, 2**m, (2**20 + 3,), generator=g, device=cuda_device).to(torch.uint8)
+    for x, y in ((a[: 2**20], b[: 2**20]), (a[:100_003], b[:100_003]), (a[3:], b[:-3]), (a[1:18], b[2:19])):
+        launches = gf2m_multiply_swar.launches
+        got = gf2m_multiply_swar(x, y, m, f)
+        torch.cuda.synchronize()
+        assert gf2m_multiply_swar.launches == launches + 1
+        assert got.dtype == torch.uint8 and got.shape == x.shape
+        assert torch.equal(got, gf2m_multiply_swar_plain(x, y, m, f))
+        assert torch.equal(got, gf2m_multiply_plain(x, y, m, f))
+    if m == 8:  # another irreducible f, and a broadcast operand
+        got = gf2m_multiply_swar(a[:1000].reshape(10, 100), b[:100], 8, 0x11B)
+        assert torch.equal(got, gf2m_multiply_swar_plain(a[:1000].reshape(10, 100), b[:100], 8, 0x11B))
+    with pytest.raises(TypeError):
+        gf2m_multiply_swar(a.to(torch.int64), b.to(torch.int64), m, f)
+
+
+def test_codes_on_cuda_match_cpu(cuda_device):
+    """A small RS(255,223) and BCH(31,21) decode on the card (K8, the bit-plane
+    matmuls) equals the same decode on the CPU, errors and erasures."""
+    rng = np.random.default_rng(5)
+    for code in (gt.ReedSolomon(255, 223), gt.BCH(31, 21)):
+        q = code.field.order
+        msg = rng.integers(0, q, (64, code.k))
+        cw = np.asarray(code.encode(code.field.from_numpy(msg, device="cpu"))).astype(np.int64)
+        for i in range(64):
+            pos = rng.choice(code.n, size=i % (code.t + 2), replace=False)
+            cw[i, pos] ^= rng.integers(1, q, pos.size)
+        era = np.zeros(cw.shape, dtype=bool)
+        era[::3, :2] = True
+        launches = (gf2m_multiply_swar.launches, gf2m_multiply.launches)
+        for kw in ({}, {"erasures": era}):
+            got, e_got = code.decode(code.field.from_numpy(cw, device=cuda_device), errors=True, **kw)
+            want, e_want = code.decode(code.field.from_numpy(cw, device="cpu"), errors=True, **kw)
+            assert got.device.type == "cuda" and np.array_equal(np.asarray(got), np.asarray(want))
+            assert np.array_equal(e_got, e_want)
+        assert gf2m_multiply_swar.launches > launches[0]  # GF(2^8) and GF(2^5) products
+        ok = np.array([i % (code.t + 2) <= code.t for i in range(64)])
+        got = code.decode(code.field.from_numpy(cw, device=cuda_device))
+        assert np.array_equal(np.asarray(got)[ok], msg[ok])
 
 
 def test_ntt_on_cuda_matches_cpu(cuda_device):

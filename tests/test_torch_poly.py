@@ -163,9 +163,8 @@ def test_poly_methods_left_for_later_raise():
     f = gt.Poly([1, 0, 1, 1])
     for call in (
         f.roots, f.factors, f.square_free_factors, f.distinct_degree_factors, f.is_square_free,
-        f.is_irreducible, f.is_primitive, f.is_conway, f.is_conway_consistent,
+        f.is_conway, f.is_conway_consistent,
         lambda: f.equal_degree_factors(1),
-        lambda: f(gt.GF2([[1, 0], [0, 1]]), elementwise=False),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -248,3 +247,171 @@ def test_two_level_horner_multiplies_36_times_at_256_coefficients(monkeypatch):
         calls.clear()
         F.Random(8, seed=2, low=1) ** -1
         assert len(calls) == (125 if p == GOLDILOCKS else 59)  # Fermat: p - 2 by square-and-multiply
+
+
+# ----------------------------------------------------------------------
+# Irreducibility, primitivity and the searches
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("order", [2, 3, 7, 2**4, 3**2])
+def test_irreducible_and_primitive_tests_match_jax(order):
+    rng = np.random.default_rng(order)
+    for degree in (1, 2, 3, 4, 6):
+        for _ in range(6):
+            c = [int(v) for v in rng.integers(0, order, degree + 1)]
+            c[0] = c[0] or 1
+            pt, pj = _pair(order, c)
+            assert pt.is_irreducible() == pj.is_irreducible(), c
+            assert pt.is_primitive() == pj.is_primitive(), c
+            assert gt.polys.is_irreducible(pt) == pj.is_irreducible()
+    pt, pj = _pair(order, [1])
+    assert pt.is_irreducible() is pj.is_irreducible() is False
+
+
+@pytest.mark.parametrize(
+    ["order", "degree"], [(2, 1), (2, 5), (2, 8), (2, 9), (3, 4), (5, 3), (7, 2)]
+)
+def test_poly_searches_match_jax(order, degree):
+    for terms in (None, "min", 3 if degree >= 2 else 2):
+        for method in ("min", "max"):
+            try:
+                want = gj.irreducible_poly(order, degree, terms=terms, method=method)
+            except RuntimeError:
+                with pytest.raises(RuntimeError):
+                    gt.irreducible_poly(order, degree, terms=terms, method=method)
+            else:
+                _same_poly(gt.irreducible_poly(order, degree, terms=terms, method=method), want)
+            try:
+                want = gj.primitive_poly(order, degree, terms=terms, method=method)
+            except RuntimeError:
+                with pytest.raises(RuntimeError):
+                    gt.primitive_poly(order, degree, terms=terms, method=method)
+            else:
+                _same_poly(gt.primitive_poly(order, degree, terms=terms, method=method), want)
+    if order**degree <= 2**9:
+        for reverse in (False, True):
+            got = list(gt.primitive_polys(order, degree, reverse=reverse))
+            want = list(gj.primitive_polys(order, degree, reverse=reverse))
+            assert [int(f) for f in got] == [int(f) for f in want]
+            got = list(gt.irreducible_polys(order, degree, terms="min"))
+            assert [int(f) for f in got] == [int(f) for f in gj.irreducible_polys(order, degree, terms="min")]
+    for seed in (1, 2):
+        r = gt.primitive_poly(order, degree, method="random")  # a random one: primitive in JAX's eyes too
+        assert r.degree == degree and gj.Poly(list(np.asarray(r.coeffs)), field=gj.GF(order)).is_primitive()
+
+
+def test_matlab_primitive_poly_matches_jax():
+    for m in range(1, 17):
+        _same_poly(gt.matlab_primitive_poly(2, m), gj.matlab_primitive_poly(2, m))
+    for p, m in ((3, 3), (3, 5), (5, 2), (7, 3)):
+        _same_poly(gt.matlab_primitive_poly(p, m), gj.matlab_primitive_poly(p, m))
+    assert int(gt.matlab_primitive_poly(2, 8)) == 0x11D and int(gt.matlab_primitive_poly(2, 9)) == 529
+
+
+def test_irreducible_table_is_the_ports_own_copy():
+    """The minimal-term table that irreducible_poly(terms="min") reads ships
+    in the port, byte for byte the JAX package's."""
+    import pathlib
+
+    from galois_tpu_torch import _databases
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    path = _databases._IRREDUCIBLE_PATH
+    assert path.parent == repo / "galois_tpu_torch" / "_databases" and path.exists()
+    assert path.read_bytes() == (repo / "galois_tpu" / "_databases" / "irreducible_polys.npz").read_bytes()
+    for p, m in ((2, 8), (2, 100), (3, 7), (7, 5)):
+        _same_poly(gt.irreducible_poly(p, m, terms="min"), gj.irreducible_poly(p, m, terms="min"))
+
+
+# ----------------------------------------------------------------------
+# Element methods: minimal poly, multiplicative order, roots of unity
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("order", [2**8, 2**9, 3**5, 257, 2**31 - 1, GOLDILOCKS])
+def test_element_methods_match_jax(order):
+    Ft, Fj = gt.GF(order), gj.GF(order)
+    rng = np.random.default_rng(order % 1000)
+    x = np.array([1 + int(v) % (order - 1) for v in rng.integers(0, 2**62, 12)], dtype=object)
+    if order < 2**63:
+        x = x.astype(np.int64)
+    got = Ft(x).multiplicative_order()
+    want = Fj(x).multiplicative_order()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert Ft(x[3]).multiplicative_order() == Fj(x[3]).multiplicative_order()
+    assert type(Ft(x[3]).multiplicative_order()) is type(Fj(x[3]).multiplicative_order())
+    with pytest.raises(ArithmeticError):
+        Ft([0, 1]).multiplicative_order()
+    for v in x[:4]:
+        _same_poly(Ft(v).minimal_poly(), Fj(v).minimal_poly())
+        _same_poly(Ft(v).characteristic_poly(), Fj(v).characteristic_poly())
+    for n in (1, 2, 3, 5, 15, 17, 255, 511, order - 1):
+        if (order - 1) % n or n >= order:
+            continue
+        _same(Ft.primitive_root_of_unity(n), Fj.primitive_root_of_unity(n))
+        if n <= 512:
+            _same(Ft.primitive_roots_of_unity(n), Fj.primitive_roots_of_unity(n))
+    with pytest.raises(ValueError):
+        Ft.primitive_root_of_unity(order)
+
+
+# ----------------------------------------------------------------------
+# The field matmul and matrix evaluation
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("order", [2, 2**8, 2**9, 3**2, 7, 2**31 - 1, 251**2])
+def test_matmul_matches_jax(order):
+    Ft, Fj = gt.GF(order), gj.GF(order)
+    rng = np.random.default_rng(order % 1000)
+
+    def arr(*shape):
+        return rng.integers(0, order, shape)
+
+    cases = [
+        (arr(3, 4), arr(4, 5)),
+        (arr(4), arr(4, 5)),  # 1-D promotion on each side, and both
+        (arr(3, 4), arr(4)),
+        (arr(4), arr(4)),
+        (arr(2, 3, 4), arr(4, 5)),  # batching
+        (arr(2, 3, 4), arr(2, 4, 2)),
+        (arr(6, 300), arr(300, 2)),  # GF(251^2): past the digit planes' exact range
+    ]
+    for a, b in cases:
+        want = Fj(a) @ Fj(b)
+        _same(Ft(a) @ Ft(b), want)
+        _same(np.matmul(Ft(a), Ft(b)), want)
+        _same(Ft(a) @ b, want)  # a host operand is coerced
+    _same(Ft(cases[0][0]).T, Fj(cases[0][0]).T)
+    _same(Ft(cases[4][0]).T, Fj(cases[4][0]).T)
+    with pytest.raises(ValueError):
+        Ft(arr(3)) @ Ft(arr(3, 3))[0, 0]
+    _same(Ft.Identity(4), Fj.Identity(4))
+
+
+def test_limb_field_matmul_is_left_for_later():
+    F = gt.GF(GOLDILOCKS)
+    with pytest.raises(NotImplementedError, match="_limb_matmul"):
+        F([[1, 2]]) @ F([[3], [4]])
+
+
+@pytest.mark.parametrize(["order", "n"], [(2**8, 4), (7, 3), (2**31 - 1, 3)])
+def test_poly_matrix_evaluation_matches_jax(order, n):
+    rng = np.random.default_rng(n)
+    X = rng.integers(0, order, (n, n))
+    c = _coeffs(order, 7, seed=order % 97)
+    pt, pj = _pair(order, c)
+    _same(pt(gt.GF(order)(X), elementwise=False), pj(gj.GF(order)(X), elementwise=False))
+    with pytest.raises(ValueError):
+        pt(gt.GF(order)(X[:, :2]), elementwise=False)
+
+
+@pytest.mark.parametrize("order", [2, 2**8, 7, 3**5, GOLDILOCKS])
+def test_poly_divmod_device_matches_jax(order):
+    from galois_tpu.ops._poly_div import poly_divmod_device as divmod_j
+    from galois_tpu_torch.ops._poly_div import poly_divmod_device as divmod_t
+
+    for da, db, seed in ((30, 7, 1), (12, 12, 2), (5, 9, 3), (9, 0, 4)):
+        at, aj = _pair(order, _coeffs(order, da + 1, seed))
+        bt, bj = _pair(order, _coeffs(order, db + 1, seed + 10))
+        (qt, rt), (qj, rj) = divmod_t(at, bt), divmod_j(aj, bj)
+        _same_poly(qt, qj)
+        _same_poly(rt, rj)
