@@ -12,14 +12,20 @@ Phases, each fatal on failure:
   2. build: compiles the CUDA C++ sources in csrc/ with nvcc, one process
      per source, all at once, and prints the build times and ptxas resource
      usage; then launches K11 (the device probe) before any other kernel,
-     prints its result and launch latency, and compiles the Triton kernel;
+     prints its result and its time beside torch.add's, both by CUDA-graph
+     replay and by eager calls, and compiles the Triton kernel;
   3. kernels: every kernel against its plain torch version on the card, at
      the main paths' shapes plus small and ragged ones; results must be
      exactly equal. K8 (GF(2^m) multiply, m <= 8, four elements per word) at
      2^24, at a ragged 1,000,003, on an unaligned view and at the RS
      decoder's (65536, 33) shape, then K8, K7 and K3 timed on the same GF(2^8)
      inputs; K7 (GF(2^m) multiply, 9 <= m <= 16) on GF(2^9) at 2^24 and at
-     the BCH decoder's shape; K1 and K2 (NTT sides); K3-K6 (table gathers) on GF(2^8) and GF(3^5)
+     the BCH decoder's shape; an int8 GEMM yardstick (torch._int_mm, the
+     MACs of one NTT side; not the same function); K1 and K2 (NTT sides)
+     and their prologue, the digit split, at the NTT's shapes and ragged
+     ones with 3, 4 and 5 planes, raw and K-major tables, timed at 4096^3 x 4
+     and 1024^3 x 32, and K2 at 4096 x K x 4096 for K = 4096 and 16384 (its
+     main loop apart from the rest); K3-K6 (table gathers) on GF(2^8) and GF(3^5)
      (uint8, shared-memory tables) and GF(2^16) (int64, global tables) at
      2^24 elements, and GF(2^10) at a ragged 1,000,003; K9 (GF(2^31 - 1)
      multiply) and K10 (Goldilocks multiply, canonical and non-canonical
@@ -240,6 +246,10 @@ def main() -> int:
     from galois_tpu_torch.ops._kernels import get_ops
     from galois_tpu_torch.ops._linalg import balanced_plane_count, balanced_planes_np
     from galois_tpu_torch.ops._plane_matmul import (
+        KMajorPlanes,
+        kmajor_planes,
+        plane_digits,
+        plane_digits_plain,
         plane_matmul_data_left,
         plane_matmul_data_left_plain,
         plane_matmul_data_right,
@@ -269,7 +279,7 @@ def main() -> int:
     for name in sources:
         print(f"[build] {name}.cu: {secs[name]:.1f} s")
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "warning", "setmaxnreg", "wgmma")):
                 print(f"[build]   {line.strip()}")
 
     report = {}
@@ -296,13 +306,18 @@ def main() -> int:
     err = max_abs_err(got, device_probe_plain(block))
     if device_probe.launches != 1 or err or int(got.min()) != 1 or int(got.max()) != 1:
         raise AssertionError(f"K11 device_probe failed: launches {device_probe.launches}, max_abs_err {err}")
-    ms = cuda_ms(lambda: device_probe(block), 200)
+    # K11 and torch.add on equal footing: by CUDA-graph replay (device time) and by eager calls
+    # (launch latency); the replay times go into the report
+    ms = graph_ms(lambda: device_probe(block), 200)
+    eager = cuda_ms(lambda: device_probe(block), 200)
     pms = cuda_ms(lambda: device_probe_plain(block), 200)
-    lib = cuda_ms(lambda: torch.add(block, 1), 200)
+    lib = graph_ms(lambda: torch.add(block, 1), 200)
+    lib_eager = cuda_ms(lambda: torch.add(block, 1), 200)
     record("device_probe", err, ms, pms, bound(2 * 4 * block.numel()), lib)
     print(
         f"[build] K11 device_probe (8, 1024) int32: every element 1, max_abs_err {err} | first launch "
-        f"{first_s * 1e3:.3f} ms host wall | launch latency {ms:.4f} ms per eager call (CUDA events) | "
+        f"{first_s * 1e3:.3f} ms host wall | kernel {ms:.4f} ms by graph replay, {eager:.4f} ms per eager call "
+        f"(CUDA events) | torch.add(block, 1) {lib:.4f} ms by graph replay, {lib_eager:.4f} ms per eager call | "
         f"plain x + 1 {pms:.4f} ms",
         flush=True,
     )
@@ -348,6 +363,15 @@ def main() -> int:
     print(
         f"[kernel] K8 gf2m_multiply_swar m=8 n=2^24: kernel {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
         f"plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})",
+        flush=True,
+    )
+    # the shape of most of K8's main-path launches: the RS decoder's scan
+    xd, yd = a8[: 65536 * 33].reshape(65536, 33), b8[:65536].reshape(65536, 1)
+    k8_dec = graph_ms(lambda: gf2m_multiply_swar(xd, yd, 8, f8), 50)
+    bnd_dec = bound(2 * xd.numel() + yd.numel())
+    print(
+        f"[kernel] K8 gf2m_multiply_swar m=8 at the RS decoder's (65536, 33) x (65536, 1): kernel {k8_dec:.4f} ms "
+        f"by graph replay | bound {bnd_dec[0]:.4f} ms ({bnd_dec[1]})",
         flush=True,
     )
     # K7 and K3 on the same GF(2^8) inputs: the three kernels that compute this map
@@ -400,66 +424,128 @@ def main() -> int:
     del a9, b9
     torch.cuda.empty_cache()
 
+    # K1/K2: the prologue and both sides against their plain versions at the
+    # NTT's shapes and at ragged tiles (M % 128, N % BN, K % 16 and K % 64 not
+    # 0), batch 1 and 3, and 3 and 5 planes inside the gate. Raw tables take
+    # the wrapper's repack; K-major ones (as MatmulFFTPlan keeps them) none,
+    # and those are timed.
+    ys_a = torch.randint(-128, 128, (4096, 16 * 4096), generator=gen, device=dev, dtype=torch.int8)
+    ys_b = torch.randint(-128, 128, (4096, 16 * 4096), generator=gen, device=dev, dtype=torch.int8).t()
+    ys_bnd = bound(0, 4 * 2 * 4096 * 16 * 4096 * 4096)
+    try:
+        ys = cuda_ms(lambda: [torch._int_mm(ys_a, ys_b) for _ in range(4)], 3)
+        print(
+            f"[kernel] yardstick, not the same function: torch._int_mm int8 (4096, 65536) @ (65536, 4096) "
+            f"four times, the MACs of one NTT side at 4096^3 x 4: {ys:.3f} ms | bound {ys_bnd[0]:.3f} ms "
+            f"({ys_bnd[0] / ys:.1%})",
+            flush=True,
+        )
+    except RuntimeError as exc:  # a yardstick: no check depends on it
+        print(f"[kernel] yardstick torch._int_mm not measured: {type(exc).__name__}: {exc}", flush=True)
+    del ys_a, ys_b
     rng = np.random.default_rng(1)
-    shapes = [  # (M, K, N, batch, reps); None reps: check only
-        (1024, 1024, 1024, 2, None),
-        (300, 520, 200, 3, None),
-        (1024, 1024, 1024, 32, 5),  # NTT 2^20 sides
-        (4096, 4096, 4096, 4, 2),  # NTT 2^24 sides
+    shapes = [  # (p, M, K, N, batch, reps); None reps: check only
+        (P, 1024, 1024, 1024, 2, None),
+        (P, 300, 520, 200, 3, None),
+        (P, 130, 100, 50, 1, None),
+        (P, 257, 1000, 97, 3, None),
+        (7340033, 200, 120, 100, 3, None),  # 3 planes
+        (2**32 - 5, 260, 1000, 130, 1, None),  # 5 planes
+        (P, 1024, 1024, 1024, 32, 5),  # NTT 2^20 sides
+        (P, 4096, 4096, 4096, 4, 3),  # NTT 2^24 sides
     ]
-    n_planes = balanced_plane_count(P)
-    for M, K, N, B, reps in shapes:
-        A = torch.from_numpy(balanced_planes_np(rng.integers(0, P, (M, K)), P)).to(dev)
-        W = torch.from_numpy(balanced_planes_np(rng.integers(0, P, (K, N)), P)).to(dev)
-        T = torch.from_numpy(rng.integers(0, P, (M, N))).to(dev)
-        xr = torch.randint(0, P, (B, K, N), generator=gen, device=dev)
-        xl = torch.randint(0, P, (B, M, K), generator=gen, device=dev)
-        tag = f"{M}x{K}x{N} batch {B}"
+    for p, M, K, N, B, reps in shapes:
+        n_planes = balanced_plane_count(p)
+        A_raw = torch.from_numpy(balanced_planes_np(rng.integers(0, p, (M, K)), p)).to(dev)
+        W_raw = torch.from_numpy(balanced_planes_np(rng.integers(0, p, (K, N)), p)).to(dev)
+        A, W = kmajor_planes(A_raw, 2), kmajor_planes(W_raw, 1)
+        T = torch.from_numpy(rng.integers(0, p, (M, N))).to(dev)
+        xr = torch.randint(0, p, (B, K, N), generator=gen, device=dev)
+        xl = torch.randint(0, p, (B, M, K), generator=gen, device=dev)
+        edges = torch.tensor([0, p // 2, p // 2 + 1, p - 1], device=dev)
+        xr.view(-1)[:4] = edges
+        xl.view(-1)[:4] = edges
+        tag = f"p={p} ({n_planes} planes) {M}x{K}x{N} batch {B}"
         side_ops = n_planes**2 * 2 * M * K * N * B  # int8 plane-pair products
 
-        got = plane_matmul_data_right(A, xr, P, twiddle=T)
+        err = 0
+        for data, cols in ((xr, True), (xl, False)):
+            got = plane_digits(data, p, cols)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, plane_digits_plain(data, p, cols)))
+            del got
+        print(f"[kernel] K1/K2 prologue plane_digits {tag}: max_abs_err {err}", flush=True)
+        if err:
+            raise AssertionError("the K1/K2 prologue disagrees with its plain version")
+
+        got = plane_matmul_data_right(A, xr, p, twiddle=T)
         torch.cuda.synchronize()
-        err = max_abs_err(got, plane_matmul_data_right_plain(A, xr, P, T))
+        err = max_abs_err(got, plane_matmul_data_right_plain(A, xr, p, T))
         del got
-        got = plane_matmul_data_right(A, xr, P)
+        got = plane_matmul_data_right(A_raw, xr, p)  # raw table: the wrapper's repack
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, plane_matmul_data_right_plain(A, xr, P)))
+        err = max(err, max_abs_err(got, plane_matmul_data_right_plain(A_raw, xr, p)))
         del got
         timing = ""
         if reps:
-            ms = cuda_ms(lambda: plane_matmul_data_right(A, xr, P, twiddle=T), reps)
-            pms = cuda_ms(lambda: plane_matmul_data_right_plain(A, xr, P, T), reps)
+            ms = cuda_ms(lambda: plane_matmul_data_right(A, xr, p, twiddle=T), reps)
+            dms = cuda_ms(lambda: plane_digits(xr, p, True), reps)
+            pms = cuda_ms(lambda: plane_matmul_data_right_plain(A, xr, p, T), reps)
             bnd = bound(n_planes * M * K + 8 * (B * K * N + M * N + B * M * N), side_ops)
             record("plane_matmul_data_right", err, ms, pms, bnd)
-            timing = f" | kernel {ms:.3f} ms | plain {pms:.3f} ms | bound {bnd[0]:.3f} ms ({bnd[1]})"
+            timing = (f" | kernel {ms:.3f} ms (prologue {dms:.3f} ms of it) | plain {pms:.3f} ms | "
+                      f"bound {bnd[0]:.3f} ms ({bnd[1]}), {bnd[0] / ms:.1%} of it")
         else:
             record("plane_matmul_data_right", err)
         print(f"[kernel] K1 data_right(+twiddle) {tag}: max_abs_err {err}{timing}", flush=True)
         if err:
             raise AssertionError("K1 disagrees with its plain version")
 
-        got = plane_matmul_data_left(xl, W, P, transpose_out=True)
+        got = plane_matmul_data_left(xl, W, p, transpose_out=True)
         torch.cuda.synchronize()
-        err = max_abs_err(got, plane_matmul_data_left_plain(xl, W, P, True))
+        err = max_abs_err(got, plane_matmul_data_left_plain(xl, W, p, True))
         del got
-        got = plane_matmul_data_left(xl, W, P)
+        got = plane_matmul_data_left(xl, W_raw, p)  # raw table: the wrapper's repack
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, plane_matmul_data_left_plain(xl, W, P)))
+        err = max(err, max_abs_err(got, plane_matmul_data_left_plain(xl, W_raw, p)))
         del got
         timing = ""
         if reps:
-            ms = cuda_ms(lambda: plane_matmul_data_left(xl, W, P, transpose_out=True), reps)
-            pms = cuda_ms(lambda: plane_matmul_data_left_plain(xl, W, P, True), reps)
+            ms = cuda_ms(lambda: plane_matmul_data_left(xl, W, p, transpose_out=True), reps)
+            dms = cuda_ms(lambda: plane_digits(xl, p), reps)
+            pms = cuda_ms(lambda: plane_matmul_data_left_plain(xl, W, p, True), reps)
             bnd = bound(n_planes * K * N + 8 * (B * M * K + B * M * N), side_ops)
             record("plane_matmul_data_left", err, ms, pms, bnd)
-            timing = f" | kernel {ms:.3f} ms | plain {pms:.3f} ms | bound {bnd[0]:.3f} ms ({bnd[1]})"
+            timing = (f" | kernel {ms:.3f} ms (prologue {dms:.3f} ms of it) | plain {pms:.3f} ms | "
+                      f"bound {bnd[0]:.3f} ms ({bnd[1]}), {bnd[0] / ms:.1%} of it")
         else:
             record("plane_matmul_data_left", err)
         print(f"[kernel] K2 data_left(+transpose) {tag}: max_abs_err {err}{timing}", flush=True)
         if err:
             raise AssertionError("K2 disagrees with its plain version")
-        del A, W, T, xr, xl
+        del A, W, A_raw, W_raw, T, xr, xl
         torch.cuda.empty_cache()
+
+    # What bounds the sides: K2 at 4096 x K x 4096 (batch 1) for K = 4096 and
+    # 16384. The difference is the main loop's time for 3 x 4096 of K; what
+    # it leaves of the shorter call is the part that does not grow with K
+    # (prologue, ring fill, epilogue fold and stores).
+    t_k = {}
+    for K in (4096, 16384):
+        wt = torch.randint(0, P, (1, 4096, K), generator=gen, device=dev)
+        W = KMajorPlanes(plane_digits(wt, P)[0], K)  # the K-major planes of the (K, 4096) table wt^T
+        xl = torch.randint(0, P, (1, 4096, K), generator=gen, device=dev)
+        t_k[K] = cuda_ms(lambda: plane_matmul_data_left(xl, W, P, transpose_out=True), 3)
+        del wt, W, xl
+    loop_ms = (t_k[16384] - t_k[4096]) / 3
+    loop_bnd = bound(0, 16 * 2 * 4096**3)
+    print(
+        f"[kernel] K2 at 4096 x K x 4096 batch 1: K = 4096 {t_k[4096]:.3f} ms, K = 16384 {t_k[16384]:.3f} ms | "
+        f"main loop per 4096 of K {loop_ms:.3f} ms, {loop_bnd[0] / loop_ms:.1%} of its bound {loop_bnd[0]:.3f} ms | "
+        f"the rest {t_k[4096] - loop_ms:.3f} ms",
+        flush=True,
+    )
+    torch.cuda.empty_cache()
 
     # K3-K6; the first field's times go into the report
     lookup_cases = [  # (order, n, reps); None reps: check only
@@ -749,9 +835,9 @@ def main() -> int:
     # grid). Then where the step's time goes: the multiply with the period,
     # the multiply with x materialized to (16, 2^21) first (copy included),
     # the torch add beside it; and a whole evaluation both ways.
-    for p, name, tag, plain in (
-        (GOLDILOCKS, "goldilocks_multiply", "K10", goldilocks_multiply_plain),
-        (M31, "m31_multiply", "K9", m31_multiply_plain),
+    for p, name, tag, kernel, plain in (
+        (GOLDILOCKS, "goldilocks_multiply", "K10", goldilocks_multiply, goldilocks_multiply_plain),
+        (M31, "m31_multiply", "K9", m31_multiply, m31_multiply_plain),
     ):
         F = gt.GF(p)
         ops = get_ops(F._meta, F._mode)
@@ -772,9 +858,12 @@ def main() -> int:
         mul_ms = cuda_ms(lambda: ops.multiply(acc, xb), 10)
         full_ms = cuda_ms(lambda: ops.multiply(acc, xb.expand(acc.shape).contiguous()), 10)
         add_ms = cuda_ms(lambda: ops.add(acc, cj), 10)
+        kern_ms = graph_ms(lambda: kernel(acc, xb), 10)
+        bnd = bound(2 * acc.numel() * acc.element_size() + xb.numel() * xb.element_size())
         print(
             f"[main] {field} Horner inner step at {shape}: multiply {mul_ms:.4f} ms with x by its period, "
-            f"{full_ms:.4f} ms with x materialized; add {add_ms:.4f} ms",
+            f"{full_ms:.4f} ms with x materialized; add {add_ms:.4f} ms | {tag} alone by graph replay "
+            f"{kern_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})",
             flush=True,
         )
         del acc, xb, cj

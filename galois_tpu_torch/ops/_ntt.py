@@ -33,7 +33,7 @@ from ..fields._meta import FieldMeta
 from ..nt import factors as int_factors
 from ._kernels import get_ops, mulmod
 from ._linalg import _prime_matmul, balanced_planes_np
-from ._plane_matmul import plane_matmul_data_left, plane_matmul_data_right, supports
+from ._plane_matmul import kmajor_planes, plane_matmul_data_left, plane_matmul_data_right, supports
 
 __all__ = ["fft_data", "field_fft", "field_ifft", "FFTPlan", "MatmulFFTPlan"]
 
@@ -258,6 +258,10 @@ class MatmulFFTPlan:
         self.w2_planes = torch.from_numpy(balanced_planes_np(W2, p)).to(self.device)
         self.t = torch.from_numpy(T.astype(np.int64)).to(self.device)
         self.kernel_sides = supports(p, n1, n1, n2) and supports(p, n1, n2, n2)
+        if self.kernel_sides:
+            # the layout the kernels read: W1 (n, k1, n1) and W2 (n, k2, n2), K padded to 16
+            self.w1_planes = kmajor_planes(self.w1_planes, 2)
+            self.w2_planes = kmajor_planes(self.w2_planes, 1)
 
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         """Transform the trailing axis of a storage tensor."""

@@ -39,6 +39,9 @@ from galois_tpu_torch.ops._lookup import (
     lookup_reciprocal_plain,
 )
 from galois_tpu_torch.ops._plane_matmul import (
+    kmajor_planes,
+    plane_digits,
+    plane_digits_plain,
     plane_matmul_data_left,
     plane_matmul_data_left_plain,
     plane_matmul_data_right,
@@ -59,7 +62,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(256, 512, 256, 2), (300, 520, 200, 3), (64, 4096, 64, 1)])
+# The kernel's tiles are 128 rows by 48 columns (4 planes) and 64-deep K
+# stages of K padded to 16: ragged M, N and K, K % 16 != 0, batch 1 and 3.
+PLANE_SHAPES = [
+    (256, 512, 256, 2), (300, 520, 200, 3), (64, 4096, 64, 1), (130, 100, 50, 1), (257, 1000, 97, 3),
+    (128, 4096, 96, 2), (1, 1, 1, 1), (1000, 37, 1000, 1),
+]
+
+
+@pytest.mark.parametrize("shape", PLANE_SHAPES)
 def test_plane_matmul_kernels_match_plain(cuda_device, shape):
     m, k, n, b = shape
     rng = np.random.default_rng(sum(shape))
@@ -68,7 +79,9 @@ def test_plane_matmul_kernels_match_plain(cuda_device, shape):
     xr = torch.from_numpy(rng.integers(0, P, (b, k, n))).to(cuda_device)
     xl = torch.from_numpy(rng.integers(0, P, (b, m, k))).to(cuda_device)
     T = torch.from_numpy(rng.integers(0, P, (m, n))).to(cuda_device)
-    xr[0, 0, :3] = torch.tensor([0, P // 2, P - 1])
+    edges = torch.tensor([0, P // 2, P // 2 + 1, P - 1])
+    xr.view(-1)[:4] = edges[: min(4, xr.numel())]
+    xl.view(-1)[:4] = edges[: min(4, xl.numel())]
     launches = plane_matmul_data_right.launches
     for tw in (None, T):
         got = plane_matmul_data_right(A, xr, P, twiddle=tw)
@@ -89,6 +102,48 @@ def test_plane_matmul_kernels_other_plane_counts(cuda_device, p):
     got = plane_matmul_data_right(A, x, p)
     torch.cuda.synchronize()
     assert torch.equal(got, plane_matmul_data_right_plain(A, x, p))
+    # both sides at ragged shapes inside the gate (K < 149 for 3 planes)
+    m, k, n, b = (200, 120, 100, 3) if p == 7340033 else (260, 1000, 130, 1)
+    A = torch.from_numpy(balanced_planes_np(rng.integers(0, p, (m, k)), p)).to(cuda_device)
+    W = torch.from_numpy(balanced_planes_np(rng.integers(0, p, (k, n)), p)).to(cuda_device)
+    T = torch.from_numpy(rng.integers(0, p, (m, n))).to(cuda_device)
+    xr = torch.from_numpy(rng.integers(0, p, (b, k, n))).to(cuda_device)
+    xl = torch.from_numpy(rng.integers(0, p, (b, m, k))).to(cuda_device)
+    xr[0, 0, :4] = xl[0, 0, :4] = torch.tensor([0, p // 2, p // 2 + 1, p - 1])
+    assert torch.equal(plane_matmul_data_right(A, xr, p, twiddle=T), plane_matmul_data_right_plain(A, xr, p, T))
+    for tr in (False, True):
+        assert torch.equal(plane_matmul_data_left(xl, W, p, tr), plane_matmul_data_left_plain(xl, W, p, tr))
+
+
+@pytest.mark.parametrize("p", [7340033, P, 2**32 - 5])  # 3, 4 and 5 planes
+@pytest.mark.parametrize("shape", [(2, 37, 300), (3, 128, 65), (1, 1000, 4096)])
+def test_plane_digits_kernel_matches_plain(cuda_device, p, shape):
+    """The prologue: (B, rows, K) or (B, K, rows) int64 -> (B, n, rows, Kp)
+    int8, K-major, zero padded to a multiple of 16, edge values included."""
+    rng = np.random.default_rng(p % 1000 + sum(shape))
+    x = torch.from_numpy(rng.integers(0, p, shape)).to(cuda_device)
+    x.view(-1)[:4] = torch.tensor([0, p // 2, p // 2 + 1, p - 1])
+    for cols in (False, True):
+        got = plane_digits(x, p, cols)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plane_digits_plain(x, p, cols))
+
+
+def test_plane_matmul_kmajor_tables_match_raw(cuda_device):
+    """Tables given K-major (as MatmulFFTPlan keeps them) take no repack and
+    give what raw tables (repacked by the wrapper) give."""
+    rng = np.random.default_rng(9)
+    m, k, n, b = 200, 520, 150, 2
+    A = torch.from_numpy(balanced_planes_np(rng.integers(0, P, (m, k)), P)).to(cuda_device)
+    W = torch.from_numpy(balanced_planes_np(rng.integers(0, P, (k, n)), P)).to(cuda_device)
+    Ak, Wk = kmajor_planes(A, 2), kmajor_planes(W, 1)
+    assert Ak.planes.shape == (4, m, 528) and Wk.planes.shape == (4, n, 528)
+    xr = torch.from_numpy(rng.integers(0, P, (b, k, n))).to(cuda_device)
+    xl = torch.from_numpy(rng.integers(0, P, (b, m, k))).to(cuda_device)
+    assert torch.equal(plane_matmul_data_right(Ak, xr, P), plane_matmul_data_right(A, xr, P))
+    assert torch.equal(plane_matmul_data_right(Ak, xr, P), plane_matmul_data_right_plain(Ak, xr, P))
+    assert torch.equal(plane_matmul_data_left(xl, Wk, P, True), plane_matmul_data_left(xl, W, P, True))
+    assert torch.equal(plane_matmul_data_left(xl, Wk, P), plane_matmul_data_left_plain(xl, W, P))
 
 
 def test_plane_matmul_refuses_shapes_outside_the_gate(cuda_device):

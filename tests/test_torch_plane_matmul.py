@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+import galois_tpu as gj
 import galois_tpu_torch as gt
 from galois_tpu.ops._linalg import _prime_matmul_planes as jax_prime_matmul_planes
 from galois_tpu.ops._linalg import balanced_plane_count as jax_plane_count
@@ -22,6 +23,8 @@ from galois_tpu.ops._pallas._plane_matmul import (
 )
 from galois_tpu_torch.ops._linalg import _prime_matmul_planes, balanced_plane_count, balanced_planes_np
 from galois_tpu_torch.ops._plane_matmul import (
+    kmajor_planes,
+    plane_digits_plain,
     plane_matmul_data_left,
     plane_matmul_data_left_plain,
     plane_matmul_data_right,
@@ -145,3 +148,130 @@ def test_prime_matmul_matches_jax(p):
     want = np.asarray(jax_prime_matmul(jnp.asarray(a.astype(dt)), jnp.asarray(b.astype(dt)), p, 96, meta))
     got = _prime_matmul(torch.from_numpy(a), torch.from_numpy(b), p, 96)
     assert np.array_equal(got.numpy(), want.astype(np.int64))
+
+
+# ----------------------------------------------------------------------
+# The Hopper kernels' layouts: the prologue's K-major digit planes and the
+# tables' K-major copies (K padded to 16), on the CPU through the plain
+# versions. Exact equality throughout.
+# ----------------------------------------------------------------------
+
+def _jax_extract_planes(x: np.ndarray, p: int) -> np.ndarray:
+    """The TPU kernels' own digit split, ``_extract_planes``, run in a
+    Pallas kernel in interpret mode: (R, K) residues -> (n, R, K) int8."""
+    import jax
+    from jax.experimental import pallas as pl
+    from galois_tpu.ops._pallas._plane_matmul import _extract_planes
+
+    n = jax_plane_count(p)
+
+    def kernel(x_ref, o_ref):
+        for i, d in enumerate(_extract_planes(x_ref[...], p, n)):
+            o_ref[i] = d
+
+    out = jax.ShapeDtypeStruct((n,) + x.shape, jnp.int8)
+    return np.asarray(pl.pallas_call(kernel, out_shape=out, interpret=True)(_u32(x)))
+
+
+def _pad_k(planes: np.ndarray) -> np.ndarray:
+    K = planes.shape[-1]
+    pad = [(0, 0)] * (planes.ndim - 1) + [(0, -K % 16)]
+    return np.pad(planes, pad)
+
+
+@pytest.mark.parametrize("p", [7340033, P, 2**32 - 5])  # 3, 4 and 5 planes
+@pytest.mark.parametrize("cols", [False, True])
+def test_plane_digits_plain_matches_jax(p, cols):
+    """The prologue's plain version: (B, rows, K) data, or (B, K, rows) for
+    K1, -> (B, n, rows, Kp) K-major planes, zero padded from a ragged K = 37
+    to 48; against the JAX package's balanced_planes_np and, up to four
+    planes, the JAX kernels' own _extract_planes. The digits spell the
+    symmetric residue exactly.
+
+    Known deviation of the reference: at five planes (p within 0.4% of
+    2^32) _extract_planes works in int32, so for |x'| near p/2 its fourth
+    step wraps and the fifth digit comes out 0 where the exact split has 1:
+    the value is off by 2^32. The port follows balanced_planes_np."""
+    B, R, K = 2, 24, 37
+    rng = np.random.default_rng(p % 1000)
+    x = rng.integers(0, p, (B, R, K), dtype=np.int64)
+    x.reshape(-1)[:4] = [0, p // 2, p // 2 + 1, p - 1]
+    data = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)) if cols else x)
+    got = plane_digits_plain(data, p, cols)
+    n = jax_plane_count(p)
+    assert got.shape == (B, n, R, 48) and got.dtype == torch.int8
+    assert np.array_equal(got.numpy(), _pad_k(jax_planes_np(x, p).transpose(1, 0, 2, 3)))
+    if n <= 4:
+        want = _pad_k(np.stack([_jax_extract_planes(x[b], p) for b in range(B)]))
+        assert np.array_equal(got.numpy(), want)
+    assert not got[..., K:].any()
+    digits = got.numpy()[..., :K].astype(np.int64)
+    value = sum(digits[:, i] * 256**i for i in range(n))
+    assert np.array_equal(value, np.where(x > p // 2, x - p, x))
+
+
+@pytest.mark.parametrize("k_axis", [1, 2])
+def test_kmajor_planes_roundtrip(operands, k_axis):
+    raw = balanced_planes_np(operands["A"][:40, :37], P)  # (n, 40, 37): K = 37 on axis 2, or 40 on axis 1
+    km = kmajor_planes(torch.from_numpy(raw), k_axis)
+    K = raw.shape[k_axis]
+    rows_k = raw if k_axis == 2 else raw.transpose(0, 2, 1)
+    assert km.K == K and km.planes.shape == (4, rows_k.shape[1], -(-K // 16) * 16)
+    assert np.array_equal(km.planes.numpy(), _pad_k(rows_k))
+    assert torch.equal(km.raw(k_axis), torch.from_numpy(raw))
+    assert kmajor_planes(km, k_axis) is km
+
+
+def test_wrappers_take_kmajor_tables(operands):
+    """The CPU wrappers (plain versions) give the same with raw and K-major
+    tables, also at a K that is no multiple of 16."""
+    o = operands
+    A, W = o["A"][:, :100], o["W"][:100]
+    Apl, Wpl = torch.from_numpy(balanced_planes_np(A, P)), torch.from_numpy(balanced_planes_np(W, P))
+    xr = torch.from_numpy(o["x_right"][:, :100, :40])
+    xl = torch.from_numpy(o["x_left"][:, :40, :100])
+    T = torch.from_numpy(o["T"][:, :40])
+    assert torch.equal(
+        plane_matmul_data_right(kmajor_planes(Apl, 2), xr, P, T), plane_matmul_data_right_plain(Apl, xr, P, T)
+    )
+    assert torch.equal(
+        plane_matmul_data_left(xl, kmajor_planes(Wpl, 1), P, True), plane_matmul_data_left_plain(xl, Wpl, P, True)
+    )
+
+
+def _old_gate(p, M, K, N):
+    """supports() as the mma.sync kernel had it."""
+    n = jax_plane_count(p)
+    return p < 2**32 and n in (3, 4, 5) and n * K * 128**2 < min(2**31, p) and min(M, K, N) >= 1
+
+
+def test_supports_unchanged_on_a_grid():
+    for p in (257, 65537, 7340033, 2**31 - 1, P, 2**32 - 5, 2**32 + 15):
+        for M in (1, 100, 128, 4096):
+            for K in (1, 16, 37, 148, 149, 1000, 4096, 26214, 26215, 32767, 32768):
+                for N in (1, 48, 100, 4096):
+                    assert supports(p, M, K, N) == _old_gate(p, M, K, N), (p, M, K, N)
+
+
+@pytest.mark.parametrize(["p", "N"], [(P, 2**10), (7340033, 7 * 2**8)])
+def test_plan_kmajor_tables_and_transform_match_jax(p, N):
+    """load_tables keeps W1 as (n, k1, n1) and W2 as (n, k2, n2) K-major
+    planes, K padded to 16 (n2 = 56 for GF(7340033) at N = 1792), and the
+    plan's transform still equals the JAX plan's."""
+    from galois_tpu.ops._ntt import MatmulFFTPlan as JaxMatmulFFTPlan
+    from galois_tpu.ops._ntt import _get_omega as jax_get_omega
+    from galois_tpu_torch.ops._ntt import MatmulFFTPlan, _get_omega, _matmul_split
+
+    Ft, Fj = gt.GF(p), gj.GF(p)
+    omega, n1 = _get_omega(Ft, N), _matmul_split(N)
+    assert omega == jax_get_omega(Fj, N)
+    jplan = JaxMatmulFFTPlan(Fj._meta, N, omega, "jit-calculate", n1)
+    tplan = MatmulFFTPlan(Ft._meta, N, omega, "jit-calculate", n1, "cpu")
+    assert tplan.kernel_sides
+    w1, w2 = tplan.w1_planes, tplan.w2_planes
+    assert np.array_equal(w1.planes.numpy(), _pad_k(jax_planes_np(jplan.W1.astype(np.int64), p)))
+    assert np.array_equal(w2.planes.numpy(), _pad_k(jax_planes_np(jplan.W2.astype(np.int64), p).transpose(0, 2, 1)))
+    assert (w1.K, w2.K) == (tplan.n1, tplan.n2)
+    x = np.random.default_rng(N).integers(0, p, (2, N), dtype=np.int64)
+    want = np.asarray(jplan.transform(jnp.asarray(x.astype(jplan.W1.dtype)))).astype(np.int64)
+    assert np.array_equal(tplan.transform(torch.from_numpy(x)).numpy().astype(np.int64), want)
