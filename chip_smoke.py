@@ -31,7 +31,15 @@ Phases, each fatal on failure:
      multiply) and K10 (Goldilocks multiply, canonical and non-canonical
      limbs) at 2^24 and a ragged 1,000,003 with their edge values. Prints
      CUDA-event times of kernel and plain version (elementwise kernels timed
-     by CUDA graph replay, so that host time per call does not hide them);
+     by CUDA graph replay, so that host time per call does not hide them).
+     K8-A (the GF(2^m) power chain) on GF(2^8) at 2^24 (reciprocal and an
+     exponent tensor), at Forney's (65536, 255), a 0-D base against an
+     exponent tensor, and every m = 2..16 over all its elements on a ragged
+     view one element off alignment; timed beside K5 (the table reciprocal)
+     on the same inputs. K8-B (the Berlekamp-Massey scan) at RS(255,223)'s
+     (65536, 32) with u = 0 and random u, at d = 65 and at m = 4; timed.
+     K8-A and K8-B have integer-operation bounds at the int32 rate of 132
+     SMs x 64 lanes at the card's maximum SM clock (nvidia-smi);
   4. main path 1, through the public API with every launch counter reset to
      0 first: GF(2^8) multiply of 2^24 elements, then np.fft.fft / ifft over
      GF(3*2^30+1) at N = 2^20 (batch 32) and N = 2^24 (batch 4) and ntt /
@@ -60,8 +68,10 @@ Phases, each fatal on failure:
      (GF(2^9) syndromes, f = 529) decodes 16384 words with 0-2 bit errors
      (3-6 in every 16th row). Rows within the capability must give back
      their message and error count, rows beyond it -1 or a codeword; K8 must
-     have been launched in the RS decodes and K7 in the BCH decode. Prints
-     codewords/s per decode, the encode time, the peak device memory, a
+     have been launched in the RS decodes and K7 in the BCH decode; each RS
+     decode must launch K8-B once, K8-A at least once and K8 at most 4 times
+     (6 with erasures). Prints codewords/s per decode with the K8, K7, K8-A
+     and K8-B launches of each, the encode time, the peak device memory, a
      torch.profiler table of one RS decode and its time stage by stage.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
@@ -82,6 +92,8 @@ M31 = 2**31 - 1
 GOLDILOCKS = 2**64 - 2**32 + 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
+SMS, INT32_LANES = 132, 64  # H100 SXM: SMs, int32 lanes per SM per clock
+INT32_OPS_PER_S = None  # SMS x INT32_LANES x the card's maximum SM clock, set in main()
 
 
 def cuda_ms(fn, reps):
@@ -120,11 +132,92 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops=0):
-    """(ms, what bounds it): the larger of HBM bytes over 3.35 TB/s and int8
-    tensor-core operations over 1979 TOP/s."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+def bounds_text(nbytes, int_ops):
+    """Both bounds of an integer kernel, and the larger: 'bound X ms (what;
+    operations Y ms, bytes Z ms)'."""
+    t_ops, t_bytes = int_ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ms, by = bound(nbytes, int_ops=int_ops)
+    return f"bound {ms:.4f} ms ({by}; operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms)"
+
+
+def bound(nbytes, ops=0, int_ops=0):
+    """(ms, what bounds it): the largest of HBM bytes over 3.35 TB/s, int8
+    tensor-core operations over 1979 TOP/s and 32-bit integer operations
+    over the int32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / INT8_OPS_PER_S, int_ops / INT32_OPS_PER_S if int_ops else 0) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+# 32-bit integer operations of the GF(2^m) chains of csrc/gf2m_swar.cuh and
+# csrc/gf2m_chain.cu, counted line by line as the int32 pipe would run them
+# at best: one per shift (SHF), one per bitwise function of up to three
+# inputs, an immediate mask included (LOP3), one per add or subtract
+# (IADD3); multiplies (bit * 255, c * 0x01010101, the exponent's modulo) run
+# on the FMA pipe and count 0, and so does loop control. The compiler cannot
+# do with fewer, so the time at 64 int32 lanes per SM is a lower bound.
+
+def nib_ops(n):
+    """nib_ladder<n>: per step a shift of y, an AND, a shift of x and one
+    AND-XOR; step 0 has no shifts and nothing to XOR."""
+    return max(0, 4 * n - 2)
+
+
+def fold_costs(m, f):
+    """(rounds, operations per slot word and round) of the folds by
+    r = f ^ x^m: c >> m and its mask, a shift per set bit of r above bit 0,
+    XORs three inputs at a time, and (c & low) ^ t."""
+    r = f ^ (1 << m)
+    pop, deg_r = bin(r).count("1"), max(r.bit_length() - 1, 0)
+    width, rounds = 2 * m - 1, 0
+    while width > m:
+        width, rounds = max(m, width - m + deg_r), rounds + 1
+    return rounds, 3 + bin(r >> 1).count("1") + (pop - 1 + 1) // 2
+
+
+def chain_costs(m, f):
+    """Operations of K8-A's and K8-B's pieces for GF(2^m) with f: a product
+    and a square per word of four elements (m <= 8), per element in a lane,
+    and the squares and products of the Itoh-Tsujii chain."""
+    rounds, per_round = fold_costs(m, f)
+    fold_word = rounds * per_round
+    if m <= 4:
+        mul4, sqr4 = nib_ops(m) + fold_word, 4 + fold_word
+    else:  # nibbles 6, three ladders, mid's XORs 3, re-slotting 12, recombining 2; two slot words
+        mul4 = 23 + 2 * nib_ops(4) + nib_ops(m - 4) + 2 * fold_word
+        sqr4 = 17 + 2 * fold_word  # bytes to slots 3, spreads 12, recombining 2
+    red1 = rounds * (per_round - 1)  # reduce1: one element, no mask after c >> m
+    sq, pr, k = 1, 0, 1  # the final square
+    for bit in bin(m - 1)[3:]:
+        sq, pr, k = sq + k, pr + 1, 2 * k
+        if bit == "1":
+            sq, pr, k = sq + 1, pr + 1, k + 1
+    return {"mul4": mul4, "sqr4": sqr4, "mul1": 5 * m - 2 + red1, "sqr1": 8 + red1, "inv_sq": sq, "inv_mul": pr}
+
+
+def power_ops(m, f, n, exponent):
+    """K8-A on n elements, m <= 8: the reciprocal, or the exponent ladder (m
+    products with 3 for each byte-mask select, m - 1 squares, 10 per element
+    to mask, reduce and pack the exponent)."""
+    c, words = chain_costs(m, f), -(-n // 4)
+    if exponent:
+        return words * (m * (c["mul4"] + 3) + (m - 1) * c["sqr4"]) + 10 * n
+    return words * (c["inv_sq"] * c["sqr4"] + c["inv_mul"] * c["mul4"])
+
+
+def scan_ops(m, f, d, rows):
+    """K8-B over rows codewords. Per step t: the window's t // 4 + 2, the
+    dot's t // 4 + 1 words (nibbles and the three ladders), the byte folds
+    of its sum, reduce1, the scalar reciprocal and product, the multiply
+    table (4 a bit), 13 for the predicates and the grow update, and the
+    update's (t + 1) // 4 + 1 words (x B, 3 a bit of the table product, the
+    selects)."""
+    c = chain_costs(m, f)
+    dot_word = nib_ops(m) if m <= 4 else 8 + 2 * nib_ops(4) + nib_ops(m - 4)
+    red1 = c["mul1"] - (5 * m - 2)
+    fixed = (16 if m > 4 else 4) + red1 + c["inv_sq"] * c["sqr1"] + c["inv_mul"] * c["mul1"] + c["mul1"] + 4 * m + 13
+    per_row = sum(fixed + (t // 4 + 2) + (t // 4 + 1) * dot_word + ((t + 1) // 4 + 1) * (3 * m + 3) for t in range(d - 1))
+    return rows * per_row
 
 
 def max_abs_err(a, b):
@@ -231,6 +324,7 @@ def main() -> int:
     from galois_tpu_torch import _build
     from galois_tpu_torch.codes._decoder import make_decoder
     from galois_tpu_torch.ops import _elementwise, _lookup
+    from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain
     from galois_tpu_torch.ops._elementwise import (
         device_probe,
         device_probe_plain,
@@ -238,6 +332,8 @@ def main() -> int:
         gf2m_multiply_plain,
         gf2m_multiply_swar,
         gf2m_multiply_swar_plain,
+        gf2m_power,
+        gf2m_power_plain,
         goldilocks_multiply,
         goldilocks_multiply_plain,
         m31_multiply,
@@ -263,7 +359,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    global INT32_OPS_PER_S
+    INT32_OPS_PER_S = SMS * INT32_LANES * sm_mhz * 1e6
+    print(
+        f"[device] {smi} | max SM clock {sm_mhz:.0f} MHz, int32 rate {INT32_OPS_PER_S / 1e12:.2f} Tops/s | "
+        f"torch {torch.__version__} cuda {torch.version.cuda}",
+        flush=True,
+    )
 
     # -- 2. build ------------------------------------------------------
     def build(name):
@@ -271,7 +377,7 @@ def main() -> int:
         _build.load(name)
         return time.perf_counter() - t0
 
-    sources = ("plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar")
+    sources = ("plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar", "gf2m_chain")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         secs = dict(zip(sources, pool.map(build, sources)))
@@ -422,6 +528,113 @@ def main() -> int:
         flush=True,
     )
     del a9, b9
+    torch.cuda.empty_cache()
+
+    # K8-A: the reciprocal and an exponent tensor at 2^24 (its 16-byte path),
+    # Forney's (65536, 255) reciprocal, the erasure locator's 0-D base against
+    # (65536, 33) exponents, and every m = 2..16 over all its elements, three
+    # times, on a view one element off alignment (byte loads, ragged tail)
+    e8 = torch.randint(0, 2**40, (2**24,), generator=gen, device=dev)
+    forney = a8[: 65536 * 255].reshape(65536, 255)
+    pow_cases = [
+        (8, f8, "reciprocal n=2^24", a8, None, 0),
+        (8, f8, "exponent tensor n=2^24 (40 bits)", a8, e8, 40),
+        (8, f8, "reciprocal at Forney's (65536, 255)", forney, None, 0),
+        (8, f8, "0-D base, exponents (65536, 33) (the erasure locator)", a8[7], e8[: 65536 * 33].reshape(65536, 33) % 255, 8),
+    ]
+    for m in range(2, 17):
+        Fm = gt.GF(2**m)
+        every = torch.arange(2**m, device=dev).to(Fm._meta.torch_dtype).repeat(3)[1:]
+        ex = torch.randint(-2**62, 2**62, every.shape, generator=gen, device=dev)
+        f_m = Fm._meta.irreducible_poly_int
+        pow_cases += [
+            (m, f_m, f"reciprocal, every element, offset view n={every.numel()}", every, None, 0),
+            (m, f_m, f"exponent tensor (64 bits), every element, offset view n={every.numel()}", every, ex, 64),
+        ]
+    for m, f, tag, x, y, nb in pow_cases:
+        got = gf2m_power(x, y, m, f, nb)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, gf2m_power_plain(x, y, m, f, nb))
+        record("gf2m_power", err)
+        print(f"[kernel] K8-A gf2m_power m={m} {tag}: max_abs_err {err}", flush=True)
+        if err:
+            raise AssertionError(f"K8-A disagrees with its plain version at m = {m}, {tag}")
+    del got, pow_cases, every, ex
+    # K5, the table reciprocal, computes the same map on GF(2^8) (0 at 0 aside)
+    inv_a = gf2m_power(a8, None, 8, f8)
+    inv_k5 = _lookup.lookup_reciprocal(a8, exp8, log8, 256)
+    torch.cuda.synchronize()
+    if not torch.equal(inv_a[a8 != 0], inv_k5[a8 != 0]):
+        raise AssertionError("K8-A and K5 disagree on GF(2^8) reciprocals")
+    del inv_a, inv_k5
+    n8, n_fy = 2**24, forney.numel()
+    recip_ms = graph_ms(lambda: gf2m_power(a8, None, 8, f8), 20)
+    k5_ms = graph_ms(lambda: _lookup.lookup_reciprocal(a8, exp8, log8, 256), 20)
+    recip_plain = cuda_ms(lambda: gf2m_power_plain(a8, None, 8, f8), 2)
+    recip_ops = power_ops(8, f8, n8, False)
+    pow_ms = graph_ms(lambda: gf2m_power(a8, e8, 8, f8, 40), 10)
+    pow_plain = cuda_ms(lambda: gf2m_power_plain(a8, e8, 8, f8, 40), 1)
+    fy_ms = graph_ms(lambda: gf2m_power(forney, None, 8, f8), 20)
+    fy_k5 = graph_ms(lambda: _lookup.lookup_reciprocal(forney, exp8, log8, 256), 20)
+    record("gf2m_power", 0, recip_ms, recip_plain, bound(2 * n8, int_ops=recip_ops))
+    print(
+        f"[kernel] K8-A gf2m_power m=8 reciprocal n=2^24: kernel {recip_ms:.4f} ms by graph replay | K5 "
+        f"lookup_reciprocal (hand kernel, tables) on the same inputs {k5_ms:.4f} ms | plain {recip_plain:.4f} ms | "
+        f"{bounds_text(2 * n8, recip_ops)}",
+        flush=True,
+    )
+    print(
+        f"[kernel] K8-A gf2m_power m=8 exponent tensor n=2^24: kernel {pow_ms:.4f} ms | plain {pow_plain:.4f} ms | "
+        f"{bounds_text(10 * n8, power_ops(8, f8, n8, True))}",
+        flush=True,
+    )
+    print(
+        f"[kernel] K8-A gf2m_power m=8 reciprocal at Forney's (65536, 255): kernel {fy_ms:.4f} ms | K5 {fy_k5:.4f} ms | "
+        f"{bounds_text(2 * n_fy, power_ops(8, f8, n_fy, False))}",
+        flush=True,
+    )
+    del e8, forney
+    torch.cuda.empty_cache()
+
+    # K8-B: RS(255,223)'s (65536, 32) with u = 0 and random u (0 to past d - 1,
+    # rows of zero discrepancies among them), d = 65, and m = 4 at d = 5, 17
+    ops4 = get_ops(gt.GF(2**4)._meta, "jit-calculate")
+    ops8c = get_ops(GF8._meta, "jit-calculate")
+    B_scan = 65536
+    scans = {}
+    for ops_m, m, d in ((ops8c, 8, 33), (ops8c, 8, 65), (ops4, 4, 5), (ops4, 4, 17)):
+        S = torch.randint(0, 2**m, (B_scan, d - 1), generator=gen, device=dev).to(torch.uint8)
+        S[1::97] = 0
+        u_r = torch.randint(0, d + 3, (B_scan,), generator=gen, device=dev)
+        u_0 = torch.zeros(B_scan, dtype=torch.int64, device=dev)
+        scans[(m, d)] = (ops_m, S, u_0, u_r)
+        for tag, uu in (("u = 0", u_0), ("random u", u_r)):
+            C, L = berlekamp_massey_scan(ops_m, S, uu, d)
+            torch.cuda.synchronize()
+            Cp, Lp = berlekamp_massey_scan_plain(ops_m, S, uu, d)
+            err = max(max_abs_err(C, Cp), max_abs_err(L, Lp))
+            record("berlekamp_massey_scan", err)
+            print(f"[kernel] K8-B berlekamp_massey_scan m={m} d={d} ({B_scan}, {d - 1}), {tag}: max_abs_err {err}", flush=True)
+            if err:
+                raise AssertionError(f"K8-B disagrees with its plain version at m = {m}, d = {d}, {tag}")
+    del C, L, Cp, Lp
+    ops_m, S, u_0, u_r = scans[(8, 33)]
+    f_scan = GF8._meta.irreducible_poly_int
+    scan_ms = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_0, 33), 20)
+    scan_ms_u = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_r, 33), 20)
+    scan_plain = cuda_ms(lambda: berlekamp_massey_scan_plain(ops_m, S, u_0, 33), 2)
+    scan_bytes, scan_iops = B_scan * (32 + 8 + 33 + 8), scan_ops(8, f_scan, 33, B_scan)  # S', u in; C, L out
+    record("berlekamp_massey_scan", 0, scan_ms, scan_plain, bound(scan_bytes, int_ops=scan_iops))
+    ops_m, S, u_0, _ = scans[(8, 65)]
+    scan65_ms = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_0, 65), 10)
+    print(
+        f"[kernel] K8-B berlekamp_massey_scan RS(255,223)'s (65536, 32): kernel {scan_ms:.4f} ms (u = 0), "
+        f"{scan_ms_u:.4f} ms (random u) by graph replay | plain {scan_plain:.3f} ms | "
+        f"{bounds_text(scan_bytes, scan_iops)} | d = 65 (65536, 64): {scan65_ms:.4f} ms, "
+        f"{bounds_text(B_scan * (64 + 8 + 65 + 8), scan_ops(8, f_scan, 65, B_scan))}",
+        flush=True,
+    )
+    del scans, S, u_0, u_r
     torch.cuda.empty_cache()
 
     # K1/K2: the prologue and both sides against their plain versions at the
@@ -638,6 +851,7 @@ def main() -> int:
 
     counters = (
         plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply, gf2m_multiply_swar,
+        gf2m_power, berlekamp_massey_scan,
         _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
         m31_multiply, goldilocks_multiply, device_probe,
     )
@@ -920,24 +1134,29 @@ def main() -> int:
             f"rows -1 and {int(claimed.sum())} miscorrected to a codeword"
         )
 
-    def timed_decode(code, label, x, msg, counts, kw, reps):
-        k7, k8 = gf2m_multiply.launches, gf2m_multiply_swar.launches
+    def timed_decode(code, label, x, msg, counts, kw, reps, scans, k8_max=None):
+        """One decode, checked, with its launches: K8-B ``scans`` times,
+        K8-A at least once, K8 at most ``k8_max`` times; then timed."""
+        kernels = (gf2m_multiply, gf2m_multiply_swar, gf2m_power, berlekamp_massey_scan)
+        before = [fn.launches for fn in kernels]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         dec, nerr = code.decode(x, output="codeword", errors=True, **kw)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        k7, k8 = gf2m_multiply.launches - k7, gf2m_multiply_swar.launches - k8
+        k7, k8, ka, kb = (fn.launches - b for fn, b in zip(kernels, before))
         # the syndrome field's products: K8 for GF(2^m), m <= 8, else K7
         if (k8 if getattr(code, "extension_field", code.field).degree <= 8 else k7) == 0:
             raise AssertionError(f"{label} did not launch its syndrome field's multiply kernel")
+        if kb != scans or ka < 1 or (k8_max is not None and k8 > k8_max):
+            raise AssertionError(f"{label}: K8-B {kb} (want {scans}), K8-A {ka} (want >= 1), K8 {k8} (want <= {k8_max})")
         peak = torch.cuda.max_memory_allocated() / 2**30
         result = check_decode(code, label, msg, counts, dec, nerr)
         ms = cuda_ms(lambda: code.decode(x, **kw), reps)
         B = x.shape[0]
         print(
             f"[main] {label}, {B} codewords: {ms:.3f} ms per decode, {B / ms * 1e3:.0f} codewords/s "
-            f"(first call {first_s * 1e3:.1f} ms) | K8 launches {k8}, K7 launches {k7} per decode | "
+            f"(first call {first_s * 1e3:.1f} ms) | K8 {k8}, K7 {k7}, K8-A {ka}, K8-B {kb} launches per decode | "
             f"peak device memory {peak:.2f} GiB | {result}",
             flush=True,
         )
@@ -961,7 +1180,7 @@ def main() -> int:
     counts = torch.randint(0, rs.t + 1, (B,), generator=gen, device=dev)
     counts[::16] = 40
     x = rs.field._view(corrupt(cw._data, ranks(B, rs.n) < counts[:, None], 256))
-    rs_ms = timed_decode(rs, "RS(255,223) decode", x, msg, counts, {}, 3)
+    rs_ms = timed_decode(rs, "RS(255,223) decode", x, msg, counts, {}, 3, scans=1, k8_max=4)
 
     # the erasure path: f erasures and e errors with 2e + f <= d - 1 = 32,
     # at disjoint positions, garbage under the erasures
@@ -971,7 +1190,7 @@ def main() -> int:
     rk = ranks(B, rs.n)
     era = rk < f_cnt[:, None]
     x2 = rs.field._view(corrupt(rs.encode(msg2)._data, rk < (f_cnt + e_cnt)[:, None], 256))
-    timed_decode(rs, "RS(255,223) decode with erasures", x2, msg2, e_cnt, {"erasures": era}, 3)
+    timed_decode(rs, "RS(255,223) decode with erasures", x2, msg2, e_cnt, {"erasures": era}, 3, scans=1, k8_max=6)
     del msg2, x2, era, rk
 
     # one RS decode under torch.profiler: where the device time goes
@@ -983,12 +1202,19 @@ def main() -> int:
             torch.cuda.synchronize()
         events = prof.key_averages()
         print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
-        groups = {"K8 swar_kernel": 0.0, "matmul kernels": 0.0, "other kernels": 0.0}
+        groups = {"K8 swar_kernel": 0.0, "K8-A power kernels": 0.0, "K8-B bm_scan_kernel": 0.0,
+                  "matmul kernels": 0.0, "other kernels": 0.0}
         for e in events:
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             name = e.key.lower()
-            key = "K8 swar_kernel" if "swar_kernel" in name else "matmul kernels" if "gemm" in name or "matmul" in name else "other kernels"
+            key = (
+                "K8 swar_kernel" if "swar_kernel" in name
+                else "K8-A power kernels" if "power_packed_kernel" in name or "power_scalar_kernel" in name
+                else "K8-B bm_scan_kernel" if "bm_scan_kernel" in name
+                else "matmul kernels" if "gemm" in name or "matmul" in name
+                else "other kernels"
+            )
             groups[key] += e.self_device_time_total / 1e3
         busy = sum(groups.values())
         print(
@@ -1010,11 +1236,11 @@ def main() -> int:
     C, v = dec.berlekamp_massey(S, u)
     stages = {
         "syndromes (bit-plane product)": lambda: dec.fmatmul(r, K["W"]),
-        f"Berlekamp-Massey ({dec.nroots} steps)": lambda: dec.berlekamp_massey(S, u),
+        f"Berlekamp-Massey ({dec.nroots} steps, K8-B)": lambda: dec.berlekamp_massey(S, u),
         "Chien (bit-plane product)": lambda: dec.fmatmul(C, K["CH_T"]),
         "Chien, Forney and correction": lambda: dec.finish(x._data, r, C, S, C, v, u, 2 * v > dec.nroots),
-        f"one reciprocal of ({B},) (the scan does one per step)": lambda: dec.ops.reciprocal(S[:, 0]),
-        f"one K8 multiply of ({B}, {rs.d}) (the scan's dot)": lambda: dec.ops.multiply(C, S[:, :1]),
+        f"one reciprocal of ({B}, {rs.n}) (Forney's shape, K8-A)": lambda: dec.ops.reciprocal(r),
+        f"one K8 multiply of ({B}, {rs.d}) x ({B}, 1)": lambda: dec.ops.multiply(C, S[:, :1]),
     }
     print(
         f"[main] RS(255,223) decode by stage, {B} codewords: "
@@ -1036,16 +1262,19 @@ def main() -> int:
     counts = torch.randint(0, bch.t + 1, (B,), generator=gen, device=dev)
     counts[::16] = torch.randint(bch.t + 1, 7, (B // 16,), generator=gen, device=dev)
     x = bch.field._view(corrupt(cw._data, ranks(B, bch.n) < counts[:, None], 2))
-    timed_decode(bch, "BCH(511,493) decode", x, msg, counts, {}, 3)
+    timed_decode(bch, "BCH(511,493) decode", x, msg, counts, {}, 3, scans=0)
     del msg, cw, x
     torch.cuda.empty_cache()
-    read_counts(4, (gf2m_multiply_swar, gf2m_multiply))
+    read_counts(4, (gf2m_multiply_swar, gf2m_multiply, gf2m_power, berlekamp_massey_scan))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),
         "plane_matmul_data_left": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:261"),
         "gf2m_multiply": ("triton", "galois_tpu_torch/ops/_elementwise.py", "galois_tpu/ops/_pallas/_elementwise.py:493"),
         "gf2m_multiply_swar": ("cuda", "galois_tpu_torch/csrc/gf2m_swar.cu", "galois_tpu/ops/_pallas/_elementwise.py:447"),
+        # K8-A and K8-B: K8 redesigned for the decoder, its core run across whole chains
+        "gf2m_power": ("cuda", "galois_tpu_torch/csrc/gf2m_chain.cu", "galois_tpu/ops/_pallas/_elementwise.py:447"),
+        "berlekamp_massey_scan": ("cuda", "galois_tpu_torch/csrc/gf2m_chain.cu", "galois_tpu/ops/_pallas/_elementwise.py:447"),
         "lookup_multiply": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:324"),
         "lookup_divide": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:341"),
         "lookup_reciprocal": ("cuda", "galois_tpu_torch/csrc/lookup.cu", "galois_tpu/ops/_pallas/_elementwise.py:358"),

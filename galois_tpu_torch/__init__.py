@@ -4,16 +4,18 @@ Finite-field arrays over torch tensors (GF(p) of any size, GF(2^m) with
 m <= 32 and GF(p^m) with p^m <= 2^31, in 'jit-calculate' and, for orders
 <= 2^20, 'jit-lookup' mode) with the field matmul, polynomials over them
 (``Poly``, with batched and matrix evaluation, irreducible and primitive
-polynomial tests and searches), Reed-Solomon and BCH codes with batched
-decoding, and the number-theoretic transform over prime fields up to 2^32.
+polynomial tests and searches, factorization, and ``gcd`` and its kin for
+ints or Polys), Reed-Solomon and BCH codes with batched decoding, and the
+number-theoretic transform over prime fields up to 2^32.
 New data goes to CUDA unless the caller asks for the CPU
 (``set_default_device``, ``default_device``, or ``device=``). The public
 names and results match the JAX package ``galois_tpu``; this package imports
 neither jax nor galois_tpu. On CUDA tensors the NTT's two matmul sides, the
 lookup tables' gathers, the GF(2^m) multiply for m <= 8 (four elements per
-word) and the GF(2^31 - 1) and Goldilocks multiplies run hand-written CUDA
-C++ kernels, and the GF(2^m) multiply for 9 <= m <= 16 a Triton kernel; CPU
-tensors take the kernels' plain torch versions.
+word), GF(2^m) reciprocals and powers for m <= 16, the RS/BCH decoder's
+Berlekamp-Massey scan and the GF(2^31 - 1) and Goldilocks multiplies run
+hand-written CUDA C++ kernels, and the GF(2^m) multiply for 9 <= m <= 16 a
+Triton kernel; CPU tensors take the kernels' plain torch versions.
 """
 
 from ._options import (
@@ -41,14 +43,10 @@ from .codes import (
 )
 from .nt import (
     carmichael_lambda,
-    crt,
     divisor_sigma,
     divisors,
-    egcd,
     euler_phi,
-    factors,
     fermat_primality_test,
-    gcd,
     ilog,
     iroot,
     is_composite,
@@ -59,12 +57,10 @@ from .nt import (
     is_prime_power,
     is_primitive_root,
     is_smooth,
-    is_square_free,
     isqrt,
     jacobi_symbol,
     kronecker_symbol,
     kth_prime,
-    lcm,
     legendre_symbol,
     mersenne_exponents,
     mersenne_primes,
@@ -78,11 +74,13 @@ from .nt import (
     primes,
     primitive_root,
     primitive_roots,
-    prod,
     random_prime,
     totatives,
     trial_division,
 )
 from .transforms import intt, ntt
+
+# the int-or-Poly functions shadow the int-only nt versions, as in galois_tpu
+from ._polymorphic import are_coprime, crt, egcd, factors, gcd, is_square_free, lcm, prod
 
 __version__ = "0.2.0"

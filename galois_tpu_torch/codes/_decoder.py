@@ -20,9 +20,12 @@ The products with constant matrices (syndromes, Gamma's coefficients,
 Chien, Forney) run on bit planes (``ops/_binary_matmul.py``) for GF(2^m)
 and digit planes (``ops/_digit_matmul.py``) for GF(p^m); every other field
 product is ``ops.multiply``, so GF(2^8) decoding launches K8 and GF(2^9)
-(BCH(511)) K7. The scan is a Python loop of d - 1 steps over batched
-tensors. The host constants W, CH, FP, Y, LT and Vinv_T are built once per
-code and copied once to each device.
+(BCH(511)) K7, and GF(2^m) reciprocals and powers (Forney's, Gamma's) K8-A.
+The scan (stage 4) is kernel K8-B for GF(2^m) inside
+``ops/_bm_scan.py::bm_scan_supports`` (m <= 8, d <= 65), on any device (the
+CPU runs its plain version), and elsewhere the plain loop of d - 1 batched
+torch steps. The host constants W, CH, FP, Y, LT and Vinv_T are built once
+per code and copied once to each device.
 
 Not carried over from the JAX package: ``jax.jit``, the memory-mapping
 bound of its decoder cache, and the 7-bit int8 planes of the erasure log
@@ -42,6 +45,7 @@ from ..fields._meta import STORAGE_INT, FieldMeta
 from ..fields._tables import build_exp_log
 from ..ops._binary_matmul import binary_matmul
 from ..ops._binary_matmul import supports as bin_supports
+from ..ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain, bm_scan_supports, tree_sum
 from ..ops._digit_matmul import digit_matmul
 from ..ops._digit_matmul import supports as dig_supports
 from ..ops._kernels import get_ops
@@ -78,6 +82,11 @@ class _Decoder:
         self.n, self.design_n, self.d = n, design_n, d
         self.nroots = d - 1
         self.with_erasures = with_erasures
+        self._scan = (
+            berlekamp_massey_scan
+            if meta.characteristic == 2 and bm_scan_supports(meta.degree, d)
+            else berlekamp_massey_scan_plain
+        )
         hf = get_host_field(meta)
 
         # ---- host constants (int reprs) ----
@@ -174,20 +183,7 @@ class _Decoder:
             return binary_matmul(self.meta, X, M)
         if dig_supports(self.meta, K):
             return digit_matmul(self.meta, X, M)
-        return self._tree_sum(self.ops.multiply(X[:, :, None], M[None, :, :]), 1)
-
-    def _tree_sum(self, x, axis: int):
-        """Field sum along ``axis`` by a tree of pairwise adds."""
-        size = x.shape[axis]
-        while size > 1:
-            half = size // 2
-            pair = self.ops.add(x.narrow(axis, 0, half), x.narrow(axis, half, half))
-            x = torch.cat([pair, x.narrow(axis, 2 * half, size - 2 * half)], dim=axis)
-            size = x.shape[axis]
-        return x.squeeze(axis)
-
-    def field_dot(self, A, B, axis: int):
-        return self._tree_sum(self.ops.multiply(A, B), axis)
+        return tree_sum(self.ops, self.ops.multiply(X[:, :, None], M[None, :, :]), 1)
 
     def conv_trunc(self, A, B, out_len: int):
         """Batched polynomial product (ascending coefficients) A (B, la) *
@@ -201,7 +197,7 @@ class _Decoder:
         P = self.ops.multiply(A[:, None, :], B[:, :, None])  # (B, lb, la)
         Ppad = torch.cat([P, torch.zeros((nb, lb, lb), dtype=P.dtype, device=P.device)], dim=2)
         sheared = Ppad.reshape(nb, lb * (la + lb))[:, : lb * full].reshape(nb, lb, full)
-        out = self._tree_sum(sheared, 1)
+        out = tree_sum(self.ops, sheared, 1)
         if full > out_len:
             return out[:, :out_len]
         if full < out_len:
@@ -209,34 +205,9 @@ class _Decoder:
         return out
 
     def berlekamp_massey(self, Sp, u):
-        """Masked Berlekamp-Massey over the modified syndromes, from the
-        per-row offset u (the erasure count): step t is a no-op while t < u,
-        and relative step indices are t - u. The window of step t is
-        Z[:, t + 1 : t + 1 + d] of the zero-padded Z = [0 (d) | S']."""
-        ops, d = self.ops, self.d
-        B = Sp.shape[0]
-        dev = Sp.device
-        C = torch.zeros((B, d), dtype=self.dt, device=dev)
-        C[:, 0] = 1
-        Bp = C.clone()
-        L = torch.zeros(B, dtype=torch.int64, device=dev)
-        bb = torch.ones(B, dtype=self.dt, device=dev)
-        Z = torch.cat([torch.zeros((B, d), dtype=self.dt, device=dev), Sp], dim=1)
-        zero_col = torch.zeros((B, 1), dtype=self.dt, device=dev)
-        for t in range(self.nroots):
-            active = t >= u  # rows with more erasures start later
-            delta = self.field_dot(C.flip(1), Z[:, t + 1 : t + 1 + d], 1)
-            Bp_shift = torch.cat([zero_col, Bp[:, :-1]], dim=1)  # x * B
-            coef = ops.multiply(delta, ops.reciprocal(bb))
-            C_new = ops.subtract(C, ops.multiply(Bp_shift, coef[:, None]))
-            upd = active & (delta != 0)
-            grow = upd & (2 * L <= t - u)
-            # inactive rows (t < u) must not pre-shift their B register
-            Bp = torch.where(active[:, None], torch.where(grow[:, None], C, Bp_shift), Bp)
-            bb = torch.where(grow, delta, bb)
-            L = torch.where(grow, t - u + 1 - L, L)
-            C = torch.where(upd[:, None], C_new, C)
-        return C, L
+        """The masked scan over the modified syndromes from the per-row
+        offset u (the erasure count): (C, L), K8-B or its plain loop."""
+        return self._scan(self.ops, Sp, u, self.d)
 
     # ---- the two specializations ----
 

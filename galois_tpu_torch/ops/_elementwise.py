@@ -36,6 +36,15 @@ carry-less products in byte slots and constant folds by f, about half K7's
 operations per product. Its plain version below is the same SWAR
 algorithm in torch int64 arithmetic.
 
+K8-A (``gf2m_power``, CUDA C++ in ``csrc/gf2m_chain.cu``) runs K8's SWAR
+core in registers across a whole chain of products: the Itoh-Tsujii
+reciprocal a^(2^m - 2) or the binary ladder of a per-element exponent, for
+2 <= m <= 16, in one launch. ``BinaryExtOps.reciprocal``, ``power`` and
+``power_static`` take it for those m. Its plain version is the torch chain
+those methods ran before: bit-spread squares (``gf2m_square_plain``), the
+Itoh-Tsujii chain (``itoh_tsujii``) and the exponent ladder
+(``power_ladder``) over K7's plain product.
+
 Triton is imported inside the launching function, so this module imports
 on machines without Triton; there the wrapper serves CPU tensors only.
 """
@@ -55,6 +64,12 @@ __all__ = [
     "gf2m_multiply_plain",
     "gf2m_multiply_swar",
     "gf2m_multiply_swar_plain",
+    "gf2m_power",
+    "gf2m_power_plain",
+    "gf2m_reduce_plain",
+    "gf2m_square_plain",
+    "itoh_tsujii",
+    "power_ladder",
     "m31_multiply",
     "m31_multiply_plain",
     "goldilocks_multiply",
@@ -269,6 +284,167 @@ def gf2m_multiply_swar(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> 
 
 
 gf2m_multiply_swar.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K8-A: GF(2^m) powers, 2 <= m <= 16, the chain in registers (csrc/gf2m_chain.cu)
+# ----------------------------------------------------------------------
+
+def gf2m_reduce_plain(c: torch.Tensor, m: int, f_int: int) -> torch.Tensor:
+    """Carry-less products (int64, at most 2m - 1 bits) mod f by constant
+    folds: x^m = r (mod f) with r = f ^ x^m. Returns int64."""
+    r = f_int ^ (1 << m)
+    r_bits = [k for k in range(r.bit_length()) if (r >> k) & 1]
+    deg_r = max(r_bits, default=0)
+    width = 2 * m - 1
+    while width > m:
+        o = c >> m
+        c = c & ((1 << m) - 1)
+        for k in r_bits:
+            c = c ^ (o << k)
+        width = max(m, width - m + deg_r)
+    return c
+
+
+def gf2m_square_plain(a: torch.Tensor, m: int, f_int: int) -> torch.Tensor:
+    """GF(2^m) square of a storage tensor, any m <= 32: bit i spreads to bit
+    2i (one torch pass per bit), then the folds by f."""
+    aw = a.to(torch.int64)
+    acc = torch.zeros_like(aw)
+    for i in range(m):
+        acc = acc ^ (((aw >> i) & 1) << (2 * i))
+    return gf2m_reduce_plain(acc, m, f_int).to(a.dtype)
+
+
+def itoh_tsujii(a, m: int, square, multiply):
+    """a^(2^m - 2), the inverse of a (0 for 0), by the Itoh-Tsujii chain:
+    t = a^(2^k - 1) along the bits of m - 1 below the top one (k -> 2k:
+    t^(2^k) t; k -> k + 1: t^2 a), then t^2."""
+    t = a
+    k = 1
+    for bit in bin(m - 1)[3:]:
+        tk = t
+        for _ in range(k):
+            tk = square(tk)
+        t = multiply(tk, t)
+        k *= 2
+        if bit == "1":
+            t = multiply(square(t), a)
+            k += 1
+    return square(t)
+
+
+def power_ladder(a, e, nbits: int, one_like, square, multiply):
+    """a**e for a non-negative int64 exponent tensor below 2^nbits (broadcast
+    against a): a binary ladder over the exponent's bits, 0**0 = 1."""
+    a, e = torch.broadcast_tensors(a, e)
+    result = one_like(a)
+    base = a
+    for i in range(nbits):
+        bit = ((e >> i) & 1).bool()
+        result = torch.where(bit, multiply(result, base), result)
+        if i + 1 < nbits:
+            base = square(base)
+    return result
+
+
+def gf2m_power_plain(a: torch.Tensor, e, m: int, f_int: int, nbits: int = 0) -> torch.Tensor:
+    """K8-A's map in torch, on any device: the reciprocal by the Itoh-Tsujii
+    chain when ``e`` is None, else the ladder over the low ``nbits`` bits of
+    the int64 exponent tensor ``e``; products are K7's plain ladder."""
+
+    def square(x):
+        return gf2m_square_plain(x, m, f_int)
+
+    def multiply(x, y):
+        return gf2m_multiply_plain(x, y, m, f_int)
+
+    if e is None:
+        return itoh_tsujii(a, m, square, multiply)
+    return power_ladder(a, e, nbits, torch.ones_like, square, multiply)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_lib():
+    """``csrc/gf2m_chain.cu``: K8-A (``gf2m_power_launch``) and K8-B
+    (``bm_scan_launch``, wrapped in ``ops/_bm_scan.py``)."""
+    from .._build import load
+
+    lib = load("gf2m_chain")
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.gf2m_power_launch.argtypes = [vp, i64, i64, vp, i64, i64, i32, vp, i64, i64, i32, ctypes.c_uint, vp]
+    lib.bm_scan_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, ctypes.c_uint, vp]
+    lib.gf2m_power_launch.restype = lib.bm_scan_launch.restype = i32
+    return lib
+
+
+def _rows_cols(shape, *strides):
+    """The elements of ``shape``, in order, as (rows, cols) with per-operand
+    element strides [(rs, cs), ...]: axes of size 1 dropped, neighbours
+    merged where every operand's strides allow. None when more than two
+    axes remain."""
+    merged = []
+    for i, size in enumerate(shape):
+        if size == 1:
+            continue
+        st = [s[i] for s in strides]
+        if merged and all(p == q * size for p, q in zip(merged[-1][1], st)):
+            merged[-1] = (merged[-1][0] * size, st)
+        else:
+            merged.append((size, st))
+    if len(merged) > 2:
+        return None
+    while len(merged) < 2:
+        merged.insert(0, (1, [0] * len(strides)))
+    (rows, rst), (cols, cst) = merged
+    return rows, cols, list(zip(rst, cst))
+
+
+def gf2m_power(a: torch.Tensor, e, m: int, f_int: int, nbits: int = 0) -> torch.Tensor:
+    """K8-A: a^(2^m - 2), the reciprocal, when ``e`` is None; else a**e for
+    the int64 exponent tensor ``e`` (broadcast against a; its low ``nbits``
+    bits count, 0**0 = 1). GF(2^m), 2 <= m <= 16, storage uint8 for m <= 8
+    and int64 above.
+
+    CPU tensors take ``gf2m_power_plain``; CUDA tensors launch the kernel
+    (counted in ``gf2m_power.launches``) or raise. Broadcast operands are read
+    by stride where the output's axes merge into two; beyond that they are
+    materialized first."""
+    if e is not None:
+        a, e = torch.broadcast_tensors(a, e)
+    if a.device.type == "cpu" and (e is None or e.device.type == "cpu"):
+        return gf2m_power_plain(a, e, m, f_int, nbits)
+    if a.device.type != "cuda" or (e is not None and e.device != a.device):
+        raise ValueError(f"gf2m_power: operands on {a.device} and {None if e is None else e.device}; need one CUDA device.")
+    if not 2 <= m <= 16 or f_int >> m != 1 or not 0 <= nbits <= 64:
+        raise ValueError(f"gf2m_power: needs 2 <= m <= 16, a degree-m f and 0 <= nbits <= 64, got m={m}, f={f_int}, nbits={nbits}.")
+    dtype = torch.uint8 if m <= 8 else torch.int64
+    if a.dtype != dtype or (e is not None and e.dtype != torch.int64):
+        raise TypeError(f"gf2m_power: a of {a.dtype} and e of {None if e is None else e.dtype}; need {dtype} and int64.")
+    out = torch.empty(a.shape, dtype=dtype, device=a.device)
+    n = out.numel()
+    if n:
+        operands = [a] if e is None else [a, e]
+        layout = _rows_cols(a.shape, *(x.stride() for x in operands))
+        if layout is None:
+            operands = [x.contiguous() for x in operands]
+            layout = _rows_cols(a.shape, *(x.stride() for x in operands))
+        _, cols, st = layout
+        a_rs, a_cs = st[0]
+        e_rs, e_cs = st[1] if e is not None else (0, 0)
+        e_ptr = operands[1].data_ptr() if e is not None else None
+        with torch.cuda.device(a.device):
+            rc = _chain_lib().gf2m_power_launch(
+                operands[0].data_ptr(), a_rs, a_cs, e_ptr, e_rs, e_cs, nbits, out.data_ptr(), n, cols, m, f_int,
+                ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+            )
+        if rc != 0:
+            raise RuntimeError(f"gf2m_power: kernel launch failed with CUDA error {rc}.")
+        gf2m_power.launches += 1
+    return out
+
+
+gf2m_power.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -9,7 +9,9 @@ Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
 - ``BinaryExtOps``  GF(2^m), m <= 32; the multiply is kernel K8 for
                     2 <= m <= 8 (``ops/_elementwise.py::gf2m_multiply_swar``,
                     uint8 storage) and kernel K7 for 9 <= m <= 16
-                    (``gf2m_multiply``), a torch ladder above
+                    (``gf2m_multiply``), a torch ladder above; reciprocal
+                    and powers for 2 <= m <= 16 are kernel K8-A
+                    (``gf2m_power``), torch chains above
 - ``OddExtOps``     GF(p^m), p odd, p^m <= 2^31: base-p digit arithmetic;
                     the public multiply of orders <= 4096 is kernel K3
 - ``LookupOps``     the 'jit-lookup' mode of any field of order <= 2^20:
@@ -48,8 +50,13 @@ from ._elementwise import (
     M31,
     gf2m_multiply,
     gf2m_multiply_swar,
+    gf2m_power,
+    gf2m_reduce_plain,
+    gf2m_square_plain,
     goldilocks_multiply,
+    itoh_tsujii,
     m31_multiply,
+    power_ladder,
 )
 from ._limbs import align_planar, mul_limbs, normalize_limbs
 from ._lookup import lookup_divide, lookup_log, lookup_multiply, lookup_reciprocal
@@ -108,15 +115,7 @@ class FieldOps:
     def power(self, a, e, nbits: int):
         """a**e for a non-negative int64 exponent tensor below 2^nbits:
         a binary ladder over the exponent's bits (0**0 = 1)."""
-        a, e = torch.broadcast_tensors(a, e)
-        result = self.one_like(a)
-        base = a
-        for i in range(nbits):
-            bit = ((e >> i) & 1).bool()
-            result = torch.where(bit, self.multiply(result, base), result)
-            if i + 1 < nbits:
-                base = self.square(base)
-        return result
+        return power_ladder(a, e, nbits, self.one_like, self.square, self.multiply)
 
     def one_like(self, a):
         return torch.ones_like(a)
@@ -197,15 +196,14 @@ class GF2Ops(PrimeOps):
 # ======================================================================
 
 class BinaryExtOps(FieldOps):
+    """GF(2^m) on int storage. Dispatch is by field only, so CPU tensors
+    follow the card's routing: products to K8 (m <= 8) or K7 (m <= 16);
+    reciprocals and powers to K8-A (m <= 16); larger m to torch ladders."""
+
     def __init__(self, meta: FieldMeta):
         super().__init__(meta)
         self.m = meta.degree
         self.f = meta.irreducible_poly_int
-        # Reduction constant R = f - x^m: x^m = R (mod f), so folding the
-        # overflow bits down is a constant carry-less multiply by R.
-        R = self.f ^ (1 << self.m)
-        self._r_bits = [k for k in range(R.bit_length()) if (R >> k) & 1]
-        self._deg_r = max(self._r_bits) if self._r_bits else 0
 
     def add(self, a, b):
         return a ^ b
@@ -216,55 +214,36 @@ class BinaryExtOps(FieldOps):
         return a
 
     def multiply(self, a, b):
-        # by field only, so CPU tensors follow the card's routing
         if self.m <= 8:
             return gf2m_multiply_swar(a, b, self.m, self.f)
         if self.m <= 16:
             return gf2m_multiply(a, b, self.m, self.f)
-        return self._reduce(self._clmul(a.to(torch.int64), b.to(torch.int64)))
-
-    def _clmul(self, a, b):
-        """Carry-less product of int64 tensors; 2m - 1 <= 63 bits."""
-        acc = torch.zeros_like(a)
-        for i in range(self.m):
-            acc = acc ^ ((a << i) & -((b >> i) & 1))
-        return acc
-
-    def _reduce(self, c):
-        """Reduce a carry-less product mod f by constant folds."""
-        m = self.m
-        width = 2 * m - 1
-        while width > m:
-            o = c >> m
-            c = c & ((1 << m) - 1)
-            for k in self._r_bits:
-                c = c ^ (o << k)
-            width = max(m, width - m + self._deg_r)
-        return c.to(self.dt)
-
-    def square(self, a):
-        # Squaring spreads bit i to bit 2i, then reduces: linear in m.
-        aw = a.to(torch.int64)
+        # the carry-less product of int64 tensors (2m - 1 <= 63 bits), reduced
+        aw, bw = a.to(torch.int64), b.to(torch.int64)
         acc = torch.zeros_like(aw)
         for i in range(self.m):
-            acc = acc ^ (((aw >> i) & 1) << (2 * i))
-        return self._reduce(acc)
+            acc = acc ^ ((aw << i) & -((bw >> i) & 1))
+        return gf2m_reduce_plain(acc, self.m, self.f).to(self.dt)
+
+    def square(self, a):
+        return gf2m_square_plain(a, self.m, self.f)
 
     def reciprocal(self, a):
-        # Itoh-Tsujii: a^(2^m - 2) = (a^(2^(m-1) - 1))^2 with an addition
-        # chain on m - 1.
-        t = a  # a^(2^1 - 1)
-        k = 1
-        for bit in bin(self.m - 1)[3:]:
-            tk = t
-            for _ in range(k):
-                tk = self.square(tk)
-            t = self.multiply(tk, t)
-            k *= 2
-            if bit == "1":
-                t = self.multiply(self.square(t), a)
-                k += 1
-        return self.square(t)
+        if self.m <= 16:
+            return gf2m_power(a, None, self.m, self.f)
+        return itoh_tsujii(a, self.m, self.square, self.multiply)
+
+    def power(self, a, e, nbits: int):
+        if self.m <= 16:
+            return gf2m_power(a, e, self.m, self.f, nbits)
+        return super().power(a, e, nbits)
+
+    def power_static(self, a, e: int):
+        if self.m > 16 or e <= 0:
+            return super().power_static(a, e)  # e < 0 inverts first
+        # a^e = a^e' with e' = e mod (2^m - 1) in [1, 2^m - 1], for every a
+        e_red = (e - 1) % (2**self.m - 1) + 1
+        return gf2m_power(a, torch.tensor(e_red, device=a.device), self.m, self.f, self.m)
 
 
 # ======================================================================

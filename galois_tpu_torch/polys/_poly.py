@@ -657,26 +657,36 @@ class Poly:
                 coefs.append(cur)
         return Poly._from_sparse(degs, coefs, self._field)
 
-    # Roots, factorization and the Conway predicates of polys/_roots.py,
-    # _factor.py and _conway.py of the JAX package are still to be ported.
+    # Roots and the Conway predicates of polys/_roots.py and _conway.py of
+    # the JAX package are still to be ported.
 
     def roots(self, multiplicity: bool = False):
         _not_ported("roots")
 
     def square_free_factors(self):
-        _not_ported("square_free_factors")
+        from ._factor import square_free_factors
+
+        return square_free_factors(self)
 
     def distinct_degree_factors(self):
-        _not_ported("distinct_degree_factors")
+        from ._factor import distinct_degree_factors
+
+        return distinct_degree_factors(self)
 
     def equal_degree_factors(self, degree: int):
-        _not_ported("equal_degree_factors")
+        from ._factor import equal_degree_factors
+
+        return equal_degree_factors(self, degree)
 
     def factors(self):
-        _not_ported("factors")
+        from ._factor import factors
+
+        return factors(self)
 
     def is_square_free(self) -> bool:
-        _not_ported("is_square_free")
+        from ._factor import is_square_free
+
+        return is_square_free(self)
 
     def is_irreducible(self) -> bool:
         from ._irreducible import is_irreducible

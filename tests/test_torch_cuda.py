@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import galois_tpu_torch as gt
+from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain
 from galois_tpu_torch.ops._elementwise import (
     device_probe,
     device_probe_plain,
@@ -20,6 +21,8 @@ from galois_tpu_torch.ops._elementwise import (
     gf2m_multiply_plain,
     gf2m_multiply_swar,
     gf2m_multiply_swar_plain,
+    gf2m_power,
+    gf2m_power_plain,
     goldilocks_multiply,
     goldilocks_multiply_plain,
     m31_multiply,
@@ -192,6 +195,86 @@ def test_gf2m_multiply_swar_kernel_matches_plain(cuda_device, m):
         assert torch.equal(got, gf2m_multiply_swar_plain(a[:1000].reshape(10, 100), b[:100], 8, 0x11B))
     with pytest.raises(TypeError):
         gf2m_multiply_swar(a.to(torch.int64), b.to(torch.int64), m, f)
+
+
+@pytest.mark.parametrize("m", range(2, 17))
+def test_gf2m_power_kernel_matches_plain(cuda_device, m):
+    """K8-A: reciprocals and exponent tensors at a ragged length, on its
+    16-byte path, one byte off alignment, with a broadcast exponent column,
+    a broadcast 0-D base, a 3-D broadcast (materialized), and 0^0."""
+    F = gt.GF(2**m)
+    f = F._meta.irreducible_poly_int
+    dt = F._meta.torch_dtype
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    n = 2**16 + 5
+    a = torch.randint(0, 2**m, (n,), generator=g, device=cuda_device).to(dt)
+    a[:3] = torch.tensor([0, 1, 2**m - 1])
+    e = torch.randint(0, 2**40, (n,), generator=g, device=cuda_device)
+    e[:4] = torch.tensor([0, 0, 2**m - 1, -1])
+    zeros = torch.zeros(100, dtype=dt, device=cuda_device)
+    cases = [
+        (a, None, 0), (a[: 2**16], None, 0), (a[1:], None, 0),
+        (a, e, 40), (a[: 2**16], e[: 2**16], 64), (a[1:], e[:-1], 64), (a[1:], e[:-1], m),
+        (a[:1000].reshape(10, 100), e[:10].reshape(10, 1), 64),  # exponent column, read with stride 0
+        (a[5], e[:1000].reshape(40, 25), 40),  # 0-D base, as the erasure locator's g
+        (a[:200].reshape(4, 1, 50), e[:3].reshape(1, 3, 1), 40),  # three axes: materialized
+        (zeros, torch.zeros(100, dtype=torch.int64, device=cuda_device), 8),  # 0^0 = 1
+    ]
+    for x, y, nbits in cases:
+        launches = gf2m_power.launches
+        got = gf2m_power(x, y, m, f, nbits)
+        torch.cuda.synchronize()
+        assert gf2m_power.launches == launches + 1
+        assert got.dtype == dt and torch.equal(got, gf2m_power_plain(x, y, m, f, nbits))
+    assert torch.equal(gf2m_power(zeros, torch.zeros(100, dtype=torch.int64, device=cuda_device), m, f, 8), torch.ones_like(zeros))
+    with pytest.raises(TypeError):
+        gf2m_power(a.to(torch.int32), None, m, f)
+
+
+@pytest.mark.parametrize("m", [4, 8])
+@pytest.mark.parametrize("d", [3, 17, 33, 65])
+def test_bm_scan_kernel_matches_plain(cuda_device, m, d):
+    """K8-B at (4099, d - 1): erasure offsets 0, d - 1, beyond and random;
+    rows whose discrepancies are all 0 or start with a run of 0s."""
+    F = gt.GF(2**m)
+    ops = get_ops(F._meta, F._mode)
+    g = torch.Generator(device=cuda_device).manual_seed(10 * m + d)
+    rows = 4099
+    S = torch.randint(0, 2**m, (rows, d - 1), generator=g, device=cuda_device).to(torch.uint8)
+    S[1] = 0
+    S[2, : (d - 1) // 2] = 0
+    u = torch.randint(0, d + 2, (rows,), generator=g, device=cuda_device)
+    u[:5] = torch.tensor([0, 0, 0, d - 1, d + 4])
+    for uu in (u, torch.zeros_like(u)):
+        launches = berlekamp_massey_scan.launches
+        C, L = berlekamp_massey_scan(ops, S, uu, d)
+        torch.cuda.synchronize()
+        assert berlekamp_massey_scan.launches == launches + 1
+        Cp, Lp = berlekamp_massey_scan_plain(ops, S, uu, d)
+        assert C.shape == (rows, d) and torch.equal(C, Cp) and torch.equal(L, Lp)
+
+
+def test_rs_decode_on_cuda_runs_the_scan_kernel_once(cuda_device):
+    """RS(255,223) on the card: one K8-B launch per decode, K8-A for Forney's
+    reciprocal (and the erasure locator's powers), and 4 K8 launches (6 with
+    erasures); the results equal the CPU's."""
+    rs = gt.ReedSolomon(255, 223)
+    rng = np.random.default_rng(6)
+    msg = rng.integers(0, 256, (300, rs.k))
+    cw = np.asarray(rs.encode(rs.field.from_numpy(msg, device="cpu"))).astype(np.int64)
+    for i in range(300):
+        pos = rng.choice(rs.n, size=i % 20, replace=False)
+        cw[i, pos] ^= rng.integers(1, 256, pos.size)
+    era = np.zeros(cw.shape, dtype=bool)
+    era[::4, 5:9] = True
+    for kw, k8, powers in (({}, 4, 1), ({"erasures": era}, 6, 2)):
+        counts = [f.launches for f in (berlekamp_massey_scan, gf2m_power, gf2m_multiply_swar)]
+        got, e_got = rs.decode(rs.field.from_numpy(cw, device=cuda_device), errors=True, **kw)
+        torch.cuda.synchronize()
+        delta = [f.launches - c for f, c in zip((berlekamp_massey_scan, gf2m_power, gf2m_multiply_swar), counts)]
+        assert delta == [1, powers, k8]
+        want, e_want = rs.decode(rs.field.from_numpy(cw, device="cpu"), errors=True, **kw)
+        assert np.array_equal(np.asarray(got), np.asarray(want)) and np.array_equal(e_got, e_want)
 
 
 def test_codes_on_cuda_match_cpu(cuda_device):

@@ -161,11 +161,7 @@ def test_poly_evaluation_matches_jax(order, degree):
 
 def test_poly_methods_left_for_later_raise():
     f = gt.Poly([1, 0, 1, 1])
-    for call in (
-        f.roots, f.factors, f.square_free_factors, f.distinct_degree_factors, f.is_square_free,
-        f.is_conway, f.is_conway_consistent,
-        lambda: f.equal_degree_factors(1),
-    ):
+    for call in (f.roots, f.is_conway, f.is_conway_consistent):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
