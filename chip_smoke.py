@@ -25,13 +25,21 @@ Phases, each fatal on failure:
      and their prologue, the digit split, at the NTT's shapes and ragged
      ones with 3, 4 and 5 planes, raw and K-major tables, timed at 4096^3 x 4
      and 1024^3 x 32, and K2 at 4096 x K x 4096 for K = 4096 and 16384 (its
-     main loop apart from the rest); K3-K6 (table gathers) on GF(2^8) and GF(3^5)
-     (uint8, shared-memory tables) and GF(2^16) (int64, global tables) at
-     2^24 elements, and GF(2^10) at a ragged 1,000,003; K9 (GF(2^31 - 1)
-     multiply) and K10 (Goldilocks multiply, canonical and non-canonical
-     limbs) at 2^24 and a ragged 1,000,003 with their edge values. Prints
-     CUDA-event times of kernel and plain version (elementwise kernels timed
-     by CUDA graph replay, so that host time per call does not hide them).
+     main loop apart from the rest); K3 and K4 (table gathers: multiply,
+     divide) over every (a, b) pair of GF(2^8) and GF(3^5), then by
+     placement (printed): GF(2^8) and GF(3^5) (uint8, byte tables), GF(2^10)
+     (int64, shared) and GF(2^16) (int64, LOG shared) at 2^24, GF(2^8) at
+     2^20 and 2^26, GF(2^14) (shared) and GF(2^20) (int64, global) at a
+     ragged 1,000,003; at GF(2^8) and GF(2^16), 2^24, also K3 on views one
+     element off alignment (funnel-shifted streams), K3 with a 0-D operand
+     (stride 0), and torch.bitwise_xor on the same tensors as a yardstick;
+     bounds count HBM bytes and the shared-memory gathers (wavefronts at one
+     a clock per SM); K5 and K6 on GF(2^8), GF(3^5) and GF(2^16) at 2^24
+     and GF(2^10) at a ragged 1,000,003; K9 (GF(2^31 - 1) multiply) and
+     K10 (Goldilocks multiply, canonical and non-canonical limbs) at 2^24
+     and a ragged 1,000,003 with their edge values. Prints CUDA-event times
+     of kernel and plain version (elementwise kernels timed by CUDA graph
+     replay, so that host time per call does not hide them).
      K8-A (the GF(2^m) power chain) on GF(2^8) at 2^24 (reciprocal and an
      exponent tensor), at Forney's (65536, 255), a 0-D base against an
      exponent tensor, and every m = 2..16 over all its elements on a ragged
@@ -94,6 +102,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 SMS, INT32_LANES = 132, 64  # H100 SXM: SMs, int32 lanes per SM per clock
 INT32_OPS_PER_S = None  # SMS x INT32_LANES x the card's maximum SM clock, set in main()
+SMEM_WAVEFRONTS_PER_S = None  # SMS x one shared-memory wavefront a clock, set in main()
 
 
 def cuda_ms(fn, reps):
@@ -140,12 +149,16 @@ def bounds_text(nbytes, int_ops):
     return f"bound {ms:.4f} ms ({by}; operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms)"
 
 
-def bound(nbytes, ops=0, int_ops=0):
+def bound(nbytes, ops=0, int_ops=0, wavefronts=0):
     """(ms, what bounds it): the largest of HBM bytes over 3.35 TB/s, int8
-    tensor-core operations over 1979 TOP/s and 32-bit integer operations
-    over the int32 rate."""
+    tensor-core operations over 1979 TOP/s, 32-bit integer operations over
+    the int32 rate and shared-memory wavefronts over the SMs' one a clock."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / INT8_OPS_PER_S, int_ops / INT32_OPS_PER_S if int_ops else 0) * 1e3
+    t_ops = max(
+        ops / INT8_OPS_PER_S,
+        int_ops / INT32_OPS_PER_S if int_ops else 0,
+        wavefronts / SMEM_WAVEFRONTS_PER_S if wavefronts else 0,
+    ) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -363,8 +376,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.split()[0])
-    global INT32_OPS_PER_S
+    global INT32_OPS_PER_S, SMEM_WAVEFRONTS_PER_S
     INT32_OPS_PER_S = SMS * INT32_LANES * sm_mhz * 1e6
+    SMEM_WAVEFRONTS_PER_S = SMS * sm_mhz * 1e6
     print(
         f"[device] {smi} | max SM clock {sm_mhz:.0f} MHz, int32 rate {INT32_OPS_PER_S / 1e12:.2f} Tops/s | "
         f"torch {torch.__version__} cuda {torch.version.cuda}",
@@ -489,14 +503,15 @@ def main() -> int:
     record("gf2m_multiply", 0)
     ops8 = get_ops(GF8._meta, "jit-lookup")
     exp8, log8 = (torch.from_numpy(t).to(dev) for t in (ops8.EXP, ops8.LOG))
-    got = _lookup.lookup_multiply(a8, b8, exp8, log8, 256)
+    pk8 = _lookup.pack_tables(exp8, log8, 256, torch.uint8)
+    got = _lookup.lookup_multiply(a8, b8, exp8, log8, 256, pk8)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("K3 and K7 disagree on GF(2^8) products")
     k7 = graph_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
     k7_eager = cuda_ms(lambda: gf2m_multiply(a8, b8, 8, f8), 50)
-    k3 = graph_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256), 50)
-    k3_eager = cuda_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256), 50)
+    k3 = graph_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256, pk8), 50)
+    k3_eager = cuda_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256, pk8), 50)
     print(
         f"[kernel] GF(2^8) multiply n=2^24, same inputs: K8 SWAR {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
         f"K7 ladder {k7:.4f} ms (eager calls {k7_eager:.4f} ms) | K3 table gathers {k3:.4f} ms "
@@ -760,7 +775,116 @@ def main() -> int:
     )
     torch.cuda.empty_cache()
 
-    # K3-K6; the first field's times go into the report
+    # K3 and K4, by placement. First every (a, b) pair of GF(2^8) and GF(3^5)
+    k3_k4 = (
+        ("lookup_multiply", "K3", _lookup.lookup_multiply, _lookup.lookup_multiply_plain),
+        ("lookup_divide", "K4", _lookup.lookup_divide, _lookup.lookup_divide_plain),
+    )
+    for q in (2**8, 3**5):
+        F = gt.GF(q)
+        ops = get_ops(F._meta, "jit-lookup")
+        exp_t, log_t = (torch.from_numpy(t).to(dev) for t in (ops.EXP, ops.LOG))
+        packed = _lookup.pack_tables(exp_t, log_t, q, torch.uint8)
+        a, b = (v.reshape(-1).to(torch.uint8) for v in torch.meshgrid(
+            torch.arange(q, device=dev), torch.arange(q, device=dev), indexing="ij"))
+        for name, tag, kernel, plain in k3_k4:
+            got = kernel(a, b, exp_t, log_t, q, packed)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain(a, b, exp_t, log_t, q))
+            record(name, err)
+            print(f"[kernel] {tag} {name} GF({q}) every (a, b) pair ({q * q}): max_abs_err {err}", flush=True)
+            if err:
+                raise AssertionError(f"{tag} disagrees with its plain version on a pair of GF({q})")
+
+    def lookup_bound(place, q, n, width, operands):
+        """K3/K4's bound: HBM bytes (the streamed operands, the output and the
+        packed table, once each) against the shared-memory gathers counted from
+        csrc/lookup.cu at one wavefront each, conflict-free at best."""
+        q8, e8 = -(-q // 8) * 8, -(-(q - 1) // 8) * 8
+        table = {"bytes": 4 * 2 * (q - 1), "global": 4 * (3 * q - 2)}.get(place, 2 * (q8 + e8))
+        gathers = {"bytes": 3, "shared": 3, "log-shared": 2, "global": 0}[place]
+        return bound((operands + 1) * width * n + table, wavefronts=gathers * n / 32)
+
+    # then each placement at 2^24 (GF(2^8) also at 2^20, BASELINE config 1's
+    # 1M elements, and at 2^26) and ragged orders and sizes; GF(2^8) at 2^24
+    # goes into the report
+    bin_cases = [  # (order, n, reps); None reps: check only
+        (2**8, 2**24, 50),
+        (3**5, 2**24, 50),
+        (2**10, 2**24, 20),
+        (2**16, 2**24, 20),
+        (2**8, 2**20, 200),
+        (2**8, 2**26, 20),  # three 64 MB tensors: no replay finds them in the 50 MB L2
+        (2**14, 1_000_003, None),
+        (2**20, 1_000_003, None),
+    ]
+    for q, n, reps in bin_cases:
+        F = gt.GF(q)
+        ops = get_ops(F._meta, "jit-lookup")
+        exp_t, log_t = (torch.from_numpy(t).to(dev) for t in (ops.EXP, ops.LOG))
+        dt = F._meta.torch_dtype
+        packed = _lookup.pack_tables(exp_t, log_t, q, dt)
+        place = _lookup.lookup_placement(q, dt)
+        a = torch.randint(0, q, (n,), generator=gen, device=dev).to(dt)
+        b = torch.randint(0, q, (n,), generator=gen, device=dev).to(dt)
+        a[::1009] = 0  # zeros on each side and on both, also where q is large
+        b[::997] = 0
+        for name, tag, kernel, plain in k3_k4:
+            got = kernel(a, b, exp_t, log_t, q, packed)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain(a, b, exp_t, log_t, q))
+            del got
+            timing = ""
+            if reps:
+                ms = graph_ms(lambda: kernel(a, b, exp_t, log_t, q, packed), reps)
+                pms = cuda_ms(lambda: plain(a, b, exp_t, log_t, q), max(2, reps // 10))
+                bnd = lookup_bound(place, q, n, a.element_size(), 2)
+                if (q, n) == bin_cases[0][:2]:
+                    record(name, err, ms, pms, bnd)
+                else:
+                    record(name, err)
+                timing = (
+                    f" | kernel {ms:.4f} ms | plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                    f"{bnd[0] / ms:.1%} of it"
+                )
+            else:
+                record(name, err)
+            print(f"[kernel] {tag} {name} GF({q}) n={n} ({dt}, placement {place}): max_abs_err {err}{timing}",
+                  flush=True)
+            if err:
+                raise AssertionError(f"{tag} disagrees with its plain version on GF({q}), n = {n}")
+        if (q, n) in ((2**8, 2**24), (2**16, 2**24)):
+            # views one element off alignment (funnel-shifted streams) and a 0-D operand (stride 0)
+            for label, x, y, operands in (
+                ("a[1:] * b[:-1], unaligned views", a[1:], b[:-1], 2),
+                ("a * b[5], b[5] 0-D", a, b[5], 1),
+            ):
+                got = _lookup.lookup_multiply(x, y, exp_t, log_t, q, packed)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, _lookup.lookup_multiply_plain(x, y, exp_t, log_t, q))
+                del got
+                record("lookup_multiply", err)
+                ms = graph_ms(lambda: _lookup.lookup_multiply(x, y, exp_t, log_t, q, packed), reps)
+                bnd = lookup_bound(place, q, x.numel() if y.dim() else n, a.element_size(), operands)
+                print(
+                    f"[kernel] K3 lookup_multiply GF({q}) {label}: max_abs_err {err} | kernel {ms:.4f} ms | "
+                    f"bound {bnd[0]:.4f} ms ({bnd[1]})",
+                    flush=True,
+                )
+                if err:
+                    raise AssertionError(f"K3 disagrees with its plain version on GF({q}), {label}")
+            # a yardstick, not the same function: torch's elementwise kernel on the same tensors
+            xor = graph_ms(lambda: torch.bitwise_xor(a, b), reps)
+            bnd = bound(3 * a.element_size() * n)
+            print(
+                f"[kernel] yardstick torch.bitwise_xor(a, b) on the GF({q}) tensors ({dt}): {xor:.4f} ms | "
+                f"bytes bound {bnd[0]:.4f} ms, {bnd[0] / xor:.1%} of it",
+                flush=True,
+            )
+        del a, b, exp_t, log_t, packed
+        torch.cuda.empty_cache()
+
+    # K5 and K6 (their first design); the first field's times go into the report
     lookup_cases = [  # (order, n, reps); None reps: check only
         (2**8, 2**24, 50),
         (3**5, 2**24, 50),
@@ -773,17 +897,11 @@ def main() -> int:
         exp_t, log_t = (torch.from_numpy(t).to(dev) for t in (ops.EXP, ops.LOG))
         dt = F._meta.torch_dtype
         a = torch.randint(0, q, (n,), generator=gen, device=dev).to(dt)
-        b = torch.randint(0, q, (n,), generator=gen, device=dev).to(dt)
-        a[::1009] = 0  # zeros on each side and on both, also where q is large
-        b[::997] = 0
+        a[::1009] = 0
         width = a.element_size()
         tables = 4 * (2 * (q - 1) + q)
         place = "shared" if q <= _lookup.SMEM_MAX_ORDER else "global"
         kernels = [
-            ("lookup_multiply", "K3", lambda: _lookup.lookup_multiply(a, b, exp_t, log_t, q),
-             lambda: _lookup.lookup_multiply_plain(a, b, exp_t, log_t, q), 3 * width * n + tables),
-            ("lookup_divide", "K4", lambda: _lookup.lookup_divide(a, b, exp_t, log_t, q),
-             lambda: _lookup.lookup_divide_plain(a, b, exp_t, log_t, q), 3 * width * n + tables),
             ("lookup_reciprocal", "K5", lambda: _lookup.lookup_reciprocal(a, exp_t, log_t, q),
              lambda: _lookup.lookup_reciprocal_plain(a, exp_t, log_t, q), 2 * width * n + tables),
             ("lookup_log", "K6", lambda: _lookup.lookup_log(a, log_t, q),
@@ -809,7 +927,7 @@ def main() -> int:
             print(f"[kernel] {tag} {name} GF({q}) n={n} ({dt}, {place} tables): max_abs_err {err}{timing}", flush=True)
             if err:
                 raise AssertionError(f"{tag} disagrees with its plain version on GF({q})")
-        del a, b, exp_t, log_t
+        del a, exp_t, log_t
         torch.cuda.empty_cache()
 
     # K9 and K10: 2^24 (timed) and a ragged 1,000,003, edge values first

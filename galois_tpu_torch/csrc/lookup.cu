@@ -11,23 +11,63 @@
 // callers check b != 0 (K4) and a != 0 (K5); the kernels index the tables
 // the same way for every input in [0, q), as the plain versions in
 // ops/_lookup.py do. Elements are storage values in [0, q): uint8 for
-// q <= 2^8, int64 otherwise, loaded and stored as they are.
+// q <= 2^8, int64 otherwise.
 //
-// What bounds it on the H100: HBM bytes. Each element moves its operands
-// in and its result out (3 B for a uint8 multiply or divide, 24 B for an
-// int64 one, 9 B for K6 on uint8 input), against at most three table reads
-// that hit shared memory or L2. At 2^24 elements: 50 MB, about 15 us at
-// 3.35 TB/s, for a uint8 multiply; 403 MB, about 120 us, for int64.
+// What bounds it on the H100: HBM bytes, as long as the table reads stay
+// cheaper. Each element moves its operands in and its result out: 3 B for a
+// uint8 multiply or divide (50 MB at 2^24, 15 us at 3.35 TB/s), 24 B for an
+// int64 one (403 MB, 120 us). Against that stand three table reads a
+// element of K3 and K4 (conflict-free in shared memory: 1.6 M wavefronts at
+// 2^24, 6 us over 132 SMs); where they land decides the kernel.
 //
-// Design: one grid-stride pass, at most as many blocks as the SMs hold at
-// once, so the table staging below is paid once per resident block. The
-// caller picks where the tables live (ops/_lookup.py, SMEM_MAX_ORDER):
-// - shared (orders <= 2^14): each block copies LOG and EXP into shared
-//   memory as uint16 (6q bytes, at most 96 KB; the launcher raises the
-//   block's dynamic shared memory limit above 48 KB) and gathers from it;
-// - global (larger orders, up to 2^20, 12 MB of int32 tables): the gathers
-//   read the global tables through the read-only path (__ldg); the H100's
-//   50 MB L2 holds the largest table.
+// K3 and K4 take one of four placements, chosen by the wrapper
+// (ops/_lookup.py, lookup_placement) and built there once per device
+// (pack_tables):
+// - bytes (uint8 storage, q <= 2^8): one table of 2(q-1) rows of four
+//   bytes, LOG[r], EXP[r], (q-1) - LOG[r] and 0, replicated in shared memory
+//   once per bank: row r of lane l is the word r * 32 + l, so the 32 lanes
+//   of a warp always read 32 different banks (conflict-free at any data; 64
+//   KB at q = 2^8). A table read is one byte load at col + 128 r + field,
+//   col = this lane's column, with no extraction and no bounds arithmetic:
+//   K4 reads (q-1) - LOG[b] from the same row and adds. The zero tests run
+//   on whole words (nonzero_bytes).
+// - shared (int64, q <= 2^14): LOG (q entries) and EXP reduced to its
+//   q - 1 distinct entries, both uint16, in shared memory (at most 64 KB);
+//   a sum of logs is brought below q - 1 by one conditional add instead of
+//   a doubled table.
+// - log-shared (int64, 2^14 < q <= 2^16): LOG alone fills 128 KB of shared
+//   memory (one block of 1024 threads a SM); the reduced uint16 EXP (128
+//   KB at 2^16) is gathered from global memory through the read-only path,
+//   out of the SM's L1 beside the shared memory and the L2: one gather
+//   outside shared memory a element, against three of 4 bytes before.
+// - global (int64, 2^16 < q <= 2^20): LOG no longer fits 16 bits; the int32
+//   tables (12 MB at 2^20) are gathered through the read-only path out of
+//   the 50 MB L2.
+// Every placement streams 16 bytes of a and of b a thread and step, two
+// steps' loads in flight, and reads and writes the streams with evict-first
+// hints (__ldcs/__stcs), so that a stream read once does not push the tables
+// out of L1 and L2 (Stream, stream_pass). An operand that is not 16-byte
+// aligned (a view one element in) takes two aligned loads and a funnel shift
+// a word, so that its chunks line up with the output's; an operand of one
+// element (stride 0) is read once a thread, never materialized.
+//
+// Measured at 2^24 on an H100 80GB HBM3 at its 700 W limit (chip_smoke.py,
+// scripts/lookup_timing.py): K3 0.0204 ms on GF(2^8) (bound 0.0150 ms; the
+// first design 0.0330) and 0.157 ms on GF(2^16) (bound 0.120 ms; 0.399 with
+// three int32 gathers from L2). Two alternatives were measured and left: a
+// 64 KB product table (one gather at random banks) ran level with the byte
+// rows, 0.0174 against 0.0172 ms, and needs a table per operation; for
+// GF(2^16), a 2-block cluster holding LOG in one block's shared memory and
+// EXP in the other's, read through distributed shared memory, took 0.322
+// against 0.160 ms.
+//
+// K5 and K6 keep their first design: each block copies LOG and EXP into
+// shared memory as uint16 for orders <= 2^14 (6q bytes, at most 96 KB) and
+// gathers from there; larger orders read the global int32 tables through
+// __ldg.
+//
+// Every kernel is one grid-stride pass over at most as many blocks as the
+// SMs hold at once, so the table staging is paid once per resident block.
 // What differs from the TPU kernels: Mosaic's gather needs (rows, 128)
 // source and index registers, so the TPU serves tables in 128-entry chunks
 // through a select tree (_gather_chunks, _taa_lanes) and pads everything
@@ -35,16 +75,271 @@
 // memory directly, so none of that is carried over; the ragged tail is the
 // loop bound.
 //
-// The one entry point returns cudaGetLastError() after its launch.
+// The entry points return cudaGetLastError() after their launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-
 enum { OP_MUL = 0, OP_DIV = 1, OP_RECIP = 2, OP_LOG = 3 };
+enum { PLACE_BYTES = 0, PLACE_SHARED = 1, PLACE_LOG_SHARED = 2, PLACE_GLOBAL = 3 };
+
+// Blocks of at most as many as the SMs hold at once, enough for `units`
+// threads' worth of work; raises the dynamic shared memory limit first.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, int smem, long long units, unsigned* blocks) {
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
+    return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  long long n = (units + threads - 1) / threads;
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *blocks = static_cast<unsigned>(n < 1 ? 1 : (n > resident ? resident : n));
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// ----------------------------------------------------------------------
+// K3/K4: the element streams
+// ----------------------------------------------------------------------
+
+// One operand's 16-byte chunks. An aligned operand is one load a chunk; one
+// k bytes past 16-byte alignment (a view some elements in) is two aligned
+// loads and a funnel shift of each word, so its chunks line up with the
+// output's; an operand of one element is its value repeated (rep).
+struct Stream {
+  const uint4* base;  // the operand rounded down to 16 bytes
+  int k;              // bytes from there to the operand
+  bool one;
+  uint4 rep;
+
+  __device__ __forceinline__ Stream(const void* p, bool one_, uint4 rep_) : one(one_), rep(rep_) {
+    k = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+    base = reinterpret_cast<const uint4*>(static_cast<const char*>(p) - k);
+  }
+
+  __device__ __forceinline__ uint4 chunk(long long v) const {
+    if (one) return rep;
+    const uint4 lo = __ldcs(base + v);
+    if (k == 0) return lo;
+    const uint4 hi = __ldcs(base + v + 1);  // holds the chunk's last byte, so lies inside the operand's pages
+    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const int s = k >> 2, sh = 8 * (k & 3);
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t x0 = s == 0 ? w[j] : s == 1 ? w[j + 1] : s == 2 ? w[j + 2] : w[j + 3];
+      const uint32_t x1 = s == 0 ? w[j + 1] : s == 1 ? w[j + 2] : s == 2 ? w[j + 3] : w[j + 4];
+      r[j] = __funnelshift_r(x0, x1, sh);
+    }
+    return make_uint4(r[0], r[1], r[2], r[3]);
+  }
+};
+
+// The chunks [0, nv) of a grid-stride pass, two chunks' loads in flight per
+// thread; f maps a chunk of a and one of b to one of out (16-byte aligned).
+template <typename F>
+__device__ __forceinline__ void stream_pass(const Stream& A, const Stream& B, uint4* __restrict__ out, long long nv,
+                                            long long tid, long long nthreads, F f) {
+  for (long long v = tid; v < nv; v += 2 * nthreads) {
+    const long long w = v + nthreads;
+    const bool two = w < nv;
+    const uint4 x0 = A.chunk(v), y0 = B.chunk(v);
+    uint4 x1 = x0, y1 = y0;
+    if (two) {
+      x1 = A.chunk(w);
+      y1 = B.chunk(w);
+    }
+    __stcs(out + v, f(x0, y0));
+    if (two) __stcs(out + w, f(x1, y1));
+  }
+}
+
+// ----------------------------------------------------------------------
+// K3/K4, bytes placement
+// ----------------------------------------------------------------------
+
+constexpr int BYTE_THREADS = 256;
+constexpr unsigned ROW = 128;  // bytes of one table row: 32 lanes of 4 bytes
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// 0xFF in each byte of w that is not 0, 0x00 in each that is.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t t = ((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w;  // bit 7 of a byte: the byte is not 0
+  return prmt(t, 0, 0xBA98);  // each byte filled with its bit 7
+}
+
+// One element from this lane's column (fields: 0 LOG, 1 EXP, 2 (q-1) - LOG),
+// before the zero test.
+template <int OP>
+__device__ __forceinline__ uint32_t byte_op(const uint8_t* col, uint32_t x, uint32_t y) {
+  const uint32_t s = col[x * ROW] + col[y * ROW + (OP == OP_MUL ? 0 : 2)];
+  return col[s * ROW + 1];
+}
+
+// Four elements of one 32-bit word of a and of b.
+template <int OP>
+__device__ __forceinline__ uint32_t word_op(const uint8_t* col, uint32_t A, uint32_t B) {
+  uint32_t r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r[k] = byte_op<OP>(col, (A >> (8 * k)) & 0xFF, (B >> (8 * k)) & 0xFF);
+  const uint32_t w = prmt(prmt(r[0], r[1], 0x0040), prmt(r[2], r[3], 0x0040), 0x5410);
+  return w & (OP == OP_MUL ? nonzero_bytes(A) & nonzero_bytes(B) : nonzero_bytes(A));
+}
+
+// rows_g: 2(q-1) words, byte 0 LOG[r] (r < q), byte 1 EXP[r], byte 2
+// (q-1) - LOG[r] (r < q). a_one / b_one: that operand is one element.
+template <int OP>
+__global__ void __launch_bounds__(BYTE_THREADS)
+bytes_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, uint8_t* __restrict__ out,
+             const uint32_t* __restrict__ rows_g, int rows, int a_one, int b_one, long long n) {
+  extern __shared__ uint4 s_rows[];  // rows x 32 lanes x 4 bytes
+  for (int i = threadIdx.x; i < rows * 8; i += BYTE_THREADS) {
+    const uint32_t w = __ldg(rows_g + (i >> 3));
+    s_rows[i] = make_uint4(w, w, w, w);
+  }
+  __syncthreads();
+  const uint8_t* col = reinterpret_cast<const uint8_t*>(s_rows) + 4 * (threadIdx.x & 31);
+  const long long tid = static_cast<long long>(blockIdx.x) * BYTE_THREADS + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * BYTE_THREADS;
+  const uint32_t a0 = a_one ? __ldg(a) : 0, b0 = b_one ? __ldg(b) : 0;
+  const uint32_t ar = a0 * 0x01010101u, br = b0 * 0x01010101u;
+  const Stream A(a, a_one, make_uint4(ar, ar, ar, ar)), B(b, b_one, make_uint4(br, br, br, br));
+  const long long nv = n >> 4;
+  stream_pass(A, B, reinterpret_cast<uint4*>(out), nv, tid, nthreads, [col](uint4 x, uint4 y) {
+    return make_uint4(word_op<OP>(col, x.x, y.x), word_op<OP>(col, x.y, y.y), word_op<OP>(col, x.z, y.z),
+                      word_op<OP>(col, x.w, y.w));
+  });
+  for (long long i = (nv << 4) + tid; i < n; i += nthreads) {  // the ragged tail
+    const uint32_t x = a_one ? a0 : a[i], y = b_one ? b0 : b[i];
+    const uint32_t r = byte_op<OP>(col, x, y);
+    out[i] = static_cast<uint8_t>((x == 0 || (OP == OP_MUL && y == 0)) ? 0 : r);
+  }
+}
+
+// ----------------------------------------------------------------------
+// K3/K4, int64 placements
+// ----------------------------------------------------------------------
+
+template <int PLACE>
+__host__ __device__ constexpr int wide_threads() {
+  return PLACE == PLACE_LOG_SHARED ? 1024 : 512;
+}
+
+// The gathers of one placement. log16/exp16: uint16 LOG (q entries) and
+// reduced EXP (q - 1 entries); log32/exp32: the int32 tables (global).
+template <int PLACE>
+struct WideTables {
+  const uint16_t* log16;
+  const uint16_t* exp16;
+  const int32_t* __restrict__ log32;
+  const int32_t* __restrict__ exp32;
+  int q1;  // q - 1
+
+  __device__ __forceinline__ int lg(int x) const {
+    if constexpr (PLACE == PLACE_GLOBAL) return __ldg(log32 + x);
+    else return log16[x];
+  }
+
+  // One element: x and y are the low words of int64 storage values in [0, q).
+  template <int OP>
+  __device__ __forceinline__ uint32_t apply(int x, int y) const {
+    int r;
+    if constexpr (PLACE == PLACE_GLOBAL) {  // the doubled int32 EXP
+      r = __ldg(exp32 + (OP == OP_MUL ? lg(x) + lg(y) : lg(x) + q1 - lg(y)));
+    } else {  // the reduced EXP: one conditional add of q - 1
+      int s = OP == OP_MUL ? lg(x) + lg(y) - q1 : lg(x) - lg(y);
+      s += s < 0 ? q1 : 0;
+      if constexpr (PLACE == PLACE_SHARED) r = exp16[s];
+      else r = __ldg(exp16 + s);
+    }
+    return (x == 0 || (OP == OP_MUL && y == 0)) ? 0 : r;
+  }
+};
+
+// packed: uint16 LOG in [0, q8), reduced EXP in [q8, q8 + e8) (q8, e8:
+// q and q - 1 rounded up to 8); `staged` uint16 entries of it go to shared
+// memory (q8 + e8 for shared, q8 for log-shared, 0 for global). A 16-byte
+// chunk holds two elements; their high words are 0.
+template <int OP, int PLACE>
+__global__ void __launch_bounds__(PLACE == PLACE_LOG_SHARED ? 1024 : 512, PLACE == PLACE_LOG_SHARED ? 1 : 2)
+wide_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b, int64_t* __restrict__ out,
+            const uint16_t* __restrict__ packed, int q8, int staged, const int32_t* __restrict__ exp32,
+            const int32_t* __restrict__ log32, int q, int a_one, int b_one, long long n) {
+  constexpr int THREADS = wide_threads<PLACE>();
+  extern __shared__ uint4 s_tab[];
+  for (int i = threadIdx.x; i < staged / 8; i += THREADS) s_tab[i] = __ldg(reinterpret_cast<const uint4*>(packed) + i);
+  __syncthreads();
+  const uint16_t* s16 = reinterpret_cast<const uint16_t*>(s_tab);
+  const WideTables<PLACE> t{s16, PLACE == PLACE_SHARED ? s16 + q8 : packed + q8, log32, exp32, q - 1};
+  const long long tid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
+  const uint32_t a0 = a_one ? static_cast<uint32_t>(__ldg(reinterpret_cast<const long long*>(a))) : 0;
+  const uint32_t b0 = b_one ? static_cast<uint32_t>(__ldg(reinterpret_cast<const long long*>(b))) : 0;
+  const Stream A(a, a_one, make_uint4(a0, 0, a0, 0)), B(b, b_one, make_uint4(b0, 0, b0, 0));
+  const long long nv = n >> 1;
+  stream_pass(A, B, reinterpret_cast<uint4*>(out), nv, tid, nthreads, [t](uint4 x, uint4 y) {
+    return make_uint4(t.template apply<OP>(x.x, y.x), 0, t.template apply<OP>(x.z, y.z), 0);
+  });
+  for (long long i = (nv << 1) + tid; i < n; i += nthreads)  // the ragged tail
+    out[i] = t.template apply<OP>(a_one ? a0 : static_cast<int>(a[i]), b_one ? b0 : static_cast<int>(b[i]));
+}
+
+int round8(int x) { return (x + 7) & ~7; }
+
+template <int OP>
+cudaError_t launch_binary(int place, const void* a, int a_one, const void* b, int b_one, void* out,
+                          const void* packed, const int32_t* exp_t, const int32_t* log_t, int q, long long n,
+                          cudaStream_t stream) {
+  unsigned blocks = 0;
+  cudaError_t err;
+  if (place == PLACE_BYTES) {
+    const int rows = 2 * (q - 1), smem = rows * static_cast<int>(ROW);
+    auto kernel = bytes_kernel<OP>;
+    if ((err = persistent_grid(kernel, BYTE_THREADS, smem, n / 16 + 1, &blocks)) != cudaSuccess) return err;
+    kernel<<<blocks, BYTE_THREADS, smem, stream>>>(
+        static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), static_cast<uint8_t*>(out),
+        static_cast<const uint32_t*>(packed), rows, a_one, b_one, n);
+    return cudaGetLastError();
+  }
+  const int q8 = round8(q), e8 = round8(q - 1);
+  const int64_t *a64 = static_cast<const int64_t*>(a), *b64 = static_cast<const int64_t*>(b);
+  int64_t* o64 = static_cast<int64_t*>(out);
+  const uint16_t* p16 = static_cast<const uint16_t*>(packed);
+#define LAUNCH_WIDE(PLACE, STAGED)                                                                                \
+  do {                                                                                                            \
+    auto kernel = wide_kernel<OP, PLACE>;                                                                         \
+    const int staged = (STAGED), smem = 2 * staged, threads = wide_threads<PLACE>();                              \
+    if ((err = persistent_grid(kernel, threads, smem, n / 2 + 1, &blocks)) != cudaSuccess) return err;           \
+    kernel<<<blocks, threads, smem, stream>>>(a64, b64, o64, p16, q8, staged, exp_t, log_t, q, a_one, b_one, n); \
+    return cudaGetLastError();                                                                                    \
+  } while (0)
+  switch (place) {
+    case PLACE_SHARED: LAUNCH_WIDE(PLACE_SHARED, q8 + e8);
+    case PLACE_LOG_SHARED: LAUNCH_WIDE(PLACE_LOG_SHARED, q8);
+    case PLACE_GLOBAL: LAUNCH_WIDE(PLACE_GLOBAL, 0);
+    default: return cudaErrorInvalidValue;
+  }
+#undef LAUNCH_WIDE
+}
+
+// ----------------------------------------------------------------------
+// K5/K6
+// ----------------------------------------------------------------------
+
+constexpr int UNARY_THREADS = 256;
 
 template <bool SMEM>
 __device__ __forceinline__ int tab(const uint16_t* s, const int32_t* __restrict__ g, int i) {
@@ -57,33 +352,24 @@ __device__ __forceinline__ int tab(const uint16_t* s, const int32_t* __restrict_
 
 // Shared memory (SMEM): LOG[0, q) then, except for K6, EXP[0, 2(q-1)).
 template <int OP, typename T, typename Out, bool SMEM>
-__global__ void __launch_bounds__(THREADS)
-lookup_kernel(const T* __restrict__ a, const T* __restrict__ b, Out* __restrict__ out,
-              const int32_t* __restrict__ exp_g, const int32_t* __restrict__ log_g, int q,
-              long long n) {
-  extern __shared__ uint16_t s_tab[];
+__global__ void __launch_bounds__(UNARY_THREADS)
+unary_kernel(const T* __restrict__ a, Out* __restrict__ out, const int32_t* __restrict__ exp_g,
+             const int32_t* __restrict__ log_g, int q, long long n) {
+  extern __shared__ uint16_t s_u16[];
   if constexpr (SMEM) {
-    for (int i = threadIdx.x; i < q; i += THREADS) s_tab[i] = static_cast<uint16_t>(log_g[i]);
+    for (int i = threadIdx.x; i < q; i += UNARY_THREADS) s_u16[i] = static_cast<uint16_t>(log_g[i]);
     if constexpr (OP != OP_LOG) {
-      for (int i = threadIdx.x; i < 2 * (q - 1); i += THREADS)
-        s_tab[q + i] = static_cast<uint16_t>(exp_g[i]);
+      for (int i = threadIdx.x; i < 2 * (q - 1); i += UNARY_THREADS)
+        s_u16[q + i] = static_cast<uint16_t>(exp_g[i]);
     }
     __syncthreads();
   }
-  const uint16_t* s_log = s_tab;
-  const uint16_t* s_exp = s_tab + q;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
+  const uint16_t* s_log = s_u16;
+  const uint16_t* s_exp = s_u16 + q;
+  const long long stride = static_cast<long long>(gridDim.x) * UNARY_THREADS;
+  for (long long i = static_cast<long long>(blockIdx.x) * UNARY_THREADS + threadIdx.x; i < n; i += stride) {
     const int x = static_cast<int>(a[i]);
-    if constexpr (OP == OP_MUL) {
-      const int y = static_cast<int>(b[i]);
-      const int r = tab<SMEM>(s_exp, exp_g, tab<SMEM>(s_log, log_g, x) + tab<SMEM>(s_log, log_g, y));
-      out[i] = static_cast<Out>((x == 0 || y == 0) ? 0 : r);
-    } else if constexpr (OP == OP_DIV) {
-      const int y = static_cast<int>(b[i]);
-      const int r = tab<SMEM>(s_exp, exp_g, tab<SMEM>(s_log, log_g, x) + (q - 1) - tab<SMEM>(s_log, log_g, y));
-      out[i] = static_cast<Out>(x == 0 ? 0 : r);
-    } else if constexpr (OP == OP_RECIP) {
+    if constexpr (OP == OP_RECIP) {
       out[i] = static_cast<Out>(tab<SMEM>(s_exp, exp_g, (q - 1) - tab<SMEM>(s_log, log_g, x)));
     } else {
       out[i] = static_cast<Out>(tab<SMEM>(s_log, log_g, x));
@@ -92,43 +378,31 @@ lookup_kernel(const T* __restrict__ a, const T* __restrict__ b, Out* __restrict_
 }
 
 template <int OP, typename T, typename Out, bool SMEM>
-cudaError_t launch(const void* a, const void* b, void* out, const int32_t* exp_t,
-                   const int32_t* log_t, int q, long long n, cudaStream_t stream) {
-  auto kernel = lookup_kernel<OP, T, Out, SMEM>;
+cudaError_t launch_unary(const void* a, void* out, const int32_t* exp_t, const int32_t* log_t, int q, long long n,
+                         cudaStream_t stream) {
+  auto kernel = unary_kernel<OP, T, Out, SMEM>;
   const int smem = SMEM ? static_cast<int>(sizeof(uint16_t)) * (OP == OP_LOG ? q : q + 2 * (q - 1)) : 0;
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) != cudaSuccess)
-    return err;
-  long long blocks = (n + THREADS - 1) / THREADS;
-  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (blocks > resident) blocks = resident;
-  lookup_kernel<OP, T, Out, SMEM><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<Out*>(out), exp_t, log_t, q, n);
+  unsigned blocks = 0;
+  cudaError_t err = persistent_grid(kernel, UNARY_THREADS, smem, n, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, UNARY_THREADS, smem, stream>>>(static_cast<const T*>(a), static_cast<Out*>(out), exp_t, log_t,
+                                                  q, n);
   return cudaGetLastError();
 }
 
 template <int OP, typename T, typename Out>
-cudaError_t launch_placed(bool smem, const void* a, const void* b, void* out, const int32_t* exp_t,
-                          const int32_t* log_t, int q, long long n, cudaStream_t stream) {
-  if (smem) return launch<OP, T, Out, true>(a, b, out, exp_t, log_t, q, n, stream);
-  return launch<OP, T, Out, false>(a, b, out, exp_t, log_t, q, n, stream);
+cudaError_t launch_unary_placed(bool smem, const void* a, void* out, const int32_t* exp_t, const int32_t* log_t,
+                                int q, long long n, cudaStream_t stream) {
+  if (smem) return launch_unary<OP, T, Out, true>(a, out, exp_t, log_t, q, n, stream);
+  return launch_unary<OP, T, Out, false>(a, out, exp_t, log_t, q, n, stream);
 }
 
 template <typename T>
-cudaError_t launch_op(int op, bool smem, const void* a, const void* b, void* out, const int32_t* exp_t,
-                      const int32_t* log_t, int q, long long n, cudaStream_t stream) {
+cudaError_t launch_unary_op(int op, bool smem, const void* a, void* out, const int32_t* exp_t,
+                            const int32_t* log_t, int q, long long n, cudaStream_t stream) {
   switch (op) {
-    case OP_MUL: return launch_placed<OP_MUL, T, T>(smem, a, b, out, exp_t, log_t, q, n, stream);
-    case OP_DIV: return launch_placed<OP_DIV, T, T>(smem, a, b, out, exp_t, log_t, q, n, stream);
-    case OP_RECIP: return launch_placed<OP_RECIP, T, T>(smem, a, b, out, exp_t, log_t, q, n, stream);
-    case OP_LOG: return launch_placed<OP_LOG, T, int64_t>(smem, a, b, out, exp_t, log_t, q, n, stream);
+    case OP_RECIP: return launch_unary_placed<OP_RECIP, T, T>(smem, a, out, exp_t, log_t, q, n, stream);
+    case OP_LOG: return launch_unary_placed<OP_LOG, T, int64_t>(smem, a, out, exp_t, log_t, q, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -137,19 +411,41 @@ cudaError_t launch_op(int op, bool smem, const void* a, const void* b, void* out
 
 extern "C" {
 
-// op: 0 multiply (K3), 1 divide (K4), 2 reciprocal (K5), 3 log (K6).
-// elem_bytes: 1 for uint8 storage, 8 for int64. smem: nonzero to stage the
-// tables in shared memory (q <= 2^16). b is unused by ops 2 and 3, exp_t by 3.
-int lookup_launch(int op, int elem_bytes, int smem, const void* a, const void* b, void* out,
-                  const int32_t* exp_t, const int32_t* log_t, int q, long long n, void* stream) {
+// K3 (op 0) and K4 (op 1). place: 0 bytes (uint8 storage, q <= 2^8), 1
+// shared (int64, q <= 2^14), 2 log-shared (int64, q <= 2^16), 3 global
+// (int64, q <= 2^20). packed: the placement's table from pack_tables
+// (ops/_lookup.py), unused by global; exp_t/log_t: the int32 tables, read
+// by global only. a_one/b_one: that operand is one element, read by every
+// thread (stride 0). out: 16-byte aligned. n: elements of out.
+int lookup_binary_launch(int op, int place, const void* a, int a_one, const void* b, int b_one, void* out,
+                         const void* packed, const int32_t* exp_t, const int32_t* log_t, int q, long long n,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int max_q[] = {1 << 8, 1 << 14, 1 << 16, 1 << 20};
+  if (place < 0 || place > PLACE_GLOBAL || q < 3 || q > max_q[place] || !aligned16(out) ||
+      (place != PLACE_GLOBAL && !aligned16(packed)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (op) {
+    case OP_MUL: err = launch_binary<OP_MUL>(place, a, a_one, b, b_one, out, packed, exp_t, log_t, q, n, s); break;
+    case OP_DIV: err = launch_binary<OP_DIV>(place, a, a_one, b, b_one, out, packed, exp_t, log_t, q, n, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// K5 (op 2) and K6 (op 3). elem_bytes: 1 for uint8 storage, 8 for int64.
+// smem: nonzero to stage the tables in shared memory (q <= 2^16).
+int lookup_unary_launch(int op, int elem_bytes, int smem, const void* a, void* out, const int32_t* exp_t,
+                        const int32_t* log_t, int q, long long n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (smem && q > (1 << 16)) {
     err = cudaErrorInvalidValue;  // uint16 shared entries hold values below 2^16
   } else if (elem_bytes == 1) {
-    err = launch_op<uint8_t>(op, smem != 0, a, b, out, exp_t, log_t, q, n, s);
+    err = launch_unary_op<uint8_t>(op, smem != 0, a, out, exp_t, log_t, q, n, s);
   } else if (elem_bytes == 8) {
-    err = launch_op<int64_t>(op, smem != 0, a, b, out, exp_t, log_t, q, n, s);
+    err = launch_unary_op<int64_t>(op, smem != 0, a, out, exp_t, log_t, q, n, s);
   } else {
     err = cudaErrorInvalidValue;
   }

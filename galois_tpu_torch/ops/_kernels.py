@@ -59,7 +59,7 @@ from ._elementwise import (
     power_ladder,
 )
 from ._limbs import align_planar, mul_limbs, normalize_limbs
-from ._lookup import lookup_divide, lookup_log, lookup_multiply, lookup_reciprocal
+from ._lookup import lookup_divide, lookup_log, lookup_multiply, lookup_reciprocal, pack_tables
 
 __all__ = ["get_ops", "FieldOps", "mulmod"]
 
@@ -252,26 +252,35 @@ class BinaryExtOps(FieldOps):
 
 class _Tables:
     """A field's EXP (length 2(q-1)) and LOG (length q) as int32 NumPy
-    arrays, and their copies on each device they are used on."""
+    arrays, and their copies on each device they are used on, with the
+    packed table K3 and K4 read there (``_lookup.pack_tables``)."""
 
     def __init__(self, meta: FieldMeta, exp, log):
         q = meta.order
         exp, log = np.asarray(exp), np.asarray(log)
-        if exp.shape != (2 * (q - 1),) or log.shape != (q,):
+        if exp.shape != (2 * (q - 1),) or log.shape != (q,) or not np.array_equal(exp[: q - 1], exp[q - 1 :]):
             raise ValueError(
-                f"{meta.name} needs EXP of length {2 * (q - 1)} and LOG of length {q}, "
-                f"not {exp.shape} and {log.shape}."
+                f"{meta.name} needs EXP of length {2 * (q - 1)}, its first q - 1 entries twice, and LOG "
+                f"of length {q}, not {exp.shape} and {log.shape}."
             )
+        self.meta = meta
         self.EXP = exp.astype(np.int32)
         self.LOG = log.astype(np.int32)
         self._on = {}
 
     def on(self, device: torch.device):
+        """(EXP, LOG) on ``device``."""
+        return self._device(device)[:2]
+
+    def packed(self, device: torch.device):
+        """K3's and K4's table for this field's storage on ``device``."""
+        return self._device(device)[2]
+
+    def _device(self, device):
         if device not in self._on:
-            self._on[device] = (
-                torch.from_numpy(self.EXP).to(device),
-                torch.from_numpy(self.LOG).to(device),
-            )
+            exp_t, log_t = (torch.from_numpy(t).to(device) for t in (self.EXP, self.LOG))
+            packed = pack_tables(exp_t, log_t, self.meta.order, self.meta.torch_dtype)
+            self._on[device] = (exp_t, log_t, packed)
         return self._on[device]
 
 
@@ -340,7 +349,7 @@ class OddExtOps(FieldOps):
     def multiply_bulk(self, a, b):
         if self.meta.order <= self.BULK_LOOKUP_MAX_ORDER:
             exp_t, log_t = self._tables.on(a.device)
-            return lookup_multiply(a, b, exp_t, log_t, self.meta.order)
+            return lookup_multiply(a, b, exp_t, log_t, self.meta.order, self._tables.packed(a.device))
         return self.multiply(a, b)
 
     def reciprocal(self, a):
@@ -387,7 +396,7 @@ class LookupOps:
 
     def multiply(self, a, b):
         exp_t, log_t = self._tables.on(a.device)
-        return lookup_multiply(a, b, exp_t, log_t, self.meta.order)
+        return lookup_multiply(a, b, exp_t, log_t, self.meta.order, self._tables.packed(a.device))
 
     def multiply_bulk(self, a, b):
         # without this override __getattr__ would hand out the calculate
@@ -399,7 +408,7 @@ class LookupOps:
 
     def divide(self, a, b):
         exp_t, log_t = self._tables.on(a.device)
-        return lookup_divide(a, b, exp_t, log_t, self.meta.order)
+        return lookup_divide(a, b, exp_t, log_t, self.meta.order, self._tables.packed(a.device))
 
     def reciprocal(self, a):
         exp_t, log_t = self._tables.on(a.device)

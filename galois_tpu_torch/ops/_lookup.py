@@ -9,9 +9,12 @@ bounds them on the H100 and how their design differs from the TPU's.
 
 Tables are the field's EXP (int32, length 2(q-1)) and LOG (int32, length q)
 on the data's device; elements are storage tensors (uint8 for q <= 2^8,
-else int64) holding values in [0, q). Each wrapper serves CPU tensors with
-its plain version and launches its kernel for CUDA tensors, counting the
-launch in ``<wrapper>.launches``; it raises on anything else.
+else int64) holding values in [0, q). K3 and K4 read the tables in the form
+that ``lookup_placement`` picks for ``(q, dtype)`` and ``pack_tables``
+builds (``ops/_kernels.py::_Tables`` keeps one per device). Each wrapper
+serves CPU tensors with its plain version and launches its kernel for CUDA
+tensors, counting the launch in ``<wrapper>.launches``; it raises on
+anything else.
 """
 
 from __future__ import annotations
@@ -30,14 +33,66 @@ __all__ = [
     "lookup_divide_plain",
     "lookup_reciprocal_plain",
     "lookup_log_plain",
+    "lookup_placement",
+    "pack_tables",
 ]
 
-_MUL, _DIV, _RECIP, _LOG = 0, 1, 2, 3  # op codes of lookup_launch
+_MUL, _DIV, _RECIP, _LOG = 0, 1, 2, 3  # op codes of the launchers
 
-# Orders up to this stage their tables in shared memory as uint16 (6q bytes,
-# 96 KB at 2^14, so two blocks share an SM); larger ones gather from global
-# memory, out of L2.
+# K5 and K6 stage LOG and EXP in shared memory as uint16 up to this order
+# (6q bytes, 96 KB at 2^14); larger ones gather from global memory, out of
+# L2. K3 and K4 keep both tables in shared memory up to it too ("shared").
 SMEM_MAX_ORDER = 2**14
+
+# K3/K4 placements, in the order of lookup_binary_launch's codes.
+PLACEMENTS = ("bytes", "shared", "log-shared", "global")
+
+
+def lookup_placement(q: int, dtype: torch.dtype) -> str:
+    """Where K3 and K4 read the tables of GF(q) for storage ``dtype``:
+    'bytes' (uint8: the byte rows of ``pack_tables`` in shared memory, one
+    copy per bank), 'shared' (int64, q <= 2^14: uint16 LOG and reduced EXP
+    in shared memory), 'log-shared' (int64, q <= 2^16: uint16 LOG in shared
+    memory, the reduced EXP gathered from global memory) or 'global' (int64,
+    q <= 2^20: the int32 tables in global memory)."""
+    if dtype == torch.uint8 and 2 < q <= 2**8:
+        return "bytes"
+    if dtype == torch.int64 and 2 < q <= 2**20:
+        return "shared" if q <= SMEM_MAX_ORDER else "log-shared" if q <= 2**16 else "global"
+    raise ValueError(f"order {q} has no lookup tables for {dtype} storage.")
+
+
+def _round8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def pack_tables(exp_t: torch.Tensor, log_t: torch.Tensor, q: int, dtype: torch.dtype):
+    """The table K3 and K4 read for ``lookup_placement(q, dtype)``, built on
+    the tables' device from the int32 EXP (doubled, so EXP[i + q - 1] =
+    EXP[i]) and LOG:
+
+    - 'bytes': int32 words of 2(q-1) rows, byte 0 LOG[r] (r < q), byte 1
+      EXP[r], byte 2 (q-1) - LOG[r] (r < q), byte 3 zero;
+    - 'shared' and 'log-shared': int16 holding uint16 bits, LOG at [0, q)
+      and the reduced EXP (its first q - 1 entries) at [q8, q8 + q - 1),
+      q8 and the length rounded up to 8 entries (16 bytes);
+    - 'global': None (the kernel reads exp_t and log_t)."""
+    place = lookup_placement(q, dtype)
+    if place == "global":
+        return None
+    log_t, exp_t = log_t.to(torch.int32), exp_t.to(torch.int32)
+    if place == "bytes":
+        rows = 2 * (q - 1)
+        log_r = torch.zeros(rows, dtype=torch.int32, device=log_t.device)
+        nlog_r = torch.zeros_like(log_r)
+        log_r[:q] = log_t
+        nlog_r[:q] = (q - 1) - log_t
+        return log_r | (exp_t << 8) | (nlog_r << 16)
+    q8 = _round8(q)
+    packed = torch.zeros(q8 + _round8(q - 1), dtype=torch.int32, device=log_t.device)
+    packed[:q] = log_t
+    packed[q8 : q8 + q - 1] = exp_t[: q - 1]
+    return torch.where(packed >= 2**15, packed - 2**16, packed).to(torch.int16)
 
 
 # ----------------------------------------------------------------------
@@ -79,15 +134,14 @@ def _lib():
 
     lib = load("lookup")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lookup_launch.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, i32, i64, vp]
-    lib.lookup_launch.restype = i32
+    lib.lookup_binary_launch.argtypes = [i32, i32, vp, i32, vp, i32, vp, vp, vp, vp, i32, i64, vp]
+    lib.lookup_unary_launch.argtypes = [i32, i32, i32, vp, vp, vp, vp, i32, i64, vp]
+    lib.lookup_binary_launch.restype = lib.lookup_unary_launch.restype = i32
     return lib
 
 
-def _launch(fn: str, op: int, q: int, a, b, exp_t, log_t, out_dtype) -> torch.Tensor:
-    """Check the operands, allocate the output and launch one kernel (none
-    for an empty tensor). ``b`` is None for K5 and K6, ``exp_t`` for K6."""
-    operands = [x for x in (a, b) if x is not None]
+def _check(fn: str, q: int, operands, exp_t, log_t) -> None:
+    a = operands[0]
     if a.device.type != "cuda" or any(x.device != a.device for x in operands):
         raise ValueError(f"{fn}: operands on {[str(x.device) for x in operands]}; need one CUDA device.")
     if a.dtype not in (torch.uint8, torch.int64) or any(x.dtype != a.dtype for x in operands):
@@ -97,38 +151,76 @@ def _launch(fn: str, op: int, q: int, a, b, exp_t, log_t, out_dtype) -> torch.Te
     for t, length in ((exp_t, 2 * (q - 1)), (log_t, q)):
         if t is not None and (t.device != a.device or t.dtype != torch.int32 or t.shape != (length,)):
             raise ValueError(f"{fn}: tables must be int32 of lengths 2(q-1) and q on {a.device}.")
-    a, b, exp_t, log_t = (None if t is None else t.contiguous() for t in (a, b, exp_t, log_t))
+
+
+def _stream(a) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream)
+
+
+def _launch_binary(fn: str, op: int, q: int, a, b, exp_t, log_t, packed) -> torch.Tensor:
+    """K3 or K4 on CUDA operands: check them, allocate the output and
+    launch one kernel (none for an empty output). An operand of one element
+    reaches the kernel by stride 0; other broadcasts are materialized."""
+    _check(fn, q, (a, b), exp_t, log_t)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    if not out.numel():
+        return out
+    place = lookup_placement(q, a.dtype)
+    if packed is None and place != "global":
+        packed = pack_tables(exp_t, log_t, q, a.dtype)
+    if packed is not None:
+        want = (torch.int32, 2 * (q - 1)) if place == "bytes" else (torch.int16, _round8(q) + _round8(q - 1))
+        if (packed.dtype, packed.numel()) != want or packed.device != a.device or packed.data_ptr() % 16:
+            raise ValueError(f"{fn}: the packed table is not pack_tables' for GF({q}) {a.dtype} on {a.device}.")
+    ones = [x.numel() == 1 for x in (a, b)]
+    a, b = (x if one else x.expand(shape).contiguous() for x, one in zip((a, b), ones))
+    exp_t, log_t = exp_t.contiguous(), log_t.contiguous()
+    with torch.cuda.device(a.device):
+        rc = _lib().lookup_binary_launch(
+            op, PLACEMENTS.index(place), a.data_ptr(), ones[0], b.data_ptr(), ones[1], out.data_ptr(),
+            None if packed is None else packed.data_ptr(), exp_t.data_ptr(), log_t.data_ptr(), q, out.numel(),
+            _stream(a),
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}.")
+    return out
+
+
+def _launch_unary(fn: str, op: int, q: int, a, exp_t, log_t, out_dtype) -> torch.Tensor:
+    """K5 or K6 on a CUDA operand (``exp_t`` is None for K6)."""
+    _check(fn, q, (a,), exp_t, log_t)
+    a, exp_t, log_t = (None if t is None else t.contiguous() for t in (a, exp_t, log_t))
     out = torch.empty(a.shape, dtype=out_dtype, device=a.device)
     if a.numel():
         with torch.cuda.device(a.device):
-            rc = _lib().lookup_launch(
-                op, a.element_size(), int(q <= SMEM_MAX_ORDER), a.data_ptr(),
-                None if b is None else b.data_ptr(), out.data_ptr(),
-                None if exp_t is None else exp_t.data_ptr(), log_t.data_ptr(), q, a.numel(),
-                ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+            rc = _lib().lookup_unary_launch(
+                op, a.element_size(), int(q <= SMEM_MAX_ORDER), a.data_ptr(), out.data_ptr(),
+                None if exp_t is None else exp_t.data_ptr(), log_t.data_ptr(), q, a.numel(), _stream(a),
             )
         if rc != 0:
             raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}.")
     return out
 
 
-def lookup_multiply(a, b, exp_t, log_t, q: int) -> torch.Tensor:
-    """K3: GF(q) product of two storage tensors (broadcast) by table gathers."""
-    a, b = torch.broadcast_tensors(a, b)
+def lookup_multiply(a, b, exp_t, log_t, q: int, packed=None) -> torch.Tensor:
+    """K3: GF(q) product of two storage tensors (broadcast) by table gathers.
+    ``packed`` is ``pack_tables(exp_t, log_t, q, a.dtype)``, built here when
+    not given."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return lookup_multiply_plain(a, b, exp_t, log_t, q)
-    out = _launch("lookup_multiply", _MUL, q, a, b, exp_t, log_t, a.dtype)
-    lookup_multiply.launches += bool(a.numel())
+    out = _launch_binary("lookup_multiply", _MUL, q, a, b, exp_t, log_t, packed)
+    lookup_multiply.launches += bool(out.numel())
     return out
 
 
-def lookup_divide(a, b, exp_t, log_t, q: int) -> torch.Tensor:
-    """K4: a / b by table gathers; the caller checks b != 0."""
-    a, b = torch.broadcast_tensors(a, b)
+def lookup_divide(a, b, exp_t, log_t, q: int, packed=None) -> torch.Tensor:
+    """K4: a / b by table gathers (broadcast); the caller checks b != 0.
+    ``packed`` as for ``lookup_multiply``."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return lookup_divide_plain(a, b, exp_t, log_t, q)
-    out = _launch("lookup_divide", _DIV, q, a, b, exp_t, log_t, a.dtype)
-    lookup_divide.launches += bool(a.numel())
+    out = _launch_binary("lookup_divide", _DIV, q, a, b, exp_t, log_t, packed)
+    lookup_divide.launches += bool(out.numel())
     return out
 
 
@@ -136,7 +228,7 @@ def lookup_reciprocal(a, exp_t, log_t, q: int) -> torch.Tensor:
     """K5: 1 / a by table gathers; the caller checks a != 0."""
     if a.device.type == "cpu":
         return lookup_reciprocal_plain(a, exp_t, log_t, q)
-    out = _launch("lookup_reciprocal", _RECIP, q, a, None, exp_t, log_t, a.dtype)
+    out = _launch_unary("lookup_reciprocal", _RECIP, q, a, exp_t, log_t, a.dtype)
     lookup_reciprocal.launches += bool(a.numel())
     return out
 
@@ -145,7 +237,7 @@ def lookup_log(a, log_t, q: int) -> torch.Tensor:
     """K6: the discrete log base the primitive element, LOG[a], as int64."""
     if a.device.type == "cpu":
         return lookup_log_plain(a, log_t, q)
-    out = _launch("lookup_log", _LOG, q, a, None, None, log_t, torch.int64)
+    out = _launch_unary("lookup_log", _LOG, q, a, None, log_t, torch.int64)
     lookup_log.launches += bool(a.numel())
     return out
 

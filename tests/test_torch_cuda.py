@@ -38,8 +38,10 @@ from galois_tpu_torch.ops._lookup import (
     lookup_log_plain,
     lookup_multiply,
     lookup_multiply_plain,
+    lookup_placement,
     lookup_reciprocal,
     lookup_reciprocal_plain,
+    pack_tables,
 )
 from galois_tpu_torch.ops._plane_matmul import (
     kmajor_planes,
@@ -381,6 +383,80 @@ def test_lookup_kernels_broadcast_and_refuse_bad_operands(cuda_device):
         lookup_multiply(col, row, exp_t[:-1], log_t, 256)
     with pytest.raises(ValueError):
         lookup_multiply(col, row.cpu(), exp_t, log_t, 256)
+
+
+def _lookup_setup(q, device):
+    F = gt.GF(q)
+    ops = get_ops(F._meta, "jit-lookup")
+    exp_t, log_t = (torch.from_numpy(t).to(device) for t in (ops.EXP, ops.LOG))
+    return exp_t, log_t, pack_tables(exp_t, log_t, q, F._meta.torch_dtype), F._meta.torch_dtype
+
+
+def _k3_k4_exact(a, b, exp_t, log_t, q, packed):
+    """K3 and K4 (one launch each) against their plain versions."""
+    before = lookup_multiply.launches, lookup_divide.launches
+    got = lookup_multiply(a, b, exp_t, log_t, q, packed), lookup_divide(a, b, exp_t, log_t, q, packed)
+    want = lookup_multiply_plain(a, b, exp_t, log_t, q), lookup_divide_plain(a, b, exp_t, log_t, q)
+    torch.cuda.synchronize()
+    assert (lookup_multiply.launches, lookup_divide.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("q", [2**8, 3**5])
+def test_lookup_k3_k4_every_pair(cuda_device, q):
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    a, b = (v.reshape(-1).to(dt) for v in torch.meshgrid(
+        torch.arange(q, device=cuda_device), torch.arange(q, device=cuda_device), indexing="ij"))
+    _k3_k4_exact(a, b, exp_t, log_t, q, packed)
+    _k3_k4_exact(a, b, exp_t, log_t, q, None)  # packed by the wrapper
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 4099, 100_003])
+@pytest.mark.parametrize("q", [2**8, 2**10, 2**14, 2**16, 2**20])
+def test_lookup_k3_k4_placements_ragged(cuda_device, q, n):
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    places = {2**8: "bytes", 2**10: "shared", 2**14: "shared", 2**16: "log-shared", 2**20: "global"}
+    assert lookup_placement(q, dt) == places[q]
+    g = torch.Generator(device=cuda_device).manual_seed(q + n)
+    a = torch.randint(0, q, (n,), generator=g, device=cuda_device).to(dt)
+    b = torch.randint(0, q, (n,), generator=g, device=cuda_device).to(dt)
+    a[::7] = 0  # zeros on each side and on both
+    b[::5] = 0
+    b[1::11] = q - 1
+    _k3_k4_exact(a, b, exp_t, log_t, q, packed)
+
+
+@pytest.mark.parametrize("side", ["a", "b"])
+@pytest.mark.parametrize("q", [2**8, 2**10, 2**16])
+def test_lookup_k3_k4_unaligned_views(cuda_device, q, side):
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(q)
+    base = torch.randint(0, q, (2, 5000), generator=g, device=cuda_device).to(dt)
+    base[:, ::13] = 0
+    for off in range(1, 16):
+        view = base[0, off : off + 4096]
+        other = base[1, :4096]
+        a, b = (view, other) if side == "a" else (other, view)
+        _k3_k4_exact(a, b, exp_t, log_t, q, packed)
+
+
+@pytest.mark.parametrize("q", [2**8, 3**5, 2**10, 2**16, 2**20])
+def test_lookup_k3_k4_one_element_and_broadcast_operands(cuda_device, q):
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(q)
+    x = torch.randint(0, q, (10_007,), generator=g, device=cuda_device).to(dt)
+    x[::9] = 0
+    for v in (0, 1, 3, q - 1):
+        for shape in ((), (1, 1)):
+            one = torch.full(shape, v, dtype=dt, device=cuda_device)
+            _k3_k4_exact(one, x, exp_t, log_t, q, packed)
+            _k3_k4_exact(x, one, exp_t, log_t, q, packed)
+            _k3_k4_exact(one, x[1:], exp_t, log_t, q, packed)  # the streamed operand off alignment
+    col, row = x[:300].reshape(300, 1), x[300:700].reshape(1, 400)
+    _k3_k4_exact(col, row, exp_t, log_t, q, packed)  # a broadcast that is materialized
+    _k3_k4_exact(x[:6].reshape(2, 3).t(), x[6:12].reshape(3, 2), exp_t, log_t, q, packed)  # a transposed view
+    assert lookup_multiply(x[:0], x[:0], exp_t, log_t, q, packed).shape == (0,)
 
 
 def test_lookup_mode_on_cuda_matches_cpu(cuda_device):

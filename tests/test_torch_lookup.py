@@ -4,8 +4,10 @@ JAX package.
 The same inputs, made with numpy from a seed, go through ``galois_tpu`` and
 ``galois_tpu_torch``; the tolerance is exact integer equality. Kernels
 K3-K6 (the EXP/LOG table gathers) are held here through their plain
-versions against the JAX Pallas kernels in interpret mode; the kernels
-themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
+versions against the JAX Pallas kernels in interpret mode, and K3's and
+K4's table placements through the packed tables and a torch model of the
+kernels' reads; the kernels themselves run only on a CUDA card
+(``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp
@@ -31,14 +33,17 @@ from galois_tpu_torch.fields._tables import build_exp_log
 from galois_tpu_torch.ops import _kernels
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops._lookup import (
+    SMEM_MAX_ORDER,
     lookup_divide,
     lookup_divide_plain,
     lookup_log,
     lookup_log_plain,
     lookup_multiply,
     lookup_multiply_plain,
+    lookup_placement,
     lookup_reciprocal,
     lookup_reciprocal_plain,
+    pack_tables,
 )
 
 ARITH_ORDERS = [2**8, 3**5, 5**3, 7**4, 3**10]
@@ -135,6 +140,209 @@ def test_lookup_wrappers_use_plain_on_cpu_only():
         lookup_multiply(meta, meta, exp_t, log_t, 256)
     with pytest.raises(ValueError):
         lookup_log(meta, log_t, 256)
+
+
+# ----------------------------------------------------------------------
+# K3/K4 placements: the packed tables and a model of the kernels' reads
+# ----------------------------------------------------------------------
+
+def _round8(x):
+    return -(-x // 8) * 8
+
+
+def _tables(q):
+    ops = get_ops(gt.GF(q)._meta, "jit-lookup")
+    return torch.from_numpy(ops.EXP), torch.from_numpy(ops.LOG)
+
+
+@pytest.mark.parametrize(
+    ["q", "dtype", "place"],
+    [
+        (3, torch.uint8, "bytes"),
+        (3**5, torch.uint8, "bytes"),
+        (2**8, torch.uint8, "bytes"),
+        (3**5, torch.int64, "shared"),
+        (2**10, torch.int64, "shared"),
+        (SMEM_MAX_ORDER, torch.int64, "shared"),
+        (SMEM_MAX_ORDER + 1, torch.int64, "log-shared"),
+        (3**10, torch.int64, "log-shared"),
+        (2**16, torch.int64, "log-shared"),
+        (2**16 + 1, torch.int64, "global"),
+        (2**20, torch.int64, "global"),
+    ],
+)
+def test_lookup_placement_classes(q, dtype, place):
+    assert lookup_placement(q, dtype) == place
+
+
+@pytest.mark.parametrize(
+    ["q", "dtype"], [(2**9, torch.uint8), (2**20 + 1, torch.int64), (2, torch.uint8), (2**8, torch.int32)]
+)
+def test_lookup_placement_refuses_what_has_no_tables(q, dtype):
+    with pytest.raises(ValueError):
+        lookup_placement(q, dtype)
+
+
+@pytest.mark.parametrize("q", [2**8, 3**5, 2**10, 2**16])
+def test_packed_tables_decode_to_the_jax_tables(q):
+    """Decoded in numpy, each placement's table holds the JAX package's
+    LookupOps.EXP and LOG."""
+    jops = jax_get_ops(gj.GF(q)._meta, "jit-lookup")
+    exp_t, log_t = _tables(q)
+    dtype = gt.GF(q)._meta.torch_dtype
+    packed = pack_tables(exp_t, log_t, q, dtype).numpy()
+    if lookup_placement(q, dtype) == "bytes":
+        assert packed.dtype == np.int32 and packed.shape == (2 * (q - 1),)
+        fields = packed.view(np.uint8).reshape(-1, 4).astype(np.int64)  # little-endian bytes of each row
+        assert np.array_equal(fields[:q, 0], jops.LOG)
+        assert np.array_equal(fields[:, 1], jops.EXP)
+        assert np.array_equal(fields[:q, 2], (q - 1) - jops.LOG)
+        assert not fields[q:, [0, 2]].any() and not fields[:, 3].any()
+    else:
+        q8 = _round8(q)
+        assert packed.dtype == np.int16 and packed.shape == (q8 + _round8(q - 1),)
+        u16 = packed.view(np.uint16).astype(np.int64)
+        assert np.array_equal(u16[:q], jops.LOG)
+        assert np.array_equal(u16[q8 : q8 + q - 1], jops.EXP[: q - 1])
+        assert np.array_equal(jops.EXP[q - 1 :], jops.EXP[: q - 1])  # the reduced EXP loses nothing
+        assert not u16[q:q8].any() and not u16[q8 + q - 1 :].any()
+    big = 2**17  # 'global': the kernel reads the int32 tables themselves
+    zeros = torch.zeros(2 * (big - 1), dtype=torch.int32)
+    assert pack_tables(zeros, zeros[:big], big, torch.int64) is None
+
+
+def _sign_fill(t):
+    """prmt's sign mode, selector 0xBA98: each byte filled with its bit 7."""
+    return sum(((t >> (8 * k + 7)) & 1) * (0xFF << (8 * k)) for k in range(4))
+
+
+def _nonzero_bytes(w):
+    """nonzero_bytes of csrc/lookup.cu on int64-held 32-bit words."""
+    return _sign_fill((((w & 0x7F7F7F7F) + 0x7F7F7F7F) | w) & 0xFFFFFFFF)
+
+
+def model_bytes_kernel(divide, a, b, packed):
+    """bytes_kernel's reads on the CPU: the shared image of 2(q-1) rows x 32
+    lanes x 4 bytes, each element read by the lane that runs it in the
+    16-element vector body, a table read the byte at col + 128 r + field,
+    and the zero tests as word masks."""
+    words = packed.to(torch.int64) & 0xFFFFFFFF
+    image = torch.stack([(words.repeat_interleave(32) >> (8 * k)) & 0xFF for k in range(4)], -1).reshape(-1)
+    x, y = a.to(torch.int64), b.to(torch.int64)
+    col = 4 * ((torch.arange(x.numel()) // 16) % 32)
+    s = image[col + 128 * x] + image[col + 128 * y + (2 if divide else 0)]  # an index past the image raises
+    r = image[col + 128 * s + 1]
+    pad = -x.numel() % 4
+    A, B, R = (torch.cat([v, v.new_zeros(pad)]).reshape(-1, 4) for v in (x, y, r))
+    shifts = 8 * torch.arange(4)
+    A, B, R = ((v << shifts).sum(-1) for v in (A, B, R))
+    mask = _nonzero_bytes(A) if divide else _nonzero_bytes(A) & _nonzero_bytes(B)
+    out = ((R & mask)[:, None] >> shifts) & 0xFF
+    return out.reshape(-1)[: x.numel()].to(a.dtype)
+
+
+def model_stream_chunk(words, v, k):
+    """Stream::chunk of csrc/lookup.cu: chunk v of an operand k bytes past
+    16-byte alignment, from the aligned 32-bit words around it (int64-held),
+    by word selects and __funnelshift_r."""
+    w = words[4 * v : 4 * v + 8]
+    s, sh = k >> 2, 8 * (k & 3)
+    out = []
+    for j in range(4):
+        x0, x1 = int(w[j + s]), int(w[j + s + 1]) if k else 0
+        out.append(((x1 << 32 | x0) >> sh) & 0xFFFFFFFF)
+    return out
+
+
+@pytest.mark.parametrize("k", range(16))
+def test_stream_chunk_model_reads_unaligned_operands(k):
+    """An operand k bytes past alignment: every chunk the funnel shifts
+    give is the operand's next 16 bytes."""
+    buf = np.random.default_rng(k).integers(0, 256, 16 * 6, dtype=np.uint8)
+    words = torch.from_numpy(buf.view(np.uint32).astype(np.int64))
+    operand = buf[k:]
+    for v in range(len(operand) // 16):
+        got = np.array(model_stream_chunk(words, v, k), dtype=np.uint32).view(np.uint8)
+        assert np.array_equal(got, operand[16 * v : 16 * v + 16])
+
+
+def model_wide_kernel(divide, a, b, packed, q):
+    """wide_kernel's reads on the CPU ('shared' and 'log-shared'): uint16
+    LOG at [0, q), the reduced EXP at q8, one conditional add of q - 1."""
+    u16 = packed.to(torch.int64) & 0xFFFF
+    q8 = _round8(q)
+    x, y = a.to(torch.int64), b.to(torch.int64)
+    s = u16[x] - u16[y] if divide else u16[x] + u16[y] - (q - 1)
+    s = s + torch.where(s < 0, q - 1, 0)
+    assert int(s.min()) >= 0 and int(s.max()) < q - 1
+    r = u16[q8 + s]
+    zero = (x == 0) if divide else (x == 0) | (y == 0)
+    return torch.where(zero, 0, r).to(a.dtype)
+
+
+def _model(divide, a, b, exp_t, log_t, q):
+    packed = pack_tables(exp_t, log_t, q, a.dtype)
+    if lookup_placement(q, a.dtype) == "bytes":
+        return model_bytes_kernel(divide, a, b, packed)
+    return model_wide_kernel(divide, a, b, packed, q)
+
+
+@pytest.mark.parametrize("q", [2**8, 3**5, 2**10, 2**16])
+def test_kernel_read_model_matches_plain(q):
+    """Every (a, b) pair of GF(2^8) and GF(3^5), 2^16 random pairs of
+    GF(2^10) and GF(2^16): the model of the kernels' reads equals the plain
+    versions."""
+    exp_t, log_t = _tables(q)
+    dtype = gt.GF(q)._meta.torch_dtype
+    if q <= 2**8:
+        a, b = (v.reshape(-1) for v in torch.meshgrid(torch.arange(q), torch.arange(q), indexing="ij"))
+    else:
+        rng = np.random.default_rng(q)
+        a, b = (torch.from_numpy(rng.integers(0, q, 2**16)) for _ in range(2))
+        a[:40], b[20:60] = 0, 0
+        b[100:140] = q - 1
+    a, b = a.to(dtype), b.to(dtype)
+    assert torch.equal(_model(False, a, b, exp_t, log_t, q), lookup_multiply_plain(a, b, exp_t, log_t, q))
+    assert torch.equal(_model(True, a, b, exp_t, log_t, q), lookup_divide_plain(a, b, exp_t, log_t, q))
+
+
+@pytest.mark.parametrize("q", [2**8, 3**5, 2**10, 2**16])
+def test_kernel_read_model_matches_jax(q):
+    """A seeded sample through the model and through the JAX package: the
+    Pallas kernels in interpret mode, or for GF(2^16), whose interpret-mode
+    gather takes minutes to compile, the JAX field's lookup-mode operators."""
+    Fj = gj.GF(q)
+    jops = jax_get_ops(Fj._meta, "jit-lookup")
+    exp_t, log_t = _tables(q)
+    rng = np.random.default_rng(q + 7)
+    a = rng.integers(0, q, 3000)
+    b = rng.integers(0, q, 3000)
+    a[:9], b[5:14] = 0, 0
+    bn = _nonzero(b)
+    dt_t = gt.GF(q)._meta.torch_dtype
+    at, bt, bnt = (torch.from_numpy(v).to(dt_t) for v in (a, b, bn))
+    if q <= 2**10:
+        dt_j = Fj._meta.internal_dtype
+        aj, bj, bnj = (jnp.asarray(v.astype(dt_j)) for v in (a, b, bn))
+        exp_p, log_p = jnp.asarray(_pad128(jops.EXP)), jnp.asarray(_pad128(jops.LOG))
+        want_mul = lookup_multiply_pallas(aj, bj, exp_p, log_p, q, True)
+        want_div = lookup_divide_pallas(aj, bnj, exp_p, log_p, q, True)
+    else:
+        Fl = gj.GF(q, compile="jit-lookup")
+        want_mul, want_div = Fl(a) * Fl(b), Fl(a) / Fl(bn)
+    for divide, y, want in ((False, bt, want_mul), (True, bnt, want_div)):
+        got = _model(divide, at, y, exp_t, log_t, q)
+        assert np.array_equal(got.to(torch.int64).numpy(), np.asarray(want).astype(np.int64))
+
+
+def test_lookup_ops_cache_packed_tables_per_device():
+    F = gt.GF(2**8, compile="jit-lookup")
+    tables = get_ops(F._meta, "jit-lookup")._tables
+    cpu = torch.device("cpu")
+    assert tables.packed(cpu) is tables.packed(cpu)
+    assert torch.equal(tables.packed(cpu), pack_tables(*tables.on(cpu), 256, torch.uint8))
+    with pytest.raises(ValueError):  # EXP must repeat its first q - 1 entries
+        _kernels._Tables(F._meta, np.arange(510), np.arange(256))
 
 
 # ----------------------------------------------------------------------
