@@ -34,8 +34,12 @@ Phases, each fatal on failure:
      element off alignment (funnel-shifted streams), K3 with a 0-D operand
      (stride 0), and torch.bitwise_xor on the same tensors as a yardstick;
      bounds count HBM bytes and the shared-memory gathers (wavefronts at one
-     a clock per SM); K5 and K6 on GF(2^8), GF(3^5) and GF(2^16) at 2^24
-     and GF(2^10) at a ragged 1,000,003; K9 (GF(2^31 - 1) multiply) and
+     a clock per SM); K5 and K6 (reciprocal, log) over every element of
+     GF(2^8) and GF(3^5) in uint8 and int64 storage, aligned and one
+     element in, then by placement (printed) at GF(2^8), GF(3^5), GF(2^10)
+     and GF(2^16), 2^24, GF(2^8) at 2^26, GF(2^14) and GF(2^20) at a ragged
+     1,000,003, with torch.take of a q-entry table as the yardstick on int64
+     storage; K9 (GF(2^31 - 1) multiply) and
      K10 (Goldilocks multiply, canonical and non-canonical limbs) at 2^24
      and a ragged 1,000,003 with their edge values. Prints CUDA-event times
      of kernel and plain version (elementwise kernels timed by CUDA graph
@@ -55,7 +59,8 @@ Phases, each fatal on failure:
      NumPy; K1, K2 and K8 must have been launched;
   5. main path 2, the same way: lookup mode ('jit-lookup') GF(2^8) at 2^24
      (x * y, x / y, np.reciprocal, log, x ** e for an exponent array),
-     GF(2^16) x * y at 2^24, and default-mode GF(3^5) at 2^24 (x * y, x + y,
+     GF(2^16) at 2^24 (x * y, np.reciprocal, log), and default-mode GF(3^5)
+     at 2^24 (x * y, x + y,
      x - y, x / y), each held on a 2^16 prefix against NumPy references
      written here; K3, K4, K5 and K6 must have been launched. The modes are
      restored after;
@@ -316,11 +321,16 @@ def horner(coeffs_desc, xs, p):
 
 
 def np_exp_log(mul, alpha, q):
-    """EXP (length q-1) and LOG (length q) tables from a reference multiply."""
+    """EXP (length q-1) and LOG (length q) tables from a reference multiply,
+    by doubling: EXP[f + i] = EXP[i] * alpha^f for the f entries filled."""
     exp = np.empty(q - 1, dtype=np.int64)
     exp[0] = 1
-    for i in range(1, q - 1):
-        exp[i] = mul(exp[i - 1 : i], np.array([alpha]))[0]
+    filled, step = 1, np.array([alpha], dtype=np.int64)  # step = alpha^filled
+    while filled < q - 1:
+        take = min(filled, q - 1 - filled)
+        exp[filled : filled + take] = mul(exp[:take], np.repeat(step, take))
+        filled += take
+        step = mul(step, step)
     if len(np.unique(exp)) != q - 1:
         raise AssertionError(f"{alpha} does not generate GF({q})*")
     log = np.zeros(q, dtype=np.int64)
@@ -577,20 +587,20 @@ def main() -> int:
     del got, pow_cases, every, ex
     # K5, the table reciprocal, computes the same map on GF(2^8) (0 at 0 aside)
     inv_a = gf2m_power(a8, None, 8, f8)
-    inv_k5 = _lookup.lookup_reciprocal(a8, exp8, log8, 256)
+    inv_k5 = _lookup.lookup_reciprocal(a8, exp8, log8, 256, pk8)
     torch.cuda.synchronize()
     if not torch.equal(inv_a[a8 != 0], inv_k5[a8 != 0]):
         raise AssertionError("K8-A and K5 disagree on GF(2^8) reciprocals")
     del inv_a, inv_k5
     n8, n_fy = 2**24, forney.numel()
     recip_ms = graph_ms(lambda: gf2m_power(a8, None, 8, f8), 20)
-    k5_ms = graph_ms(lambda: _lookup.lookup_reciprocal(a8, exp8, log8, 256), 20)
+    k5_ms = graph_ms(lambda: _lookup.lookup_reciprocal(a8, exp8, log8, 256, pk8), 20)
     recip_plain = cuda_ms(lambda: gf2m_power_plain(a8, None, 8, f8), 2)
     recip_ops = power_ops(8, f8, n8, False)
     pow_ms = graph_ms(lambda: gf2m_power(a8, e8, 8, f8, 40), 10)
     pow_plain = cuda_ms(lambda: gf2m_power_plain(a8, e8, 8, f8, 40), 1)
     fy_ms = graph_ms(lambda: gf2m_power(forney, None, 8, f8), 20)
-    fy_k5 = graph_ms(lambda: _lookup.lookup_reciprocal(forney, exp8, log8, 256), 20)
+    fy_k5 = graph_ms(lambda: _lookup.lookup_reciprocal(forney, exp8, log8, 256, pk8), 20)
     record("gf2m_power", 0, recip_ms, recip_plain, bound(2 * n8, int_ops=recip_ops))
     print(
         f"[kernel] K8-A gf2m_power m=8 reciprocal n=2^24: kernel {recip_ms:.4f} ms by graph replay | K5 "
@@ -884,50 +894,96 @@ def main() -> int:
         del a, b, exp_t, log_t, packed
         torch.cuda.empty_cache()
 
-    # K5 and K6 (their first design); the first field's times go into the report
+    # K5 and K6, by placement. First every element of GF(2^8) and GF(3^5), in
+    # uint8 storage ('bytes') and in int64 ('shared'), 0 included
+    k5_k6 = (
+        ("lookup_reciprocal", "K5", lambda a, e, l, q, pk: _lookup.lookup_reciprocal(a, e, l, q, pk),
+         lambda a, e, l, q: _lookup.lookup_reciprocal_plain(a, e, l, q)),
+        ("lookup_log", "K6", lambda a, e, l, q, pk: _lookup.lookup_log(a, l, q, pk),
+         lambda a, e, l, q: _lookup.lookup_log_plain(a, l, q)),
+    )
+    for q in (2**8, 3**5):
+        F = gt.GF(q)
+        ops = get_ops(F._meta, "jit-lookup")
+        exp_t, log_t = (torch.from_numpy(t).to(dev) for t in (ops.EXP, ops.LOG))
+        for dt in (torch.uint8, torch.int64):
+            packed = _lookup.pack_tables(exp_t, log_t, q, dt)
+            place = _lookup.lookup_placement(q, dt)
+            every = torch.arange(q, device=dev).to(dt)
+            for name, tag, kernel, plain in k5_k6:
+                for label, x in (("every element", every), ("every element, a view one element in", every[1:])):
+                    got = kernel(x, exp_t, log_t, q, packed)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, plain(x, exp_t, log_t, q))
+                    record(name, err)
+                    print(f"[kernel] {tag} {name} GF({q}) {label} ({dt}, placement {place}): max_abs_err {err}",
+                          flush=True)
+                    if err:
+                        raise AssertionError(f"{tag} disagrees with its plain version on GF({q}), {label}")
+
+    # then each placement at 2^24 and GF(2^8) at 2^26 (timed), ragged orders
+    # and sizes (checked); on int64 storage torch.take of a q-entry table is
+    # the yardstick (torch has no gather by a uint8 index in one call). The
+    # GF(2^16) times go into the report.
     lookup_cases = [  # (order, n, reps); None reps: check only
         (2**8, 2**24, 50),
         (3**5, 2**24, 50),
+        (2**10, 2**24, 20),
         (2**16, 2**24, 20),
-        (2**10, 1_000_003, None),
+        (2**8, 2**26, 20),  # 64 MB in, 64 MB (K5) or 512 MB (K6) out: no replay finds them in the 50 MB L2
+        (2**14, 1_000_003, None),
+        (2**20, 1_000_003, None),
     ]
     for q, n, reps in lookup_cases:
         F = gt.GF(q)
         ops = get_ops(F._meta, "jit-lookup")
         exp_t, log_t = (torch.from_numpy(t).to(dev) for t in (ops.EXP, ops.LOG))
         dt = F._meta.torch_dtype
+        packed = _lookup.pack_tables(exp_t, log_t, q, dt)
+        place = _lookup.lookup_placement(q, dt)
         a = torch.randint(0, q, (n,), generator=gen, device=dev).to(dt)
         a[::1009] = 0
         width = a.element_size()
-        tables = 4 * (2 * (q - 1) + q)
-        place = "shared" if q <= _lookup.SMEM_MAX_ORDER else "global"
-        kernels = [
-            ("lookup_reciprocal", "K5", lambda: _lookup.lookup_reciprocal(a, exp_t, log_t, q),
-             lambda: _lookup.lookup_reciprocal_plain(a, exp_t, log_t, q), 2 * width * n + tables),
-            ("lookup_log", "K6", lambda: _lookup.lookup_log(a, log_t, q),
-             lambda: _lookup.lookup_log_plain(a, log_t, q), (width + 8) * n + 4 * q),
-        ]
-        for name, tag, kernel, plain, nbytes in kernels:
-            got = kernel()
+        # the table bytes a kernel reads: q rows of 4 bytes, a uint16 segment, or the int32 tables
+        table = {"bytes": 4 * q, "global": 4 * q}.get(place, 2 * (-(-q // 8) * 8))
+        yard = {  # one PyTorch call computing the same map on int64 storage
+            "lookup_reciprocal": _lookup.lookup_reciprocal_plain(torch.arange(q, device=dev), exp_t, log_t, q),
+            "lookup_log": log_t.to(torch.int64),
+        }
+        for name, tag, kernel, plain in k5_k6:
+            got = kernel(a, exp_t, log_t, q, packed)
             torch.cuda.synchronize()
-            err = max_abs_err(got, plain())
+            err = max_abs_err(got, plain(a, exp_t, log_t, q))
             del got
             timing = ""
             if reps:
-                ms = graph_ms(kernel, reps)
-                pms = cuda_ms(plain, max(2, reps // 10))
-                bnd = bound(nbytes)
-                if q == lookup_cases[0][0]:
-                    record(name, err, ms, pms, bnd)
+                ms = graph_ms(lambda: kernel(a, exp_t, log_t, q, packed), reps)
+                pms = cuda_ms(lambda: plain(a, exp_t, log_t, q), max(2, reps // 10))
+                out_width = width if tag == "K5" else 8
+                extra = 4 * 2 * (q - 1) if (tag, place) == ("K5", "global") else 0
+                bnd = bound((width + out_width) * n + table + extra)
+                lib = None
+                if dt == torch.int64:
+                    lib = graph_ms(lambda: torch.take(yard[name], a), reps)
+                    if not torch.equal(torch.take(yard[name], a).to(dt if tag == "K5" else torch.int64),
+                                       plain(a, exp_t, log_t, q)):
+                        raise AssertionError(f"the torch.take yardstick of {tag} is not its function")
+                if (q, n) == (2**16, 2**24):
+                    record(name, err, ms, pms, bnd, lib)
                 else:
                     record(name, err)
-                timing = f" | kernel {ms:.4f} ms | plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})"
+                timing = (
+                    f" | kernel {ms:.4f} ms | plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                    f"{bnd[0] / ms:.1%} of it"
+                    + ("" if lib is None else f" | yardstick torch.take {lib:.4f} ms, {bnd[0] / lib:.1%} of bound")
+                )
             else:
                 record(name, err)
-            print(f"[kernel] {tag} {name} GF({q}) n={n} ({dt}, {place} tables): max_abs_err {err}{timing}", flush=True)
+            print(f"[kernel] {tag} {name} GF({q}) n={n} ({dt}, placement {place}): max_abs_err {err}{timing}",
+                  flush=True)
             if err:
-                raise AssertionError(f"{tag} disagrees with its plain version on GF({q})")
-        del a, exp_t, log_t
+                raise AssertionError(f"{tag} disagrees with its plain version on GF({q}), n = {n}")
+        del a, exp_t, log_t, packed, yard
         torch.cuda.empty_cache()
 
     # K9 and K10: 2^24 (timed) and a ragged 1,000,003, edge values first
@@ -1077,6 +1133,21 @@ def main() -> int:
         ms = cuda_ms(lambda: x16 * y16, 5)
         print(f"[main] GF(2^16) jit-lookup x * y, 2^24 elements: {ms:.4f} ms", flush=True)
         del x16, y16, z16
+        exp16, log16 = np_exp_log(lambda u, v: np_gf2m_multiply(u, v, 16, f16), int(GF16.primitive_element), 2**16)
+        y16 = GF16.Random(2**24, seed=10, low=1, device=dev)
+        ys = np.asarray(y16[:n_chk]).astype(np.int64)
+        results = {"np.reciprocal(y16)": lambda: np.reciprocal(y16), "y16.log()": lambda: y16.log()}
+        refs = {"np.reciprocal(y16)": exp16[(-log16[ys]) % (2**16 - 1)], "y16.log()": log16[ys]}
+        if not (np_gf2m_multiply(ys, refs["np.reciprocal(y16)"], 16, f16) == 1).all():
+            raise AssertionError("the NumPy GF(2^16) reciprocals are not inverses")
+        for label, fn in results.items():
+            out = fn()
+            got = out if isinstance(out, np.ndarray) else np.asarray(out)
+            if got.shape != (2**24,) or not np.array_equal(got[:n_chk].astype(np.int64), refs[label]):
+                raise AssertionError(f"lookup-mode GF(2^16) {label} disagrees with the NumPy reference")
+            ms = cuda_ms(fn, 5)
+            print(f"[main] GF(2^16) jit-lookup {label}, 2^24 elements: {ms:.4f} ms", flush=True)
+        del y16, out, got
 
         mul35 = lambda u, v: np_gfpm_multiply(u, v, 3, f35)  # noqa: E731
         exp35, log35 = np_exp_log(mul35, int(GF35.primitive_element), 243)

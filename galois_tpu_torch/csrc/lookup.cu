@@ -7,7 +7,8 @@
 //   K5 lookup_reciprocal_pallas (:358)  out = EXP[(q-1) - LOG[a]]
 //   K6 lookup_log_pallas        (:372)  out = LOG[a], written as int64
 // EXP is int32 of length 2(q-1), doubled so that every index above stays
-// below 2(q-1) without a modulo; LOG is int32 of length q, LOG[0] = 0. The
+// below 2(q-1) without a modulo; LOG is int32 of length q, LOG[0] = 0; INV,
+// built from them by pack_tables, is INV[r] = EXP[(q-1) - LOG[r]]. The
 // callers check b != 0 (K4) and a != 0 (K5); the kernels index the tables
 // the same way for every input in [0, q), as the plain versions in
 // ops/_lookup.py do. Elements are storage values in [0, q): uint8 for
@@ -16,15 +17,16 @@
 // What bounds it on the H100: HBM bytes, as long as the table reads stay
 // cheaper. Each element moves its operands in and its result out: 3 B for a
 // uint8 multiply or divide (50 MB at 2^24, 15 us at 3.35 TB/s), 24 B for an
-// int64 one (403 MB, 120 us). Against that stand three table reads a
-// element of K3 and K4 (conflict-free in shared memory: 1.6 M wavefronts at
-// 2^24, 6 us over 132 SMs); where they land decides the kernel.
+// int64 one (403 MB, 120 us), 2 B and 16 B for a reciprocal, 9 B and 16 B
+// for a log. Against that stand three table reads a element of K3 and K4
+// (conflict-free in shared memory: 1.6 M wavefronts at 2^24, 6 us over 132
+// SMs) and one of K5 and K6; where they land decides the kernel.
 //
-// K3 and K4 take one of four placements, chosen by the wrapper
+// The kernels take one of four placements, chosen by the wrapper
 // (ops/_lookup.py, lookup_placement) and built there once per device
 // (pack_tables):
 // - bytes (uint8 storage, q <= 2^8): one table of 2(q-1) rows of four
-//   bytes, LOG[r], EXP[r], (q-1) - LOG[r] and 0, replicated in shared memory
+//   bytes, LOG[r], EXP[r], (q-1) - LOG[r] and INV[r], replicated in shared memory
 //   once per bank: row r of lane l is the word r * 32 + l, so the 32 lanes
 //   of a warp always read 32 different banks (conflict-free at any data; 64
 //   KB at q = 2^8). A table read is one byte load at col + 128 r + field,
@@ -61,10 +63,23 @@
 // EXP in the other's, read through distributed shared memory, took 0.322
 // against 0.160 ms.
 //
-// K5 and K6 keep their first design: each block copies LOG and EXP into
-// shared memory as uint16 for orders <= 2^14 (6q bytes, at most 96 KB) and
-// gathers from there; larger orders read the global int32 tables through
-// __ldg.
+// K5 and K6 read the same placements, one table read a element: the bytes
+// placement stages its first q rows (the only ones an element indexes, 32
+// KB at q = 2^8), K5 reading byte 3 (INV) and K6 byte 0 (LOG); shared and
+// log-shared stage only the uint16 segment the kernel reads, INV for K5 or
+// LOG for K6 (at most 128 KB at 2^16, one block of 1024 threads a SM), so
+// no subtract, doubled EXP or wrap is left; global gathers the int32 LOG,
+// and for K5 EXP at (q-1) - LOG, through __ldg. The element stream is the
+// same as K3's: 16 bytes of a a thread and step (16 uint8 or two int64
+// elements), funnel-shifted where a view is off alignment, and the results
+// go out in 16-byte evict-first stores (eight a step where K6 widens 16
+// uint8 elements to int64, transposed across the warp by shuffles so that
+// each store instruction is contiguous). Measured at 2^24 on an H100 80GB
+// HBM3 at 700 W (scripts/lookup_timing.py): K5 and K6 0.098 ms each on
+// GF(2^16) (bound 0.080 ms; the first design 0.267 and 0.121 ms, one
+// torch.take of a q-entry table 0.144 ms), K6 0.058 ms on GF(2^8) (bound
+// 0.045 ms; 0.060 ms), and K5 on GF(2^8) at 2^26 0.051 ms (bound 0.040 ms;
+// 0.078 ms).
 //
 // Every kernel is one grid-stride pass over at most as many blocks as the
 // SMs hold at once, so the table staging is paid once per resident block.
@@ -339,72 +354,168 @@ cudaError_t launch_binary(int place, const void* a, int a_one, const void* b, in
 // K5/K6
 // ----------------------------------------------------------------------
 
-constexpr int UNARY_THREADS = 256;
+// The chunks [0, nv) of one operand in a grid-stride pass, U chunks' loads
+// in flight per thread; f(v, x) writes what chunk v of the operand (x)
+// gives. A warp's lanes hold consecutive chunks, so the lanes that call f
+// for one u are the whole warp wherever the warp's 32 chunks lie below nv.
+template <int U, typename F>
+__device__ __forceinline__ void unary_pass(const Stream& A, long long nv, long long tid, long long nthreads, F f) {
+  for (long long v = tid; v < nv; v += U * nthreads) {
+    uint4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v + u * nthreads < nv) x[u] = A.chunk(v + u * nthreads);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v + u * nthreads < nv) f(v + u * nthreads, x[u]);
+  }
+}
 
-template <bool SMEM>
-__device__ __forceinline__ int tab(const uint16_t* s, const int32_t* __restrict__ g, int i) {
-  if constexpr (SMEM) {
-    return s[i];
+// Four elements of one 32-bit word, each one byte read from this lane's
+// column (col points at the field read).
+__device__ __forceinline__ uint32_t word_lookup(const uint8_t* col, uint32_t w) {
+  uint32_t r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r[k] = col[((w >> (8 * k)) & 0xFF) * ROW];
+  return prmt(prmt(r[0], r[1], 0x0040), prmt(r[2], r[3], 0x0040), 0x5410);
+}
+
+// bytes placement: rows_g is pack_tables' byte rows, of which the first q
+// are staged. K5 writes uint8 INV[a] (byte 3), K6 int64 LOG[a] (byte 0).
+// Four chunks in flight a thread: on an H100 K5 took 0.051-0.052 ms at
+// 2^26 so, 0.054 ms with two (a cap of 64 registers for four blocks a SM
+// gained nothing and spilled). The int64 kernels ran best with one.
+template <int OP>
+__global__ void __launch_bounds__(BYTE_THREADS)
+bytes_unary_kernel(const uint8_t* __restrict__ a, void* __restrict__ out, const uint32_t* __restrict__ rows_g,
+                   int q, long long n) {
+  extern __shared__ uint4 s_rows[];  // q rows x 32 lanes x 4 bytes
+  for (int i = threadIdx.x; i < q * 8; i += BYTE_THREADS) {
+    const uint32_t w = __ldg(rows_g + (i >> 3));
+    s_rows[i] = make_uint4(w, w, w, w);
+  }
+  __syncthreads();
+  const uint8_t* col = reinterpret_cast<const uint8_t*>(s_rows) + 4 * (threadIdx.x & 31) + (OP == OP_RECIP ? 3 : 0);
+  const long long tid = static_cast<long long>(blockIdx.x) * BYTE_THREADS + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * BYTE_THREADS;
+  const Stream A(a, false, make_uint4(0, 0, 0, 0));
+  const long long nv = n >> 4;
+  uint4* o = static_cast<uint4*>(out);
+  if constexpr (OP == OP_RECIP) {
+    unary_pass<4>(A, nv, tid, nthreads, [col, o](long long v, uint4 x) {
+      __stcs(o + v, make_uint4(word_lookup(col, x.x), word_lookup(col, x.y), word_lookup(col, x.z),
+                               word_lookup(col, x.w)));
+    });
+    for (long long i = (nv << 4) + tid; i < n; i += nthreads)  // the ragged tail
+      static_cast<uint8_t*>(out)[i] = col[a[i] * ROW];
   } else {
-    return __ldg(g + i);
+    // Sixteen LOG bytes a lane, then eight 16-byte int64 stores. A whole
+    // warp (32 chunks, 512 elements) stores them transposed: store j of lane
+    // l holds elements 2(32j + l) and 2(32j + l) + 1 of the warp's group,
+    // bytes 2(l % 8) and 2(l % 8) + 1 of lane 4j + l / 8's LOG bytes, so
+    // each store instruction writes 512 contiguous bytes (each lane storing
+    // its own chunk's eight, 128 bytes apart from the next lane's, took 0.23
+    // ms at 2^24 on an H100, four times as long). The last, partial warp of
+    // the pass stores each lane's own chunk.
+    const int lane = threadIdx.x & 31;
+    unary_pass<4>(A, nv, tid, nthreads, [col, o, nv, lane](long long v, uint4 x) {
+      const uint32_t r[4] = {word_lookup(col, x.x), word_lookup(col, x.y), word_lookup(col, x.z),
+                             word_lookup(col, x.w)};
+      const long long first = v - lane;  // the warp's first chunk
+      if (first + 32 <= nv) {  // the same for every lane of the warp
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int src = 4 * j + (lane >> 3), k = (lane & 7) >> 1;
+          const uint32_t w0 = __shfl_sync(0xFFFFFFFFu, r[0], src), w1 = __shfl_sync(0xFFFFFFFFu, r[1], src);
+          const uint32_t w2 = __shfl_sync(0xFFFFFFFFu, r[2], src), w3 = __shfl_sync(0xFFFFFFFFu, r[3], src);
+          const uint32_t h = (k == 0 ? w0 : k == 1 ? w1 : k == 2 ? w2 : w3) >> (16 * (lane & 1));
+          __stcs(o + 8 * first + 32 * j + lane, make_uint4(h & 0xFF, 0, (h >> 8) & 0xFF, 0));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // elements 2j and 2j + 1 of this lane's chunk
+          const uint32_t h = r[j >> 1] >> (16 * (j & 1));
+          __stcs(o + 8 * v + j, make_uint4(h & 0xFF, 0, (h >> 8) & 0xFF, 0));
+        }
+      }
+    });
+    for (long long i = (nv << 4) + tid; i < n; i += nthreads)
+      static_cast<int64_t*>(out)[i] = col[a[i] * ROW];
   }
 }
 
-// Shared memory (SMEM): LOG[0, q) then, except for K6, EXP[0, 2(q-1)).
-template <int OP, typename T, typename Out, bool SMEM>
-__global__ void __launch_bounds__(UNARY_THREADS)
-unary_kernel(const T* __restrict__ a, Out* __restrict__ out, const int32_t* __restrict__ exp_g,
-             const int32_t* __restrict__ log_g, int q, long long n) {
-  extern __shared__ uint16_t s_u16[];
-  if constexpr (SMEM) {
-    for (int i = threadIdx.x; i < q; i += UNARY_THREADS) s_u16[i] = static_cast<uint16_t>(log_g[i]);
-    if constexpr (OP != OP_LOG) {
-      for (int i = threadIdx.x; i < 2 * (q - 1); i += UNARY_THREADS)
-        s_u16[q + i] = static_cast<uint16_t>(exp_g[i]);
-    }
-    __syncthreads();
-  }
-  const uint16_t* s_log = s_u16;
-  const uint16_t* s_exp = s_u16 + q;
-  const long long stride = static_cast<long long>(gridDim.x) * UNARY_THREADS;
-  for (long long i = static_cast<long long>(blockIdx.x) * UNARY_THREADS + threadIdx.x; i < n; i += stride) {
-    const int x = static_cast<int>(a[i]);
-    if constexpr (OP == OP_RECIP) {
-      out[i] = static_cast<Out>(tab<SMEM>(s_exp, exp_g, (q - 1) - tab<SMEM>(s_log, log_g, x)));
+// int64 placements: seg is the staged uint16 segment of pack_tables'
+// table (INV for K5, LOG for K6; `staged` entries, 0 for global), or for
+// global the int32 tables. Writes int64 INV[a] (K5) or LOG[a] (K6).
+template <int OP, int PLACE>
+__global__ void __launch_bounds__(PLACE == PLACE_LOG_SHARED ? 1024 : 512, PLACE == PLACE_LOG_SHARED ? 1 : 2)
+wide_unary_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ out, const uint16_t* __restrict__ seg,
+                  int staged, const int32_t* __restrict__ exp32, const int32_t* __restrict__ log32, int q,
+                  long long n) {
+  constexpr int THREADS = wide_threads<PLACE>();
+  extern __shared__ uint4 s_tab[];
+  for (int i = threadIdx.x; i < staged / 8; i += THREADS) s_tab[i] = __ldg(reinterpret_cast<const uint4*>(seg) + i);
+  __syncthreads();
+  const uint16_t* s16 = reinterpret_cast<const uint16_t*>(s_tab);
+  const int q1 = q - 1;
+  // one element: x is the low word of an int64 storage value in [0, q)
+  auto f = [s16, exp32, log32, q1](uint32_t x) -> uint32_t {
+    if constexpr (PLACE == PLACE_GLOBAL) {
+      const int l = __ldg(log32 + x);
+      return OP == OP_RECIP ? __ldg(exp32 + (q1 - l)) : l;
     } else {
-      out[i] = static_cast<Out>(tab<SMEM>(s_log, log_g, x));
+      return s16[x];
     }
-  }
+  };
+  const long long tid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
+  const Stream A(a, false, make_uint4(0, 0, 0, 0));
+  const long long nv = n >> 1;
+  uint4* o = reinterpret_cast<uint4*>(out);
+  unary_pass<1>(A, nv, tid, nthreads, [f, o](long long v, uint4 x) { __stcs(o + v, make_uint4(f(x.x), 0, f(x.z), 0)); });
+  for (long long i = (nv << 1) + tid; i < n; i += nthreads)  // the ragged tail
+    out[i] = f(static_cast<uint32_t>(a[i]));
 }
 
-template <int OP, typename T, typename Out, bool SMEM>
-cudaError_t launch_unary(const void* a, void* out, const int32_t* exp_t, const int32_t* log_t, int q, long long n,
-                         cudaStream_t stream) {
-  auto kernel = unary_kernel<OP, T, Out, SMEM>;
-  const int smem = SMEM ? static_cast<int>(sizeof(uint16_t)) * (OP == OP_LOG ? q : q + 2 * (q - 1)) : 0;
+template <int OP>
+cudaError_t launch_unary(int place, const void* a, void* out, const void* packed, const int32_t* exp_t,
+                         const int32_t* log_t, int q, long long n, cudaStream_t stream) {
   unsigned blocks = 0;
-  cudaError_t err = persistent_grid(kernel, UNARY_THREADS, smem, n, &blocks);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, UNARY_THREADS, smem, stream>>>(static_cast<const T*>(a), static_cast<Out*>(out), exp_t, log_t,
-                                                  q, n);
-  return cudaGetLastError();
-}
-
-template <int OP, typename T, typename Out>
-cudaError_t launch_unary_placed(bool smem, const void* a, void* out, const int32_t* exp_t, const int32_t* log_t,
-                                int q, long long n, cudaStream_t stream) {
-  if (smem) return launch_unary<OP, T, Out, true>(a, out, exp_t, log_t, q, n, stream);
-  return launch_unary<OP, T, Out, false>(a, out, exp_t, log_t, q, n, stream);
-}
-
-template <typename T>
-cudaError_t launch_unary_op(int op, bool smem, const void* a, void* out, const int32_t* exp_t,
-                            const int32_t* log_t, int q, long long n, cudaStream_t stream) {
-  switch (op) {
-    case OP_RECIP: return launch_unary_placed<OP_RECIP, T, T>(smem, a, out, exp_t, log_t, q, n, stream);
-    case OP_LOG: return launch_unary_placed<OP_LOG, T, int64_t>(smem, a, out, exp_t, log_t, q, n, stream);
+  cudaError_t err;
+  if (place == PLACE_BYTES) {
+    const int smem = q * static_cast<int>(ROW);
+    auto kernel = bytes_unary_kernel<OP>;
+    if ((err = persistent_grid(kernel, BYTE_THREADS, smem, n / 16 + 1, &blocks)) != cudaSuccess) return err;
+    kernel<<<blocks, BYTE_THREADS, smem, stream>>>(static_cast<const uint8_t*>(a), out,
+                                                    static_cast<const uint32_t*>(packed), q, n);
+    return cudaGetLastError();
+  }
+  const int q8 = round8(q), e8 = round8(q - 1);
+  const int64_t* a64 = static_cast<const int64_t*>(a);
+  int64_t* o64 = static_cast<int64_t*>(out);
+  // INV at q8 + e8 (K5) or LOG at 0 (K6) of the uint16 placements' table
+  const uint16_t* seg = packed ? static_cast<const uint16_t*>(packed) + (OP == OP_RECIP ? q8 + e8 : 0) : nullptr;
+#define LAUNCH_WIDE_UNARY(PLACE, STAGED)                                                                 \
+  do {                                                                                                   \
+    auto kernel = wide_unary_kernel<OP, PLACE>;                                                          \
+    const int staged = (STAGED), smem = 2 * staged, threads = wide_threads<PLACE>();                     \
+    if ((err = persistent_grid(kernel, threads, smem, n / 2 + 1, &blocks)) != cudaSuccess) return err;  \
+    kernel<<<blocks, threads, smem, stream>>>(a64, o64, seg, staged, exp_t, log_t, q, n);                \
+    return cudaGetLastError();                                                                           \
+  } while (0)
+  switch (place) {
+    case PLACE_SHARED: LAUNCH_WIDE_UNARY(PLACE_SHARED, q8);
+    case PLACE_LOG_SHARED: LAUNCH_WIDE_UNARY(PLACE_LOG_SHARED, q8);
+    case PLACE_GLOBAL: LAUNCH_WIDE_UNARY(PLACE_GLOBAL, 0);
     default: return cudaErrorInvalidValue;
   }
+#undef LAUNCH_WIDE_UNARY
+}
+
+bool placed_ok(int place, int q, const void* out, const void* packed) {
+  const int max_q[] = {1 << 8, 1 << 14, 1 << 16, 1 << 20};
+  return place >= 0 && place <= PLACE_GLOBAL && q >= 3 && q <= max_q[place] && aligned16(out) &&
+         (place == PLACE_GLOBAL || aligned16(packed));
 }
 
 }  // namespace
@@ -421,10 +532,7 @@ int lookup_binary_launch(int op, int place, const void* a, int a_one, const void
                          const void* packed, const int32_t* exp_t, const int32_t* log_t, int q, long long n,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int max_q[] = {1 << 8, 1 << 14, 1 << 16, 1 << 20};
-  if (place < 0 || place > PLACE_GLOBAL || q < 3 || q > max_q[place] || !aligned16(out) ||
-      (place != PLACE_GLOBAL && !aligned16(packed)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!placed_ok(place, q, out, packed)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (op) {
     case OP_MUL: err = launch_binary<OP_MUL>(place, a, a_one, b, b_one, out, packed, exp_t, log_t, q, n, s); break;
@@ -434,20 +542,19 @@ int lookup_binary_launch(int op, int place, const void* a, int a_one, const void
   return static_cast<int>(err);
 }
 
-// K5 (op 2) and K6 (op 3). elem_bytes: 1 for uint8 storage, 8 for int64.
-// smem: nonzero to stage the tables in shared memory (q <= 2^16).
-int lookup_unary_launch(int op, int elem_bytes, int smem, const void* a, void* out, const int32_t* exp_t,
+// K5 (op 2) and K6 (op 3), placed as K3 and K4: a is uint8 for the bytes
+// placement and int64 otherwise, a view at any element offset; out is uint8
+// or int64 for K5, int64 for K6, 16-byte aligned; packed and exp_t/log_t as
+// for lookup_binary_launch (K6 reads no EXP: exp_t may be null).
+int lookup_unary_launch(int op, int place, const void* a, void* out, const void* packed, const int32_t* exp_t,
                         const int32_t* log_t, int q, long long n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!placed_ok(place, q, out, packed)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (smem && q > (1 << 16)) {
-    err = cudaErrorInvalidValue;  // uint16 shared entries hold values below 2^16
-  } else if (elem_bytes == 1) {
-    err = launch_unary_op<uint8_t>(op, smem != 0, a, out, exp_t, log_t, q, n, s);
-  } else if (elem_bytes == 8) {
-    err = launch_unary_op<int64_t>(op, smem != 0, a, out, exp_t, log_t, q, n, s);
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (op) {
+    case OP_RECIP: err = launch_unary<OP_RECIP>(place, a, out, packed, exp_t, log_t, q, n, s); break;
+    case OP_LOG: err = launch_unary<OP_LOG>(place, a, out, packed, exp_t, log_t, q, n, s); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

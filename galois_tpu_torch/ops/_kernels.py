@@ -253,7 +253,7 @@ class BinaryExtOps(FieldOps):
 class _Tables:
     """A field's EXP (length 2(q-1)) and LOG (length q) as int32 NumPy
     arrays, and their copies on each device they are used on, with the
-    packed table K3 and K4 read there (``_lookup.pack_tables``)."""
+    packed table K3-K6 read there (``_lookup.pack_tables``)."""
 
     def __init__(self, meta: FieldMeta, exp, log):
         q = meta.order
@@ -273,7 +273,7 @@ class _Tables:
         return self._device(device)[:2]
 
     def packed(self, device: torch.device):
-        """K3's and K4's table for this field's storage on ``device``."""
+        """K3-K6's table for this field's storage on ``device``."""
         return self._device(device)[2]
 
     def _device(self, device):
@@ -412,12 +412,12 @@ class LookupOps:
 
     def reciprocal(self, a):
         exp_t, log_t = self._tables.on(a.device)
-        return lookup_reciprocal(a, exp_t, log_t, self.meta.order)
+        return lookup_reciprocal(a, exp_t, log_t, self.meta.order, self._tables.packed(a.device))
 
     def log_alpha(self, a):
         """Discrete log base the field's primitive element (int64)."""
         _, log_t = self._tables.on(a.device)
-        return lookup_log(a, log_t, self.meta.order)
+        return lookup_log(a, log_t, self.meta.order, self._tables.packed(a.device))
 
     def power(self, a, e, nbits: int = None):
         """a**e for an int64 exponent tensor: alpha^(LOG[a] * e mod (q-1)),

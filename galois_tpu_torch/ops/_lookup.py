@@ -9,7 +9,7 @@ bounds them on the H100 and how their design differs from the TPU's.
 
 Tables are the field's EXP (int32, length 2(q-1)) and LOG (int32, length q)
 on the data's device; elements are storage tensors (uint8 for q <= 2^8,
-else int64) holding values in [0, q). K3 and K4 read the tables in the form
+else int64) holding values in [0, q). K3-K6 read the tables in the form
 that ``lookup_placement`` picks for ``(q, dtype)`` and ``pack_tables``
 builds (``ops/_kernels.py::_Tables`` keeps one per device). Each wrapper
 serves CPU tensors with its plain version and launches its kernel for CUDA
@@ -39,22 +39,23 @@ __all__ = [
 
 _MUL, _DIV, _RECIP, _LOG = 0, 1, 2, 3  # op codes of the launchers
 
-# K5 and K6 stage LOG and EXP in shared memory as uint16 up to this order
-# (6q bytes, 96 KB at 2^14); larger ones gather from global memory, out of
-# L2. K3 and K4 keep both tables in shared memory up to it too ("shared").
+# The largest order of the 'shared' placement, where K3 and K4 keep LOG and
+# the reduced EXP in shared memory as uint16 (64 KB at 2^14).
 SMEM_MAX_ORDER = 2**14
 
-# K3/K4 placements, in the order of lookup_binary_launch's codes.
+# Table placements, in the order of the launchers' codes.
 PLACEMENTS = ("bytes", "shared", "log-shared", "global")
 
 
 def lookup_placement(q: int, dtype: torch.dtype) -> str:
-    """Where K3 and K4 read the tables of GF(q) for storage ``dtype``:
-    'bytes' (uint8: the byte rows of ``pack_tables`` in shared memory, one
-    copy per bank), 'shared' (int64, q <= 2^14: uint16 LOG and reduced EXP
-    in shared memory), 'log-shared' (int64, q <= 2^16: uint16 LOG in shared
-    memory, the reduced EXP gathered from global memory) or 'global' (int64,
-    q <= 2^20: the int32 tables in global memory)."""
+    """Where K3-K6 read the tables of GF(q) for storage ``dtype``: 'bytes'
+    (uint8: the byte rows of ``pack_tables`` in shared memory, one copy per
+    bank), 'shared' (int64, q <= 2^14: K3/K4 keep uint16 LOG and reduced
+    EXP in shared memory), 'log-shared' (int64, q <= 2^16: K3/K4 keep uint16
+    LOG in shared memory and gather the reduced EXP from global memory) or
+    'global' (int64, q <= 2^20: the int32 tables in global memory). On both
+    uint16 placements K5 and K6 stage the one segment they read, INV or
+    LOG."""
     if dtype == torch.uint8 and 2 < q <= 2**8:
         return "bytes"
     if dtype == torch.int64 and 2 < q <= 2**20:
@@ -66,32 +67,45 @@ def _round8(x: int) -> int:
     return -(-x // 8) * 8
 
 
+def packed_length(q: int, place: str) -> int:
+    """Entries of ``pack_tables``' table for a placement other than
+    'global': 2(q-1) int32 rows for 'bytes', q8 + e8 + q8 int16 entries
+    (LOG, reduced EXP, INV) for the uint16 placements."""
+    return 2 * (q - 1) if place == "bytes" else 2 * _round8(q) + _round8(q - 1)
+
+
 def pack_tables(exp_t: torch.Tensor, log_t: torch.Tensor, q: int, dtype: torch.dtype):
-    """The table K3 and K4 read for ``lookup_placement(q, dtype)``, built on
-    the tables' device from the int32 EXP (doubled, so EXP[i + q - 1] =
-    EXP[i]) and LOG:
+    """The table K3-K6 read for ``lookup_placement(q, dtype)``, built on the
+    tables' device from the int32 EXP (doubled, so EXP[i + q - 1] = EXP[i])
+    and LOG, so that the tables a field holds decide every entry. INV[r] is
+    EXP[(q-1) - LOG[r]] for every r < q, the reciprocal for r > 0 and
+    EXP[q-1] = 1 for r = 0, as K5's plain version gives.
 
     - 'bytes': int32 words of 2(q-1) rows, byte 0 LOG[r] (r < q), byte 1
-      EXP[r], byte 2 (q-1) - LOG[r] (r < q), byte 3 zero;
-    - 'shared' and 'log-shared': int16 holding uint16 bits, LOG at [0, q)
-      and the reduced EXP (its first q - 1 entries) at [q8, q8 + q - 1),
-      q8 and the length rounded up to 8 entries (16 bytes);
-    - 'global': None (the kernel reads exp_t and log_t)."""
+      EXP[r], byte 2 (q-1) - LOG[r] (r < q), byte 3 INV[r] (r < q);
+    - 'shared' and 'log-shared': int16 holding uint16 bits, LOG at [0, q),
+      the reduced EXP (its first q - 1 entries) at [q8, q8 + q - 1) and INV
+      at [q8 + e8, q8 + e8 + q), q8 and e8 being q and q - 1 rounded up to
+      8 entries (16 bytes), and so the length (``packed_length``);
+    - 'global': None (the kernels read exp_t and log_t)."""
     place = lookup_placement(q, dtype)
     if place == "global":
         return None
     log_t, exp_t = log_t.to(torch.int32), exp_t.to(torch.int32)
+    inv = exp_t[((q - 1) - log_t).long()]
     if place == "bytes":
         rows = 2 * (q - 1)
         log_r = torch.zeros(rows, dtype=torch.int32, device=log_t.device)
-        nlog_r = torch.zeros_like(log_r)
+        nlog_r, inv_r = torch.zeros_like(log_r), torch.zeros_like(log_r)
         log_r[:q] = log_t
         nlog_r[:q] = (q - 1) - log_t
-        return log_r | (exp_t << 8) | (nlog_r << 16)
-    q8 = _round8(q)
-    packed = torch.zeros(q8 + _round8(q - 1), dtype=torch.int32, device=log_t.device)
+        inv_r[:q] = inv
+        return log_r | (exp_t << 8) | (nlog_r << 16) | (inv_r << 24)
+    q8, e8 = _round8(q), _round8(q - 1)
+    packed = torch.zeros(packed_length(q, place), dtype=torch.int32, device=log_t.device)
     packed[:q] = log_t
     packed[q8 : q8 + q - 1] = exp_t[: q - 1]
+    packed[q8 + e8 : q8 + e8 + q] = inv
     return torch.where(packed >= 2**15, packed - 2**16, packed).to(torch.int16)
 
 
@@ -135,7 +149,7 @@ def _lib():
     lib = load("lookup")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lookup_binary_launch.argtypes = [i32, i32, vp, i32, vp, i32, vp, vp, vp, vp, i32, i64, vp]
-    lib.lookup_unary_launch.argtypes = [i32, i32, i32, vp, vp, vp, vp, i32, i64, vp]
+    lib.lookup_unary_launch.argtypes = [i32, i32, vp, vp, vp, vp, vp, i32, i64, vp]
     lib.lookup_binary_launch.restype = lib.lookup_unary_launch.restype = i32
     return lib
 
@@ -157,6 +171,24 @@ def _stream(a) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream)
 
 
+def _placed(fn: str, q: int, a, exp_t, log_t, packed):
+    """(placement code, packed table) for the operand ``a``: ``packed`` is
+    checked to be ``pack_tables``' for this field, storage and device, or
+    built here when it is None. K6 has no EXP to hand (``exp_t`` None) and
+    reads only LOG, so its table is built with zeros for EXP."""
+    place = lookup_placement(q, a.dtype)
+    if place == "global":
+        return PLACEMENTS.index(place), None
+    if packed is None:
+        if exp_t is None:
+            exp_t = torch.zeros(2 * (q - 1), dtype=torch.int32, device=log_t.device)
+        packed = pack_tables(exp_t, log_t, q, a.dtype)
+    want = (torch.int32 if place == "bytes" else torch.int16, packed_length(q, place))
+    if (packed.dtype, packed.numel()) != want or packed.device != a.device or packed.data_ptr() % 16:
+        raise ValueError(f"{fn}: the packed table is not pack_tables' for GF({q}) {a.dtype} on {a.device}.")
+    return PLACEMENTS.index(place), packed
+
+
 def _launch_binary(fn: str, op: int, q: int, a, b, exp_t, log_t, packed) -> torch.Tensor:
     """K3 or K4 on CUDA operands: check them, allocate the output and
     launch one kernel (none for an empty output). An operand of one element
@@ -166,19 +198,13 @@ def _launch_binary(fn: str, op: int, q: int, a, b, exp_t, log_t, packed) -> torc
     out = torch.empty(shape, dtype=a.dtype, device=a.device)
     if not out.numel():
         return out
-    place = lookup_placement(q, a.dtype)
-    if packed is None and place != "global":
-        packed = pack_tables(exp_t, log_t, q, a.dtype)
-    if packed is not None:
-        want = (torch.int32, 2 * (q - 1)) if place == "bytes" else (torch.int16, _round8(q) + _round8(q - 1))
-        if (packed.dtype, packed.numel()) != want or packed.device != a.device or packed.data_ptr() % 16:
-            raise ValueError(f"{fn}: the packed table is not pack_tables' for GF({q}) {a.dtype} on {a.device}.")
+    place, packed = _placed(fn, q, a, exp_t, log_t, packed)
     ones = [x.numel() == 1 for x in (a, b)]
     a, b = (x if one else x.expand(shape).contiguous() for x, one in zip((a, b), ones))
     exp_t, log_t = exp_t.contiguous(), log_t.contiguous()
     with torch.cuda.device(a.device):
         rc = _lib().lookup_binary_launch(
-            op, PLACEMENTS.index(place), a.data_ptr(), ones[0], b.data_ptr(), ones[1], out.data_ptr(),
+            op, place, a.data_ptr(), ones[0], b.data_ptr(), ones[1], out.data_ptr(),
             None if packed is None else packed.data_ptr(), exp_t.data_ptr(), log_t.data_ptr(), q, out.numel(),
             _stream(a),
         )
@@ -187,19 +213,23 @@ def _launch_binary(fn: str, op: int, q: int, a, b, exp_t, log_t, packed) -> torc
     return out
 
 
-def _launch_unary(fn: str, op: int, q: int, a, exp_t, log_t, out_dtype) -> torch.Tensor:
-    """K5 or K6 on a CUDA operand (``exp_t`` is None for K6)."""
+def _launch_unary(fn: str, op: int, q: int, a, exp_t, log_t, packed, out_dtype) -> torch.Tensor:
+    """K5 or K6 on a CUDA operand (``exp_t`` is None for K6), read by the
+    same placement as K3 and K4; a view off 16-byte alignment is streamed
+    as it lies."""
     _check(fn, q, (a,), exp_t, log_t)
-    a, exp_t, log_t = (None if t is None else t.contiguous() for t in (a, exp_t, log_t))
     out = torch.empty(a.shape, dtype=out_dtype, device=a.device)
-    if a.numel():
-        with torch.cuda.device(a.device):
-            rc = _lib().lookup_unary_launch(
-                op, a.element_size(), int(q <= SMEM_MAX_ORDER), a.data_ptr(), out.data_ptr(),
-                None if exp_t is None else exp_t.data_ptr(), log_t.data_ptr(), q, a.numel(), _stream(a),
-            )
-        if rc != 0:
-            raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}.")
+    if not out.numel():
+        return out
+    place, packed = _placed(fn, q, a, exp_t, log_t, packed)
+    a, exp_t, log_t = (None if t is None else t.contiguous() for t in (a, exp_t, log_t))
+    with torch.cuda.device(a.device):
+        rc = _lib().lookup_unary_launch(
+            op, place, a.data_ptr(), out.data_ptr(), None if packed is None else packed.data_ptr(),
+            None if exp_t is None else exp_t.data_ptr(), log_t.data_ptr(), q, a.numel(), _stream(a),
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}.")
     return out
 
 
@@ -224,20 +254,22 @@ def lookup_divide(a, b, exp_t, log_t, q: int, packed=None) -> torch.Tensor:
     return out
 
 
-def lookup_reciprocal(a, exp_t, log_t, q: int) -> torch.Tensor:
-    """K5: 1 / a by table gathers; the caller checks a != 0."""
+def lookup_reciprocal(a, exp_t, log_t, q: int, packed=None) -> torch.Tensor:
+    """K5: 1 / a by one table read per element; the caller checks a != 0.
+    ``packed`` as for ``lookup_multiply``."""
     if a.device.type == "cpu":
         return lookup_reciprocal_plain(a, exp_t, log_t, q)
-    out = _launch_unary("lookup_reciprocal", _RECIP, q, a, exp_t, log_t, a.dtype)
+    out = _launch_unary("lookup_reciprocal", _RECIP, q, a, exp_t, log_t, packed, a.dtype)
     lookup_reciprocal.launches += bool(a.numel())
     return out
 
 
-def lookup_log(a, log_t, q: int) -> torch.Tensor:
-    """K6: the discrete log base the primitive element, LOG[a], as int64."""
+def lookup_log(a, log_t, q: int, packed=None) -> torch.Tensor:
+    """K6: the discrete log base the primitive element, LOG[a], as int64.
+    ``packed`` as for ``lookup_multiply``."""
     if a.device.type == "cpu":
         return lookup_log_plain(a, log_t, q)
-    out = _launch_unary("lookup_log", _LOG, q, a, None, log_t, torch.int64)
+    out = _launch_unary("lookup_log", _LOG, q, a, None, log_t, packed, torch.int64)
     lookup_log.launches += bool(a.numel())
     return out
 

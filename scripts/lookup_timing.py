@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Time the lookup-mode multiply and divide kernels (K3, K4) of the
-galois_tpu_torch package found first on the path, on one CUDA card.
+"""Time the lookup-mode kernels (K3 multiply, K4 divide, K5 reciprocal,
+K6 log) of the galois_tpu_torch package found first on the path, on one
+CUDA card.
 
     PYTHONPATH=<tree> python3 scripts/lookup_timing.py [label]
 
 For GF(2^8), GF(3^5), GF(2^10) and GF(2^16) at 2^24 elements and GF(2^8) at
-2^20 and at 2^26 (three tensors of 64 MB, past the 50 MB L2), each kernel
-is checked against its plain version once and then timed by CUDA-graph
-replay (the mean of one replay of `reps` launches), and K3 on views one
-element off alignment at GF(2^8) and GF(2^16), 2^24; one JSON line per
-case. It runs against trees whose wrappers take the packed tables
+2^20 and at 2^26 (tensors of 64 MB, past the 50 MB L2), each kernel is
+checked against its plain version once and then timed by CUDA-graph replay
+(the mean of one replay of `reps` launches), K3 also on views one element
+off alignment at GF(2^8) and GF(2^16), 2^24, and on int64 storage
+torch.take of a q-entry reciprocal or log table beside K5 and K6; one JSON
+line per case. Last, the public call np.reciprocal(y) on 2^24 nonzero
+elements of GF(2^16) in lookup mode, timed eagerly by CUDA events (host
+time included), as main path 2 of chip_smoke.py times it. It runs against trees whose wrappers take the packed tables
 (`pack_tables`) and against those that do not, so that two commits can be
 compared in one call: run it with each tree's path in turn.
 """
 
+import inspect
 import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 CASES = [
@@ -37,6 +43,18 @@ def graph_ms(fn, reps):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def eager_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -80,6 +98,20 @@ def main() -> int:
             if not torch.equal(got, plain(a, b, exp_t, log_t, q)):
                 raise AssertionError(f"{name} disagrees with its plain version on GF({q}), n = {n}")
             row[f"{name}_ms"] = graph_ms(lambda: kernel(a, b, exp_t, log_t, q, *extra), reps)
+        unary_extra = extra if "packed" in inspect.signature(_lookup.lookup_reciprocal).parameters else ()
+        for name, kernel, plain in (
+            ("K5", lambda: _lookup.lookup_reciprocal(a, exp_t, log_t, q, *unary_extra),
+             lambda: _lookup.lookup_reciprocal_plain(a, exp_t, log_t, q)),
+            ("K6", lambda: _lookup.lookup_log(a, log_t, q, *unary_extra), lambda: _lookup.lookup_log_plain(a, log_t, q)),
+        ):
+            if not torch.equal(kernel(), plain()):
+                raise AssertionError(f"{name} disagrees with its plain version on GF({q}), n = {n}")
+            row[f"{name}_ms"] = graph_ms(kernel, reps)
+        if dt == torch.int64:  # the yardsticks: one torch call for the same map
+            inv64 = _lookup.lookup_reciprocal_plain(torch.arange(q, device=dev), exp_t, log_t, q)
+            log64 = log_t.to(torch.int64)
+            row["take_inv_ms"] = graph_ms(lambda: torch.take(inv64, a), reps)
+            row["take_log_ms"] = graph_ms(lambda: torch.take(log64, a), reps)
         if n == 2**24 and q in (2**8, 2**16):  # views one element off alignment
             x, y = a[1:], b[:-1]
             if not torch.equal(_lookup.lookup_multiply(x, y, exp_t, log_t, q, *extra), _lookup.lookup_multiply_plain(x, y, exp_t, log_t, q)):
@@ -88,6 +120,13 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         del a, b, got
         torch.cuda.empty_cache()
+    F = gt.GF(2**16, compile="jit-lookup")
+    try:
+        y = F.Random(2**24, seed=10, low=1, device=dev)
+        ms = eager_ms(lambda: np.reciprocal(y), 20)
+        print(json.dumps({"tree": label, "device": smi, "q": 2**16, "n": 2**24, "np_reciprocal_eager_ms": ms}))
+    finally:
+        F.compile("auto")
     return 0
 
 

@@ -335,9 +335,9 @@ def test_field_arithmetic_on_cuda_matches_cpu(cuda_device):
         (2**8, 100_003),  # uint8 storage, tables in shared memory
         (3**5, 4097),  # uint8, odd characteristic
         (2**10, 1_000_003),  # int64, shared memory
-        (2**14, 65_539),  # int64, the largest shared tables (96 KB, above the 48 KB default)
-        (2**16, 100_003),  # int64, tables in global memory
-        (2**20, 30_001),  # int64, the largest tables (12 MB)
+        (2**14, 65_539),  # int64, the largest 'shared' order (64 KB for K3/K4, above the 48 KB default)
+        (2**16, 100_003),  # int64, 'log-shared' (128 KB of LOG or INV in shared memory)
+        (2**20, 30_001),  # int64, 'global': the largest tables (12 MB)
         (2**8, 1),
     ],
 )
@@ -457,6 +457,82 @@ def test_lookup_k3_k4_one_element_and_broadcast_operands(cuda_device, q):
     _k3_k4_exact(col, row, exp_t, log_t, q, packed)  # a broadcast that is materialized
     _k3_k4_exact(x[:6].reshape(2, 3).t(), x[6:12].reshape(3, 2), exp_t, log_t, q, packed)  # a transposed view
     assert lookup_multiply(x[:0], x[:0], exp_t, log_t, q, packed).shape == (0,)
+
+
+def _k5_k6_exact(a, exp_t, log_t, q, packed):
+    """K5 and K6 (one launch each) against their plain versions."""
+    before = lookup_reciprocal.launches, lookup_log.launches
+    got = lookup_reciprocal(a, exp_t, log_t, q, packed), lookup_log(a, log_t, q, packed)
+    want = lookup_reciprocal_plain(a, exp_t, log_t, q), lookup_log_plain(a, log_t, q)
+    torch.cuda.synchronize()
+    assert (lookup_reciprocal.launches, lookup_log.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+K5_K6_ORDERS = [2**8, 3**5, 2**10, 2**14, 2**16, 2**20]
+
+
+@pytest.mark.parametrize("q", K5_K6_ORDERS)
+def test_lookup_k5_k6_every_element(cuda_device, q):
+    """Every element, 0 included (K5 gives EXP[q-1] = 1 there, K6 LOG[0] =
+    0), by each placement: a uint8 field also in int64 storage ('shared')."""
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    every = torch.arange(q, device=cuda_device).to(dt)
+    _k5_k6_exact(every, exp_t, log_t, q, packed)
+    _k5_k6_exact(every, exp_t, log_t, q, None)  # packed by the wrapper
+    if dt == torch.uint8:
+        assert lookup_placement(q, torch.int64) == "shared"
+        _k5_k6_exact(every.to(torch.int64), exp_t, log_t, q, pack_tables(exp_t, log_t, q, torch.int64))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 4099, 100_003])
+@pytest.mark.parametrize("q", K5_K6_ORDERS)
+def test_lookup_k5_k6_placements_ragged(cuda_device, q, n):
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    places = {2**8: "bytes", 3**5: "bytes", 2**10: "shared", 2**14: "shared", 2**16: "log-shared", 2**20: "global"}
+    assert lookup_placement(q, dt) == places[q]
+    g = torch.Generator(device=cuda_device).manual_seed(q + n)
+    a = torch.randint(0, q, (n,), generator=g, device=cuda_device).to(dt)
+    a[::7] = 0
+    a[3::11] = q - 1
+    _k5_k6_exact(a, exp_t, log_t, q, packed)
+
+
+@pytest.mark.parametrize("q", K5_K6_ORDERS)
+def test_lookup_k5_k6_unaligned_views(cuda_device, q):
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(q)
+    base = torch.randint(0, q, (5000,), generator=g, device=cuda_device).to(dt)
+    base[::13] = 0
+    for off in range(1, 16):
+        _k5_k6_exact(base[off : off + 4099], exp_t, log_t, q, packed)
+        _k5_k6_exact(base[off:], exp_t, log_t, q, packed)
+
+
+@pytest.mark.parametrize("q", K5_K6_ORDERS)
+def test_lookup_k5_k6_one_element_and_other_shapes(cuda_device, q):
+    exp_t, log_t, packed, dt = _lookup_setup(q, cuda_device)
+    for v in (0, 1, 3, q - 1):
+        for shape in ((), (1,), (1, 1)):
+            _k5_k6_exact(torch.full(shape, v, dtype=dt, device=cuda_device), exp_t, log_t, q, packed)
+    x = (torch.arange(300, device=cuda_device) % q).to(dt).reshape(6, 50)
+    _k5_k6_exact(x, exp_t, log_t, q, packed)
+    _k5_k6_exact(x.t(), exp_t, log_t, q, packed)  # a transposed view, made contiguous by the wrapper
+    before = lookup_reciprocal.launches, lookup_log.launches
+    assert lookup_reciprocal(x[:0], exp_t, log_t, q, packed).shape == (0, 50)
+    assert lookup_log(x[:0], log_t, q, packed).shape == (0, 50)
+    assert (lookup_reciprocal.launches, lookup_log.launches) == before  # nothing to launch
+
+
+def test_lookup_k5_k6_refuse_a_table_of_another_layout(cuda_device):
+    exp_t, log_t, packed, dt = _lookup_setup(2**10, cuda_device)
+    a = torch.arange(1, 100, device=cuda_device)
+    for wrong in (packed[:-8], packed.to(torch.int32), pack_tables(exp_t, log_t, 2**10, torch.int64).cpu()):
+        with pytest.raises(ValueError):
+            lookup_reciprocal(a, exp_t, log_t, 2**10, wrong)
+        with pytest.raises(ValueError):
+            lookup_log(a, log_t, 2**10, wrong)
 
 
 def test_lookup_mode_on_cuda_matches_cpu(cuda_device):

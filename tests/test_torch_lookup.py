@@ -4,8 +4,8 @@ JAX package.
 The same inputs, made with numpy from a seed, go through ``galois_tpu`` and
 ``galois_tpu_torch``; the tolerance is exact integer equality. Kernels
 K3-K6 (the EXP/LOG table gathers) are held here through their plain
-versions against the JAX Pallas kernels in interpret mode, and K3's and
-K4's table placements through the packed tables and a torch model of the
+versions against the JAX Pallas kernels in interpret mode, and the table
+placements of K3-K6 through the packed tables and a torch model of the
 kernels' reads; the kernels themselves run only on a CUDA card
 (``tests/test_torch_cuda.py``).
 """
@@ -33,7 +33,9 @@ from galois_tpu_torch.fields._tables import build_exp_log
 from galois_tpu_torch.ops import _kernels
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops._lookup import (
+    PLACEMENTS,
     SMEM_MAX_ORDER,
+    _placed,
     lookup_divide,
     lookup_divide_plain,
     lookup_log,
@@ -44,6 +46,7 @@ from galois_tpu_torch.ops._lookup import (
     lookup_reciprocal,
     lookup_reciprocal_plain,
     pack_tables,
+    packed_length,
 )
 
 ARITH_ORDERS = [2**8, 3**5, 5**3, 7**4, 3**10]
@@ -186,7 +189,7 @@ def test_lookup_placement_refuses_what_has_no_tables(q, dtype):
 @pytest.mark.parametrize("q", [2**8, 3**5, 2**10, 2**16])
 def test_packed_tables_decode_to_the_jax_tables(q):
     """Decoded in numpy, each placement's table holds the JAX package's
-    LookupOps.EXP and LOG."""
+    LookupOps.EXP and LOG, and INV = EXP[(q-1) - LOG]."""
     jops = jax_get_ops(gj.GF(q)._meta, "jit-lookup")
     exp_t, log_t = _tables(q)
     dtype = gt.GF(q)._meta.torch_dtype
@@ -197,15 +200,17 @@ def test_packed_tables_decode_to_the_jax_tables(q):
         assert np.array_equal(fields[:q, 0], jops.LOG)
         assert np.array_equal(fields[:, 1], jops.EXP)
         assert np.array_equal(fields[:q, 2], (q - 1) - jops.LOG)
-        assert not fields[q:, [0, 2]].any() and not fields[:, 3].any()
+        assert np.array_equal(fields[:q, 3], jops.EXP[(q - 1) - jops.LOG])
+        assert not fields[q:, [0, 2, 3]].any()
     else:
-        q8 = _round8(q)
-        assert packed.dtype == np.int16 and packed.shape == (q8 + _round8(q - 1),)
+        q8, e8 = _round8(q), _round8(q - 1)
+        assert packed.dtype == np.int16 and packed.shape == (2 * q8 + e8,)
         u16 = packed.view(np.uint16).astype(np.int64)
         assert np.array_equal(u16[:q], jops.LOG)
         assert np.array_equal(u16[q8 : q8 + q - 1], jops.EXP[: q - 1])
         assert np.array_equal(jops.EXP[q - 1 :], jops.EXP[: q - 1])  # the reduced EXP loses nothing
-        assert not u16[q:q8].any() and not u16[q8 + q - 1 :].any()
+        assert np.array_equal(u16[q8 + e8 : q8 + e8 + q], jops.EXP[(q - 1) - jops.LOG])
+        assert not u16[q:q8].any() and not u16[q8 + q - 1 : q8 + e8].any() and not u16[q8 + e8 + q :].any()
     big = 2**17  # 'global': the kernel reads the int32 tables themselves
     zeros = torch.zeros(2 * (big - 1), dtype=torch.int32)
     assert pack_tables(zeros, zeros[:big], big, torch.int64) is None
@@ -333,6 +338,161 @@ def test_kernel_read_model_matches_jax(q):
     for divide, y, want in ((False, bt, want_mul), (True, bnt, want_div)):
         got = _model(divide, at, y, exp_t, log_t, q)
         assert np.array_equal(got.to(torch.int64).numpy(), np.asarray(want).astype(np.int64))
+
+
+# ----------------------------------------------------------------------
+# K5/K6 on the same placements: one table read per element
+# ----------------------------------------------------------------------
+
+def _decoded_inv(packed, q, place):
+    """INV[0, q) as the kernels read it: byte 3 of the byte rows, or the
+    third uint16 segment."""
+    if place == "bytes":
+        return (packed.to(torch.int64) >> 24) & 0xFF
+    q8, e8 = _round8(q), _round8(q - 1)
+    return packed.to(torch.int64)[q8 + e8 : q8 + e8 + q] & 0xFFFF
+
+
+@pytest.mark.parametrize("q", [2**8, 3**5, 2**10, 2**16])
+def test_packed_reciprocals_match_the_jax_field(q):
+    """Every placement's INV holds the JAX field's reciprocals (its
+    lookup-mode np.reciprocal) at r > 0, and EXP[q-1] = 1 at r = 0."""
+    Fj = gj.GF(q, compile="jit-lookup")
+    want = np.asarray(np.reciprocal(Fj(np.arange(1, q)))).astype(np.int64)
+    exp_t, log_t = _tables(q)
+    dtypes = [torch.uint8, torch.int64] if q <= 2**8 else [torch.int64]
+    for dtype in dtypes:
+        place = lookup_placement(q, dtype)
+        inv = _decoded_inv(pack_tables(exp_t, log_t, q, dtype), q, place)[:q].numpy()
+        assert inv[0] == 1 and np.array_equal(inv[1:], want), place
+
+
+def model_unary_kernel(recip, a, exp_t, log_t, q):
+    """The reads of bytes_unary_kernel and wide_unary_kernel on the CPU, on
+    the table the wrapper would pass: K5 (recip) byte 3 or the staged INV
+    segment, K6 byte 0 or the staged LOG segment, each one read per
+    element; the global placement's two (K5) or one (K6) int32 gathers."""
+    place = lookup_placement(q, a.dtype)
+    packed = pack_tables(exp_t, log_t, q, a.dtype)
+    x = a.to(torch.int64)
+    if place == "bytes":
+        words = packed.to(torch.int64) & 0xFFFFFFFF
+        image = torch.stack([(words[:q].repeat_interleave(32) >> (8 * k)) & 0xFF for k in range(4)], -1).reshape(-1)
+        col = 4 * ((torch.arange(x.numel()) // 16) % 32)  # the lane whose 16-byte chunk holds the element
+        r = image[col + 128 * x + (3 if recip else 0)]  # an index past the q staged rows raises
+    elif place == "global":
+        r = exp_t[((q - 1) - log_t[x]).long()] if recip else log_t[x]
+    else:
+        q8, e8 = _round8(q), _round8(q - 1)
+        start = q8 + e8 if recip else 0
+        seg = packed[start : start + q8].to(torch.int64) & 0xFFFF  # the q8 staged entries
+        r = seg[x]
+    return r.to(a.dtype if recip else torch.int64)
+
+
+UNARY_CASES = [
+    (2**8, torch.uint8), (2**8, torch.int64), (3**5, torch.uint8), (3**5, torch.int64), (2**10, torch.int64),
+    (2**16, torch.int64), (2**17, torch.int64),
+]
+
+
+@pytest.mark.parametrize(["q", "dtype"], UNARY_CASES)
+def test_unary_read_model_matches_plain(q, dtype):
+    """Every element of GF(2^8), GF(3^5) and GF(2^10), a seeded 2^16 sample
+    of GF(2^16) and GF(2^17) (0 and q - 1 included), by every placement:
+    the model of K5's and K6's reads equals the plain versions."""
+    exp_t, log_t = _tables(q)
+    if q <= 2**10:
+        a = torch.arange(q)
+    else:
+        a = torch.from_numpy(np.random.default_rng(q).integers(0, q, 2**16))
+        a[:30], a[30:60] = 0, q - 1
+    a = a.to(dtype)
+    assert torch.equal(model_unary_kernel(True, a, exp_t, log_t, q), lookup_reciprocal_plain(a, exp_t, log_t, q))
+    assert torch.equal(model_unary_kernel(False, a, exp_t, log_t, q), lookup_log_plain(a, log_t, q))
+
+
+@pytest.mark.parametrize("q", [2**8, 3**5, 2**10, 2**16])
+def test_unary_read_model_matches_jax(q):
+    """The model against the JAX package: the Pallas kernels in interpret
+    mode over every element, 0 included, or for GF(2^16), whose
+    interpret-mode gather is too slow here, the JAX field's lookup-mode
+    np.reciprocal and log() over a seeded nonzero sample."""
+    Fj = gj.GF(q)
+    exp_t, log_t = _tables(q)
+    if q <= 2**10:
+        a = np.arange(q)
+        jops = jax_get_ops(Fj._meta, "jit-lookup")
+        aj = jnp.asarray(a.astype(Fj._meta.internal_dtype))
+        exp_p, log_p = jnp.asarray(_pad128(jops.EXP)), jnp.asarray(_pad128(jops.LOG))
+        want_inv = lookup_reciprocal_pallas(aj, exp_p, log_p, q, True)
+        want_log = lookup_log_pallas(aj, log_p, q, True)
+    else:
+        a = np.random.default_rng(q + 3).integers(1, q, 2**12)
+        Fl = gj.GF(q, compile="jit-lookup")
+        want_inv, want_log = np.reciprocal(Fl(a)), Fl(a).log()
+    dtypes = [torch.uint8, torch.int64] if q <= 2**8 else [torch.int64]
+    for dtype in dtypes:
+        at = torch.from_numpy(a).to(dtype)
+        got_inv = model_unary_kernel(True, at, exp_t, log_t, q)
+        got_log = model_unary_kernel(False, at, exp_t, log_t, q)
+        assert np.array_equal(got_inv.to(torch.int64).numpy(), np.asarray(want_inv).astype(np.int64))
+        assert np.array_equal(got_log.numpy(), np.asarray(want_log).astype(np.int64))
+
+
+def test_k6_warp_transposed_stores_write_the_elements_in_order():
+    """K6's uint8 body: lane l holds the 16 LOG bytes of the warp's chunk l
+    as four words; store j of lane l takes halfword l % 2 of word (l % 8) / 2
+    of lane 4j + l / 8 (by __shfl_sync) and writes output chunk 32j + l. The
+    stores must lay the warp's 512 results out in element order."""
+    logs = torch.from_numpy(np.random.default_rng(5).integers(0, 255, 512)).reshape(32, 16)  # [lane, byte]
+    words = (logs.reshape(32, 4, 4) << (8 * torch.arange(4))).sum(-1)  # [lane, word], little-endian
+    out = torch.full((256, 2), -1, dtype=torch.int64)
+    for j in range(8):
+        for lane in range(32):
+            h = int(words[4 * j + (lane >> 3), (lane & 7) >> 1]) >> (16 * (lane & 1))
+            out[32 * j + lane] = torch.tensor([h & 0xFF, (h >> 8) & 0xFF])
+    assert torch.equal(out.reshape(-1), logs.reshape(-1))
+
+
+@pytest.mark.parametrize(["q", "dtype"], [(2**8, torch.uint8), (2**10, torch.int64), (2**16, torch.int64)])
+def test_packed_length_check_refuses_other_layouts(q, dtype):
+    """The wrappers' check of a given table: pack_tables' own passes, one of
+    the length before INV was added, or of another placement, raises."""
+    exp_t, log_t = _tables(q)
+    a = torch.arange(1, 10).to(dtype)
+    packed = pack_tables(exp_t, log_t, q, dtype)
+    place = lookup_placement(q, dtype)
+    assert packed.numel() == packed_length(q, place)
+    assert _placed("lookup_reciprocal", q, a, exp_t, log_t, packed) == (PLACEMENTS.index(place), packed)
+    code, built = _placed("lookup_log", q, a, None, log_t, None)  # K6 packs LOG alone
+    assert code == PLACEMENTS.index(place) and built.dtype == packed.dtype and built.numel() == packed.numel()
+    if place == "bytes":
+        assert torch.equal(built & 0xFF, packed & 0xFF)
+        wrong = [packed[: q - 1], packed.to(torch.int16)]
+    else:
+        assert torch.equal(built[:q], packed[:q])
+        wrong = [packed[: _round8(q) + _round8(q - 1)].clone(), packed.to(torch.int32)]  # the first: LOG and EXP alone
+    for w in wrong:
+        for fn in ("lookup_reciprocal", "lookup_log"):
+            with pytest.raises(ValueError):
+                _placed(fn, q, a, exp_t, log_t, w)
+
+
+def test_lookup_ops_pass_packed_tables_to_k5_k6(monkeypatch):
+    """LookupOps.reciprocal and log_alpha hand K5 and K6 the table cached
+    for the data's device, as multiply and divide do for K3 and K4."""
+    seen = []
+    for name in ("lookup_reciprocal", "lookup_log"):
+        real = getattr(_kernels, name)
+        monkeypatch.setattr(_kernels, name, lambda *args, _f=real: seen.append(args[-1]) or _f(*args))
+    F = gt.GF(2**8, compile="jit-lookup")
+    ops = get_ops(F._meta, "jit-lookup")
+    a = torch.arange(1, 256, dtype=torch.uint8)
+    assert torch.equal(ops.reciprocal(a), lookup_reciprocal_plain(a, *_tables(256), 256))
+    assert torch.equal(ops.log_alpha(a), lookup_log_plain(a, _tables(256)[1], 256))
+    cached = ops._tables.packed(torch.device("cpu"))
+    assert len(seen) == 2 and all(p is cached for p in seen)
 
 
 def test_lookup_ops_cache_packed_tables_per_device():
