@@ -13,7 +13,8 @@ Phases, each fatal on failure:
      per source, all at once, and prints the build times and ptxas resource
      usage; then launches K11 (the device probe) before any other kernel,
      prints its result and its time beside torch.add's, both by CUDA-graph
-     replay and by eager calls, and compiles the Triton kernel;
+     replay and by eager calls, and an empty kernel's by graph replay (the
+     launch floor), and compiles the Triton kernel;
   3. kernels: every kernel against its plain torch version on the card, at
      the main paths' shapes plus small and ragged ones; results must be
      exactly equal. K8 (GF(2^m) multiply, m <= 8, four elements per word) at
@@ -49,9 +50,15 @@ Phases, each fatal on failure:
      exponent tensor, and every m = 2..16 over all its elements on a ragged
      view one element off alignment; timed beside K5 (the table reciprocal)
      on the same inputs. K8-B (the Berlekamp-Massey scan) at RS(255,223)'s
-     (65536, 32) with u = 0 and random u, at d = 65 and at m = 4; timed.
-     K8-A and K8-B have integer-operation bounds at the int32 rate of 132
-     SMs x 64 lanes at the card's maximum SM clock (nvidia-smi);
+     (65536, 32) with u = 0 and random u, at d = 65, at m = 4, and on int64
+     storage at GF(2^9) (BCH(511,493)'s (16384, 4) and d = 33), GF(2^12) and
+     GF(2^16); timed at RS(255,223)'s shape, d = 65, BCH(511,493)'s and
+     GF(2^16) d = 33, with the table form's operations and shared-memory
+     wavefronts beside the operations of the form with a reciprocal chain.
+     K7, K8, K8-A and K8-B are bounded by their bytes; the integer operations
+     of their own forms, at the int32 rate of 132 SMs x 64 lanes at the
+     card's maximum SM clock (nvidia-smi), are printed beside as counts of
+     the form, not bounds on the map;
   4. main path 1, through the public API with every launch counter reset to
      0 first: GF(2^8) multiply of 2^24 elements, then np.fft.fft / ifft over
      GF(3*2^30+1) at N = 2^20 (batch 32) and N = 2^24 (batch 4) and ntt /
@@ -81,11 +88,14 @@ Phases, each fatal on failure:
      (GF(2^9) syndromes, f = 529) decodes 16384 words with 0-2 bit errors
      (3-6 in every 16th row). Rows within the capability must give back
      their message and error count, rows beyond it -1 or a codeword; K8 must
-     have been launched in the RS decodes and K7 in the BCH decode; each RS
-     decode must launch K8-B once, K8-A at least once and K8 at most 4 times
-     (6 with erasures). Prints codewords/s per decode with the K8, K7, K8-A
-     and K8-B launches of each, the encode time, the peak device memory, a
-     torch.profiler table of one RS decode and its time stage by stage.
+     have been launched in the RS decodes and K7 in the BCH decode; each
+     decode must launch K8-B once and K8-A at least once, and each RS decode
+     K8 at most 4 times (6 with erasures). Prints codewords/s per decode with
+     the K8, K7, K8-A and K8-B launches of each, the encode time and the
+     peak device memory. Then, after the launches are read, so that they
+     are not counted: a torch.profiler table of one RS decode, and the RS
+     and BCH decodes' times stage by stage (BCH's scan also by the plain
+     loop).
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -110,60 +120,24 @@ INT32_OPS_PER_S = None  # SMS x INT32_LANES x the card's maximum SM clock, set i
 SMEM_WAVEFRONTS_PER_S = None  # SMS x one shared-memory wavefront a clock, set in main()
 
 
-def cuda_ms(fn, reps):
-    """Mean CUDA-event time of fn() over reps eager runs, after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def bounds_text(nbytes, form_ops, ms):
+    """'bound X ms (bytes) | this form's operations Y ms, the kernel at Z% of
+    them': the bound is the bytes the map moves; the integer operations are
+    those of the kernel's own chain, a count for the form and not a bound on
+    the map (a table form computes it with fewer)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, form_ops / INT32_OPS_PER_S * 1e3
+    return (
+        f"bound {t_bytes:.4f} ms (bytes) | this form's integer operations {t_ops:.4f} ms, "
+        f"the kernel at {t_ops / ms:.0%} of them (a count of the form, not a bound on the map)"
+    )
 
 
-def graph_ms(fn, reps):
-    """Mean device time of fn() over reps runs captured in one CUDA graph
-    and replayed: the launches run back to back, without the host time of
-    each Python call."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps
-
-
-def bounds_text(nbytes, int_ops):
-    """Both bounds of an integer kernel, and the larger: 'bound X ms (what;
-    operations Y ms, bytes Z ms)'."""
-    t_ops, t_bytes = int_ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    ms, by = bound(nbytes, int_ops=int_ops)
-    return f"bound {ms:.4f} ms ({by}; operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms)"
-
-
-def bound(nbytes, ops=0, int_ops=0, wavefronts=0):
+def bound(nbytes, ops=0, wavefronts=0):
     """(ms, what bounds it): the largest of HBM bytes over 3.35 TB/s, int8
-    tensor-core operations over 1979 TOP/s, 32-bit integer operations over
-    the int32 rate and shared-memory wavefronts over the SMs' one a clock."""
+    tensor-core operations over 1979 TOP/s and shared-memory wavefronts
+    over the SMs' one a clock."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(
-        ops / INT8_OPS_PER_S,
-        int_ops / INT32_OPS_PER_S if int_ops else 0,
-        wavefronts / SMEM_WAVEFRONTS_PER_S if wavefronts else 0,
-    ) * 1e3
+    t_ops = max(ops / INT8_OPS_PER_S, wavefronts / SMEM_WAVEFRONTS_PER_S if wavefronts else 0) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -173,7 +147,9 @@ def bound(nbytes, ops=0, int_ops=0, wavefronts=0):
 # inputs, an immediate mask included (LOP3), one per add or subtract
 # (IADD3); multiplies (bit * 255, c * 0x01010101, the exponent's modulo) run
 # on the FMA pipe and count 0, and so does loop control. The compiler cannot
-# do with fewer, so the time at 64 int32 lanes per SM is a lower bound.
+# do with fewer, so the time at 64 int32 lanes per SM is a lower bound for
+# that form; it does not bound the map, which a table form computes with
+# fewer (K3 and K5 on the same GF(2^8) inputs), so bounds count bytes.
 
 def nib_ops(n):
     """nib_ladder<n>: per step a shift of y, an AND, a shift of x and one
@@ -223,12 +199,13 @@ def power_ops(m, f, n, exponent):
     return words * (c["inv_sq"] * c["sqr4"] + c["inv_mul"] * c["mul4"])
 
 
-def scan_ops(m, f, d, rows):
-    """K8-B over rows codewords. Per step t: the window's t // 4 + 2, the
-    dot's t // 4 + 1 words (nibbles and the three ladders), the byte folds
-    of its sum, reduce1, the scalar reciprocal and product, the multiply
-    table (4 a bit), 13 for the predicates and the grow update, and the
-    update's (t + 1) // 4 + 1 words (x B, 3 a bit of the table product, the
+def scan_ops_reciprocal(m, f, d, rows):
+    """K8-B with a reciprocal chain in place of its table step (m <= 8) over
+    rows codewords. Per step t: the window's t // 4 + 2, the dot's t // 4 + 1
+    words (nibbles and the three ladders), the byte folds of its sum,
+    reduce1, the scalar reciprocal and product, the multiply table (4 a
+    bit), 13 for the predicates and the grow update, and the update's
+    (t + 1) // 4 + 1 words (x B, 3 a bit of the table product, the
     selects)."""
     c = chain_costs(m, f)
     dot_word = nib_ops(m) if m <= 4 else 8 + 2 * nib_ops(4) + nib_ops(m - 4)
@@ -236,6 +213,42 @@ def scan_ops(m, f, d, rows):
     fixed = (16 if m > 4 else 4) + red1 + c["inv_sq"] * c["sqr1"] + c["inv_mul"] * c["mul1"] + c["mul1"] + 4 * m + 13
     per_row = sum(fixed + (t // 4 + 2) + (t // 4 + 1) * dot_word + ((t + 1) // 4 + 1) * (3 * m + 3) for t in range(d - 1))
     return rows * per_row
+
+
+def scan_ops(m, f, d, rows):
+    """K8-B's table form over rows codewords. m <= 8: as
+    ``scan_ops_reciprocal`` with reduce1 replaced by the linear map of the
+    sum's m - 1 high bits (a mask by two shifts and an AND-XOR a bit, 2 to
+    split the sum), and the reciprocal, the product and the multiply table
+    by the table step: LOG delta's byte, the add of (q-1) - LOG bb and its
+    conditional subtract (3), then per bit an add and a byte permute (2m),
+    and 2 to keep the new (q-1) - LOG bb on a grow. 9 <= m <= 16,
+    one element a lane, per step: the window's t + 1 moves, t + 1 ladder
+    products (5m - 2 each) and one reduce1, the coefficient (3 by the tables
+    for m <= 14, a product above), const_table (4m), and the update's t + 2
+    elements (4m a product, 2 selects), 13 for the predicates."""
+    c = chain_costs(m, f)
+    red1 = c["mul1"] - (5 * m - 2)
+    if m <= 8:
+        dot_word = nib_ops(m) if m <= 4 else 8 + 2 * nib_ops(4) + nib_ops(m - 4)
+        fixed = (16 if m > 4 else 4) + 3 * (m - 1) + 2 + 3 + 2 * m + 2 + 13
+        per_row = sum(fixed + (t // 4 + 2) + (t // 4 + 1) * dot_word + ((t + 1) // 4 + 1) * (3 * m + 3) for t in range(d - 1))
+    else:
+        coef = 3 if m <= 14 else c["mul1"]
+        fixed = red1 + coef + 4 * m + 13
+        per_row = sum(fixed + (t + 1) + (t + 1) * (5 * m - 2) + (t + 2) * (4 * m + 2) for t in range(d - 1))
+    return rows * per_row
+
+
+def scan_wavefronts(m, d, rows):
+    """K8-B's shared-memory reads over rows codewords, one wavefront per
+    warp and read (none conflicting: the least they can take): per step the
+    row's LOG delta and coef's m EXP entries (m <= 8), else 2, and the
+    staging of the table (2(q-1) words, or the uint16 segments)."""
+    warps, q = -(-rows // 32), 2**m
+    reads = (1 + m if m <= 8 else 2) * (d - 1) * warps
+    per_block, threads = (2 * (q - 1) * 4, 64) if m <= 8 else ((q if m > 14 else 2 * q) * 2, 128)
+    return reads + -(-rows // threads) * -(-per_block // 128)
 
 
 def max_abs_err(a, b):
@@ -345,6 +358,8 @@ def main() -> int:
 
     import galois_tpu_torch as gt
     from galois_tpu_torch import _build
+    from scripts._timing import card, corrupt, graph_ms, ranks
+    from scripts._timing import eager_ms as cuda_ms
     from galois_tpu_torch.codes._decoder import make_decoder
     from galois_tpu_torch.ops import _elementwise, _lookup
     from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain
@@ -378,10 +393,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -443,12 +455,14 @@ def main() -> int:
     pms = cuda_ms(lambda: device_probe_plain(block), 200)
     lib = graph_ms(lambda: torch.add(block, 1), 200)
     lib_eager = cuda_ms(lambda: torch.add(block, 1), 200)
+    # the launch floor: an empty kernel (torch.cuda._sleep spins for 0 cycles), by graph replay
+    empty = graph_ms(lambda: torch.cuda._sleep(0), 200)
     record("device_probe", err, ms, pms, bound(2 * 4 * block.numel()), lib)
     print(
         f"[build] K11 device_probe (8, 1024) int32: every element 1, max_abs_err {err} | first launch "
         f"{first_s * 1e3:.3f} ms host wall | kernel {ms:.4f} ms by graph replay, {eager:.4f} ms per eager call "
         f"(CUDA events) | torch.add(block, 1) {lib:.4f} ms by graph replay, {lib_eager:.4f} ms per eager call | "
-        f"plain x + 1 {pms:.4f} ms",
+        f"an empty kernel (launch floor) {empty:.4f} ms by graph replay | plain x + 1 {pms:.4f} ms",
         flush=True,
     )
     GF8 = gt.GF(2**8)
@@ -488,20 +502,20 @@ def main() -> int:
     k8 = graph_ms(lambda: gf2m_multiply_swar(a8, b8, 8, f8), 50)
     k8_eager = cuda_ms(lambda: gf2m_multiply_swar(a8, b8, 8, f8), 50)
     pms = cuda_ms(lambda: gf2m_multiply_swar_plain(a8, b8, 8, f8), 5)
-    bnd = bound(3 * 2**24)
-    record("gf2m_multiply_swar", 0, k8, pms, bnd)
+    k8_ops = chain_costs(8, f8)["mul4"] * 2**22  # one product a word of four elements
+    record("gf2m_multiply_swar", 0, k8, pms, bound(3 * 2**24))
     print(
         f"[kernel] K8 gf2m_multiply_swar m=8 n=2^24: kernel {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
-        f"plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})",
+        f"plain {pms:.4f} ms | {bounds_text(3 * 2**24, k8_ops, k8)}",
         flush=True,
     )
     # the shape of most of K8's main-path launches: the RS decoder's scan
     xd, yd = a8[: 65536 * 33].reshape(65536, 33), b8[:65536].reshape(65536, 1)
     k8_dec = graph_ms(lambda: gf2m_multiply_swar(xd, yd, 8, f8), 50)
-    bnd_dec = bound(2 * xd.numel() + yd.numel())
+    dec_bytes, dec_ops = 2 * xd.numel() + yd.numel(), chain_costs(8, f8)["mul4"] * -(-xd.numel() // 4)
     print(
         f"[kernel] K8 gf2m_multiply_swar m=8 at the RS decoder's (65536, 33) x (65536, 1): kernel {k8_dec:.4f} ms "
-        f"by graph replay | bound {bnd_dec[0]:.4f} ms ({bnd_dec[1]})",
+        f"by graph replay | {bounds_text(dec_bytes, dec_ops, k8_dec)}",
         flush=True,
     )
     # K7 and K3 on the same GF(2^8) inputs: the three kernels that compute this map
@@ -545,11 +559,12 @@ def main() -> int:
     ms = graph_ms(lambda: gf2m_multiply(a9, b9, 9, f9), 20)
     eager = cuda_ms(lambda: gf2m_multiply(a9, b9, 9, f9), 20)
     pms = cuda_ms(lambda: gf2m_multiply_plain(a9, b9, 9, f9), 5)
-    bnd = bound(3 * 8 * 2**24)
-    record("gf2m_multiply", 0, ms, pms, bnd)
+    # K7's ladder a element: 5 a bit of b (3 for bit 0), 4 a folded bit, 1 to widen the store
+    k7_ops = (9 * 9 - 5) * 2**24
+    record("gf2m_multiply", 0, ms, pms, bound(3 * 8 * 2**24))
     print(
         f"[kernel] K7 gf2m_multiply m=9 (int64) n=2^24: kernel {ms:.4f} ms (eager calls {eager:.4f} ms) | "
-        f"plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})",
+        f"plain {pms:.4f} ms | {bounds_text(3 * 8 * 2**24, k7_ops, ms)}",
         flush=True,
     )
     del a9, b9
@@ -601,37 +616,42 @@ def main() -> int:
     pow_plain = cuda_ms(lambda: gf2m_power_plain(a8, e8, 8, f8, 40), 1)
     fy_ms = graph_ms(lambda: gf2m_power(forney, None, 8, f8), 20)
     fy_k5 = graph_ms(lambda: _lookup.lookup_reciprocal(forney, exp8, log8, 256, pk8), 20)
-    record("gf2m_power", 0, recip_ms, recip_plain, bound(2 * n8, int_ops=recip_ops))
+    record("gf2m_power", 0, recip_ms, recip_plain, bound(2 * n8))
     print(
         f"[kernel] K8-A gf2m_power m=8 reciprocal n=2^24: kernel {recip_ms:.4f} ms by graph replay | K5 "
         f"lookup_reciprocal (hand kernel, tables) on the same inputs {k5_ms:.4f} ms | plain {recip_plain:.4f} ms | "
-        f"{bounds_text(2 * n8, recip_ops)}",
+        f"{bounds_text(2 * n8, recip_ops, recip_ms)}",
         flush=True,
     )
     print(
         f"[kernel] K8-A gf2m_power m=8 exponent tensor n=2^24: kernel {pow_ms:.4f} ms | plain {pow_plain:.4f} ms | "
-        f"{bounds_text(10 * n8, power_ops(8, f8, n8, True))}",
+        f"{bounds_text(10 * n8, power_ops(8, f8, n8, True), pow_ms)}",
         flush=True,
     )
     print(
         f"[kernel] K8-A gf2m_power m=8 reciprocal at Forney's (65536, 255): kernel {fy_ms:.4f} ms | K5 {fy_k5:.4f} ms | "
-        f"{bounds_text(2 * n_fy, power_ops(8, f8, n_fy, False))}",
+        f"{bounds_text(2 * n_fy, power_ops(8, f8, n_fy, False), fy_ms)}",
         flush=True,
     )
     del e8, forney
     torch.cuda.empty_cache()
 
     # K8-B: RS(255,223)'s (65536, 32) with u = 0 and random u (0 to past d - 1,
-    # rows of zero discrepancies among them), d = 65, and m = 4 at d = 5, 17
-    ops4 = get_ops(gt.GF(2**4)._meta, "jit-calculate")
-    ops8c = get_ops(GF8._meta, "jit-calculate")
+    # rows of zero discrepancies among them), d = 65, m = 4 at d = 5 and 17,
+    # and above m = 8 (int64 storage, one element a lane): BCH(511,493)'s
+    # GF(2^9) at d = 5 (16384 rows) and 33, GF(2^12) at d = 17, GF(2^16) (INV
+    # staged) at d = 9 and 33
     B_scan = 65536
     scans = {}
-    for ops_m, m, d in ((ops8c, 8, 33), (ops8c, 8, 65), (ops4, 4, 5), (ops4, 4, 17)):
-        S = torch.randint(0, 2**m, (B_scan, d - 1), generator=gen, device=dev).to(torch.uint8)
+    for m, d, rows in ((8, 33, B_scan), (8, 65, B_scan), (4, 5, B_scan), (4, 17, B_scan), (9, 5, 16384),
+                       (9, 33, B_scan), (12, 17, B_scan), (16, 9, B_scan), (16, 33, B_scan)):
+        Fm = gt.GF(2**m)
+        ops_m = get_ops(Fm._meta, "jit-calculate")
+        S = torch.randint(0, 2**m, (rows, d - 1), generator=gen, device=dev).to(Fm._meta.torch_dtype)
         S[1::97] = 0
-        u_r = torch.randint(0, d + 3, (B_scan,), generator=gen, device=dev)
-        u_0 = torch.zeros(B_scan, dtype=torch.int64, device=dev)
+        S[2::97] = 2**m - 1
+        u_r = torch.randint(0, d + 3, (rows,), generator=gen, device=dev)
+        u_0 = torch.zeros(rows, dtype=torch.int64, device=dev)
         scans[(m, d)] = (ops_m, S, u_0, u_r)
         for tag, uu in (("u = 0", u_0), ("random u", u_r)):
             C, L = berlekamp_massey_scan(ops_m, S, uu, d)
@@ -639,26 +659,64 @@ def main() -> int:
             Cp, Lp = berlekamp_massey_scan_plain(ops_m, S, uu, d)
             err = max(max_abs_err(C, Cp), max_abs_err(L, Lp))
             record("berlekamp_massey_scan", err)
-            print(f"[kernel] K8-B berlekamp_massey_scan m={m} d={d} ({B_scan}, {d - 1}), {tag}: max_abs_err {err}", flush=True)
+            print(f"[kernel] K8-B berlekamp_massey_scan m={m} d={d} ({rows}, {d - 1}), {tag}: max_abs_err {err}", flush=True)
             if err:
                 raise AssertionError(f"K8-B disagrees with its plain version at m = {m}, d = {d}, {tag}")
     del C, L, Cp, Lp
-    ops_m, S, u_0, u_r = scans[(8, 33)]
+
+    def scan_bound(m, d, rows):
+        """(ms, what) of K8-B on rows codewords: the bytes of S', u in, C, L
+        out and the table once. No operation count bounds the scan itself:
+        the counts below are those of the kernel's own forms."""
+        item = 1 if m <= 8 else 8
+        return bound(rows * ((d - 1) * item + 8 + d * item + 8) + (2 * (2**m - 1) * 4 if m <= 8 else 3 * 2**m * 2))
+
+    def scan_costs(m, f, d, rows, ms):
+        ops_new, wf = scan_ops(m, f, d, rows), scan_wavefronts(m, d, rows)
+        t_form = max(ops_new / INT32_OPS_PER_S, wf / SMEM_WAVEFRONTS_PER_S) * 1e3
+        text = (
+            f"table form's own count: {ops_new:.4g} operations ({ops_new / INT32_OPS_PER_S * 1e3:.4f} ms), "
+            f"{wf:.4g} shared-memory wavefronts ({wf / SMEM_WAVEFRONTS_PER_S * 1e3:.4f} ms), the kernel at "
+            f"{t_form / ms:.0%} of the larger"
+        )
+        if m <= 8:
+            old = scan_ops_reciprocal(m, f, d, rows)
+            text += f"; with the reciprocal chain {old:.4g} operations ({old / INT32_OPS_PER_S * 1e3:.4f} ms)"
+        return text
+
     f_scan = GF8._meta.irreducible_poly_int
+    ops_m, S, u_0, u_r = scans[(8, 33)]
     scan_ms = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_0, 33), 20)
     scan_ms_u = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_r, 33), 20)
     scan_plain = cuda_ms(lambda: berlekamp_massey_scan_plain(ops_m, S, u_0, 33), 2)
-    scan_bytes, scan_iops = B_scan * (32 + 8 + 33 + 8), scan_ops(8, f_scan, 33, B_scan)  # S', u in; C, L out
-    record("berlekamp_massey_scan", 0, scan_ms, scan_plain, bound(scan_bytes, int_ops=scan_iops))
-    ops_m, S, u_0, _ = scans[(8, 65)]
-    scan65_ms = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_0, 65), 10)
+    bnd33 = scan_bound(8, 33, B_scan)
+    record("berlekamp_massey_scan", 0, scan_ms, scan_plain, bnd33)
     print(
         f"[kernel] K8-B berlekamp_massey_scan RS(255,223)'s (65536, 32): kernel {scan_ms:.4f} ms (u = 0), "
-        f"{scan_ms_u:.4f} ms (random u) by graph replay | plain {scan_plain:.3f} ms | "
-        f"{bounds_text(scan_bytes, scan_iops)} | d = 65 (65536, 64): {scan65_ms:.4f} ms, "
-        f"{bounds_text(B_scan * (64 + 8 + 65 + 8), scan_ops(8, f_scan, 65, B_scan))}",
+        f"{scan_ms_u:.4f} ms (random u) by graph replay | plain {scan_plain:.3f} ms | bound {bnd33[0]:.4f} ms "
+        f"({bnd33[1]}) | {scan_costs(8, f_scan, 33, B_scan, scan_ms)}",
         flush=True,
     )
+    ops_m, S, u_0, _ = scans[(8, 65)]
+    scan65_ms = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_0, 65), 10)
+    bnd65 = scan_bound(8, 65, B_scan)
+    print(
+        f"[kernel] K8-B berlekamp_massey_scan d = 65 (65536, 64): kernel {scan65_ms:.4f} ms by graph replay | "
+        f"bound {bnd65[0]:.4f} ms ({bnd65[1]}) | {scan_costs(8, f_scan, 65, B_scan, scan65_ms)}",
+        flush=True,
+    )
+    for m, d in ((9, 5), (16, 33)):
+        ops_m, S, u_0, _ = scans[(m, d)]
+        f_m, rows = ops_m.meta.irreducible_poly_int, S.shape[0]
+        wide_ms = graph_ms(lambda: berlekamp_massey_scan(ops_m, S, u_0, d), 20)
+        wide_plain = cuda_ms(lambda: berlekamp_massey_scan_plain(ops_m, S, u_0, d), 2)
+        bnd_w = scan_bound(m, d, rows)
+        print(
+            f"[kernel] K8-B berlekamp_massey_scan m={m} d={d} ({rows}, {d - 1}), int64: kernel {wide_ms:.4f} ms by "
+            f"graph replay | plain {wide_plain:.3f} ms | bound {bnd_w[0]:.4f} ms ({bnd_w[1]}) | "
+            f"{scan_costs(m, f_m, d, rows, wide_ms)}",
+            flush=True,
+        )
     del scans, S, u_0, u_r
     torch.cuda.empty_cache()
 
@@ -1297,16 +1355,6 @@ def main() -> int:
         fn.launches = 0
     gen = torch.Generator(device=dev).manual_seed(40)
 
-    def ranks(B, n):
-        """Each row's positions in a random order: rank[i, j] is the place of
-        position j in row i's permutation."""
-        return torch.rand((B, n), generator=gen, device=dev).argsort(dim=1).argsort(dim=1)
-
-    def corrupt(data, hit, q):
-        """XOR a random nonzero symbol into the positions where ``hit`` holds."""
-        noise = torch.randint(1, q, data.shape, generator=gen, device=dev)
-        return data ^ torch.where(hit, noise, 0).to(data.dtype)
-
     def check_decode(code, label, msg, counts, dec, nerr):
         """Rows within the capability: their message and error count; rows
         beyond it: -1, or a codeword (a legal miscorrection)."""
@@ -1368,7 +1416,7 @@ def main() -> int:
     print(f"[main] RS(255,223) encode, {B} messages: {enc_ms:.3f} ms, {B / enc_ms * 1e3:.0f} codewords/s", flush=True)
     counts = torch.randint(0, rs.t + 1, (B,), generator=gen, device=dev)
     counts[::16] = 40
-    x = rs.field._view(corrupt(cw._data, ranks(B, rs.n) < counts[:, None], 256))
+    x = rs.field._view(corrupt(cw._data, ranks(B, rs.n, gen) < counts[:, None], 256, gen))
     rs_ms = timed_decode(rs, "RS(255,223) decode", x, msg, counts, {}, 3, scans=1, k8_max=4)
 
     # the erasure path: f erasures and e errors with 2e + f <= d - 1 = 32,
@@ -1376,13 +1424,30 @@ def main() -> int:
     msg2 = rs.field.Random((B, rs.k), generator=gen, device=dev)
     f_cnt = torch.randint(0, rs.d, (B,), generator=gen, device=dev)
     e_cnt = (torch.rand(B, generator=gen, device=dev) * ((rs.d - 1 - f_cnt) // 2 + 1)).long()
-    rk = ranks(B, rs.n)
+    rk = ranks(B, rs.n, gen)
     era = rk < f_cnt[:, None]
-    x2 = rs.field._view(corrupt(rs.encode(msg2)._data, rk < (f_cnt + e_cnt)[:, None], 256))
+    x2 = rs.field._view(corrupt(rs.encode(msg2)._data, rk < (f_cnt + e_cnt)[:, None], 256, gen))
     timed_decode(rs, "RS(255,223) decode with erasures", x2, msg2, e_cnt, {"erasures": era}, 3, scans=1, k8_max=6)
     del msg2, x2, era, rk
 
-    # one RS decode under torch.profiler: where the device time goes
+    B_b = 16384
+    msg_b = bch.field.Random((B_b, bch.k), generator=gen, device=dev)
+    cw_b = bch.encode(msg_b)
+    torch.cuda.synchronize()
+    enc_ms = cuda_ms(lambda: bch.encode(msg_b), 5)
+    if bch.detect(cw_b).any() or not torch.equal(cw_b._data[:, : bch.k], msg_b._data):
+        raise AssertionError("BCH(511,493) encode did not give systematic codewords")
+    print(f"[main] BCH(511,493) encode, {B_b} messages: {enc_ms:.3f} ms, {B_b / enc_ms * 1e3:.0f} codewords/s", flush=True)
+    counts_b = torch.randint(0, bch.t + 1, (B_b,), generator=gen, device=dev)
+    counts_b[::16] = torch.randint(bch.t + 1, 7, (B_b // 16,), generator=gen, device=dev)
+    x_b = bch.field._view(corrupt(cw_b._data, ranks(B_b, bch.n, gen) < counts_b[:, None], 2, gen))
+    bch_ms = timed_decode(bch, "BCH(511,493) decode", x_b, msg_b, counts_b, {}, 3, scans=1)
+
+    read_counts(4, (gf2m_multiply_swar, gf2m_multiply, gf2m_power, berlekamp_massey_scan))
+
+    # diagnostics of main path 4's decodes, after its counts are read, so
+    # that their launches are not counted as the main path's. First one RS
+    # decode under torch.profiler: where the device time goes
     try:
         from torch.profiler import ProfilerActivity, profile
 
@@ -1421,40 +1486,46 @@ def main() -> int:
     K = dec.consts(dev)
     r = x._data.flip(1)
     S = dec.fmatmul(r, K["W"])
-    u = torch.zeros(B, dtype=torch.int64, device=dev)
+    u = torch.zeros(x.shape[0], dtype=torch.int64, device=dev)
     C, v = dec.berlekamp_massey(S, u)
     stages = {
         "syndromes (bit-plane product)": lambda: dec.fmatmul(r, K["W"]),
         f"Berlekamp-Massey ({dec.nroots} steps, K8-B)": lambda: dec.berlekamp_massey(S, u),
         "Chien (bit-plane product)": lambda: dec.fmatmul(C, K["CH_T"]),
         "Chien, Forney and correction": lambda: dec.finish(x._data, r, C, S, C, v, u, 2 * v > dec.nroots),
-        f"one reciprocal of ({B}, {rs.n}) (Forney's shape, K8-A)": lambda: dec.ops.reciprocal(r),
-        f"one K8 multiply of ({B}, {rs.d}) x ({B}, 1)": lambda: dec.ops.multiply(C, S[:, :1]),
+        f"one reciprocal of ({x.shape[0]}, {rs.n}) (Forney's shape, K8-A)": lambda: dec.ops.reciprocal(r),
+        f"one K8 multiply of ({x.shape[0]}, {rs.d}) x ({x.shape[0]}, 1)": lambda: dec.ops.multiply(C, S[:, :1]),
     }
     print(
-        f"[main] RS(255,223) decode by stage, {B} codewords: "
+        f"[main] RS(255,223) decode by stage, {x.shape[0]} codewords: "
         + "; ".join(f"{name} {cuda_ms(fn, 3):.3f} ms" for name, fn in stages.items()),
         flush=True,
     )
     del dec, K, r, S, u, C, v, stages
-    del msg, cw, x
-    torch.cuda.empty_cache()
 
-    B = 16384
-    msg = bch.field.Random((B, bch.k), generator=gen, device=dev)
-    cw = bch.encode(msg)
-    torch.cuda.synchronize()
-    enc_ms = cuda_ms(lambda: bch.encode(msg), 5)
-    if bch.detect(cw).any() or not torch.equal(cw._data[:, : bch.k], msg._data):
-        raise AssertionError("BCH(511,493) encode did not give systematic codewords")
-    print(f"[main] BCH(511,493) encode, {B} messages: {enc_ms:.3f} ms, {B / enc_ms * 1e3:.0f} codewords/s", flush=True)
-    counts = torch.randint(0, bch.t + 1, (B,), generator=gen, device=dev)
-    counts[::16] = torch.randint(bch.t + 1, 7, (B // 16,), generator=gen, device=dev)
-    x = bch.field._view(corrupt(cw._data, ranks(B, bch.n) < counts[:, None], 2))
-    timed_decode(bch, "BCH(511,493) decode", x, msg, counts, {}, 3, scans=0)
-    del msg, cw, x
+    # BCH's decode stage by stage, as RS's above; its scan is K8-B over GF(2^9)
+    ext = bch.extension_field
+    dec = make_decoder(ext._meta, ext._mode, bch.field.order, bch.n, bch.n, bch.d, bch.c, int(bch.alpha), False)
+    K = dec.consts(dev)
+    r = x_b._data.flip(1).to(dec.dt)
+    S = dec.fmatmul(r, K["W"])
+    u = torch.zeros(B_b, dtype=torch.int64, device=dev)
+    C, v = dec.berlekamp_massey(S, u)
+    stages = {
+        "syndromes (bit-plane product)": lambda: dec.fmatmul(r, K["W"]),
+        f"Berlekamp-Massey ({dec.nroots} steps, K8-B)": lambda: dec.berlekamp_massey(S, u),
+        "Berlekamp-Massey by the plain torch loop": lambda: berlekamp_massey_scan_plain(dec.ops, S, u, dec.d),
+        "Chien (bit-plane product)": lambda: dec.fmatmul(C, K["CH_T"]),
+        "Chien, Forney and correction": lambda: dec.finish(x_b._data, r, C, S, C, v, u, 2 * v > dec.nroots),
+    }
+    print(
+        f"[main] BCH(511,493) decode by stage, {B_b} codewords ({bch_ms:.3f} ms a decode): "
+        + "; ".join(f"{name} {cuda_ms(fn, 3):.3f} ms" for name, fn in stages.items()),
+        flush=True,
+    )
+    del dec, K, r, S, u, C, v, stages
+    del msg, cw, x, msg_b, cw_b, x_b
     torch.cuda.empty_cache()
-    read_counts(4, (gf2m_multiply_swar, gf2m_multiply, gf2m_power, berlekamp_massey_scan))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),

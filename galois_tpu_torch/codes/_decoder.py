@@ -22,7 +22,8 @@ and digit planes (``ops/_digit_matmul.py``) for GF(p^m); every other field
 product is ``ops.multiply``, so GF(2^8) decoding launches K8 and GF(2^9)
 (BCH(511)) K7, and GF(2^m) reciprocals and powers (Forney's, Gamma's) K8-A.
 The scan (stage 4) is kernel K8-B for GF(2^m) inside
-``ops/_bm_scan.py::bm_scan_supports`` (m <= 8, d <= 65), on any device (the
+``ops/_bm_scan.py::bm_scan_supports`` (m <= 8 with d <= 65, 9 <= m <= 16
+with d <= 33: RS(255,223) and BCH(511,493) among them), on any device (the
 CPU runs its plain version), and elsewhere the plain loop of d - 1 batched
 torch steps. The host constants W, CH, FP, Y, LT and Vinv_T are built once
 per code and copied once to each device.

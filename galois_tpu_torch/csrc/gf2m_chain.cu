@@ -33,40 +33,59 @@
 // int32 rate of 132 SMs x 64 lanes x 1.98 GHz) against 0.010 ms of HBM.
 //
 // K8-B, berlekamp_massey_scan: the whole masked Berlekamp-Massey scan of the
-// batched RS/BCH decoder in one launch, for 2 <= m <= 8 and d - 1 <= 64.
-// Wrapper and plain torch version: ops/_bm_scan.py. It computes exactly what
-// berlekamp_massey_scan_plain (the decoder's loop) computes: with the
-// per-row erasure offset u, step t is a no-op while t < u, "grow" compares
-// 2 L against t - u, the B register is not shifted on inactive rows, and C
-// changes only where delta != 0. In: S' (B, d - 1) uint8, u (B,) int64; out:
-// C (B, d) uint8 and L (B,) int64. The JAX reference is the jitted lax.scan
-// berlekamp_massey of galois_tpu/codes/_decoder.py.
+// batched RS/BCH decoder in one launch, for 2 <= m <= 8 with d - 1 <= 64
+// and for 9 <= m <= 16 with d - 1 <= 32. Wrapper and plain torch version:
+// ops/_bm_scan.py. It computes exactly what berlekamp_massey_scan_plain (the
+// decoder's loop) computes: with the per-row erasure offset u, step t is a
+// no-op while t < u, "grow" compares 2 L against t - u, the B register is
+// not shifted on inactive rows, and C changes only where delta != 0. In: S'
+// (B, d - 1) and u (B,) int64; out: C (B, d) and L (B,) int64; S' and C in
+// the field's storage (uint8 for m <= 8, int64 above). The JAX reference is
+// the jitted lax.scan berlekamp_massey of galois_tpu/codes/_decoder.py.
 // Design: one codeword per thread. 65536 rows give some 500 threads per SM,
 // so the parallelism inside a row has to come from its words: C, B and the
-// reversed syndrome window W[i] = S'[t - i] live in NW-word register arrays
-// (NW a template parameter, the words of d elements rounded up to 2, 4, 9 or
-// 17), and each step's loops over words are unrolled with static indices.
-// Lanes per codeword (with __shfl_xor_sync for the dot) would need shuffles
-// for the window and B shifts that cross words at every step, for no fewer
-// operations. Per step t:
-//   - the window shifts up one byte across words (__funnelshift_l) and takes
-//     S'[t] into byte 0;
-//   - delta = sum_i C[i] S'[t - i]: the byte-slot carry-less products of the
-//     words (K8's nibble Karatsuba, unreduced) are XOR-summed, their bytes
-//     folded together, and one scalar reduction by f follows (the reduction
-//     is linear, so this equals summing K8's reduced products);
-//   - coef = delta * bb^(2^m - 2), the scalar form of K8-A's chain, inlined;
+// reversed syndrome window W[i] = S'[t - i] live in register arrays whose
+// loops over words are unrolled with static indices (m <= 8: NW words of
+// four bytes, the words of d elements rounded up to 2, 4, 9 or 17; above:
+// ND elements, one per 32-bit lane, d rounded up to 5, 9, 17 or 33). Lanes
+// per codeword (with __shfl_xor_sync for the dot) would need shuffles for
+// the window and B shifts that cross words at every step, for no fewer
+// operations. The block first stages the field's tables in shared memory,
+// in ops/_lookup.py::pack_tables' layout from the field's own EXP and LOG:
+// for m <= 8 the 2(q - 1) int32 byte rows (2 KB at q = 256), for m <= 14
+// the uint16 LOG and reduced EXP (64 KB at 2^14), for m = 15, 16 the INV
+// segment alone (128 KB at 2^16). Per step t:
+//   - the window shifts up one element and takes S'[t] into element 0;
+//   - delta = sum_i C[i] S'[t - i]: the carry-less products (m <= 8: K8's
+//     nibble Karatsuba in byte slots; above: the one-lane ladder) are
+//     XOR-summed unreduced, then reduced once (the reduction is linear, so
+//     this equals summing reduced products): for m <= 8 each bit m + j of
+//     the sum selects x^(m + j) mod f from a table in registers, above by
+//     reduce1's folds;
+//   - coef = delta / bb without a reciprocal chain: each row keeps
+//     kb = (q - 1) - LOG[bb] in a register, taken from the row of delta just
+//     read whenever the row grows (bb = delta), so coef = EXP[LOG delta + kb]
+//     is two dependent shared-memory reads (the byte rows' EXP is doubled;
+//     the uint16 EXP takes one conditional subtract). With INV staged alone
+//     the register holds INV[bb] and coef is one scalar product;
 //   - C' = C + (x B) coef: the multiply by the row's constant coef is a
-//     table of coef x^i (i < m) replicated into bytes, selected by the bits
-//     of each byte of x B; no reduction is needed;
+//     table of coef x^i (i < m), selected by the bits of each element of
+//     x B; no reduction is needed. For m <= 8 the table is m independent
+//     reads EXP[LOG coef + LOG x^i], each replicated into the four bytes by
+//     one byte permute; above m = 8 it is built from coef by m dependent
+//     shift steps;
 //   - the selects are per-row predicates.
 // At step t only elements 0..t + 1 of C and B, and 0..t of the window, can be
 // nonzero (degrees grow by at most one a step), so the words above them are
-// skipped; the test is uniform across the warp. S' is read once (byte loads
-// through L1, each a step ahead of its use), C and L written once. What bounds it: the
-// integer ALUs; RS(255,223) at B = 65536 is about 3.5e9 operations (about
-// 0.21 ms at the int32 rate), more than half of them in the per-step scalar
-// reciprocal, against 4.8 MB of HBM traffic (0.0014 ms).
+// skipped; the test is uniform across the warp. S' is read once (loads
+// through L1, each a step ahead of its use), C and L written once. What
+// bounds it: the integer ALUs; RS(255,223) at B = 65536 is about 0.9e9
+// operations (0.054 ms at the int32 rate of 132 SMs x 64 lanes x 1.98 GHz;
+// 1.8e9 with a reciprocal chain in the step) against 4.8 MB of HBM traffic
+// (0.0014 ms) and some 0.6 M shared-memory wavefronts (0.002 ms). With some
+// 4 warps a scheduler and a step chain of a few dozen dependent operations
+// and three dependent table reads, about two thirds of the operations bound
+// is reached.
 //
 // Both entry points return cudaGetLastError() after their launch.
 
@@ -80,8 +99,9 @@ namespace {
 
 constexpr int THREADS = 256;     // K8-A
 constexpr int SCALAR_ELEMS = 4;  // K8-A, 9 <= m <= 16: elements per thread
-constexpr int BM_THREADS = 64;   // K8-B: 1024 blocks for 65536 rows, about 8 per SM
+constexpr int BM_THREADS = 64;   // K8-B, m <= 8: 1024 blocks for 65536 rows, about 8 per SM
 constexpr int BM_BLOCKS_PER_SM = 8;  // so up to 128 registers a thread: no spills at 17 words
+constexpr int BM_WIDE_THREADS = 128;  // K8-B, 9 <= m <= 16: up to 3 x 33 elements in registers
 
 __host__ __device__ constexpr int top_bit(int x) { return x < 2 ? 0 : 1 + top_bit(x >> 1); }
 
@@ -364,12 +384,13 @@ __device__ __forceinline__ uint32_t clmul_sum(uint32_t ll, uint32_t hh, uint32_t
   }
 }
 
-// cx[i] = c x^i mod f in every byte, i < M: the table of a multiply by c.
-template <int M>
-__device__ __forceinline__ void const_table(uint32_t c, uint32_t f, uint32_t (&cx)[M]) {
+// cx[i] = c x^i mod f, i < N, f of degree M: the table of a multiply by c,
+// by N dependent steps.
+template <int M, int N = M>
+__device__ __forceinline__ void const_table(uint32_t c, uint32_t f, uint32_t (&cx)[N]) {
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
-    cx[i] = c * ONES;
+  for (int i = 0; i < N; ++i) {
+    cx[i] = c;
     c <<= 1;
     c ^= f & (0u - (c >> M));
   }
@@ -387,12 +408,27 @@ __device__ __forceinline__ uint32_t mul_const(uint32_t x, const uint32_t (&cx)[M
   return acc;
 }
 
-// One thread per codeword: element i of C, B and the window in byte i % 4 of
-// word i / 4.
+// x * c for one element in a lane: bit i of x selects cx[i], i < N.
+template <int N>
+__device__ __forceinline__ uint32_t mul_const1(uint32_t x, const uint32_t (&cx)[N]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc ^= cx[i] & (0u - ((x >> i) & 1u));
+  return acc;
+}
+
+// m <= 8, one thread per codeword: element i of C, B and the window in byte
+// i % 4 of word i / 4. T is pack_tables' 'bytes' layout, 2(q - 1) words:
+// byte 0 LOG[r], byte 1 EXP[r] (doubled), byte 2 (q - 1) - LOG[r]. The
+// multiply table by coef is m independent EXP reads.
 template <int M, int NW>
 __global__ void __launch_bounds__(BM_THREADS, BM_BLOCKS_PER_SM)
-bm_scan_kernel(const uint8_t* __restrict__ sp, const long long* __restrict__ u_in, uint8_t* __restrict__ c_out,
-               long long* __restrict__ l_out, long long rows, int d, uint32_t f, uint32_t r, int deg_r) {
+bm_scan_kernel(const uint8_t* __restrict__ sp, const long long* __restrict__ u_in, const uint32_t* __restrict__ tab,
+               uint8_t* __restrict__ c_out, long long* __restrict__ l_out, long long rows, int d, uint32_t r) {
+  constexpr uint32_t Q1 = (1u << M) - 1;
+  __shared__ uint32_t T[2 * Q1];
+  for (int i = threadIdx.x; i < static_cast<int>(2 * Q1); i += BM_THREADS) T[i] = __ldg(tab + i);
+  __syncthreads();
   const long long row = static_cast<long long>(blockIdx.x) * BM_THREADS + threadIdx.x;
   if (row >= rows) return;
   const int steps = d - 1;
@@ -402,7 +438,12 @@ bm_scan_kernel(const uint8_t* __restrict__ sp, const long long* __restrict__ u_i
 #pragma unroll
   for (int k = 0; k < NW; ++k) C[k] = 0, Bp[k] = 0, W[k] = 0;
   C[0] = 1, Bp[0] = 1;
-  One<M> bb{1u};
+  uint32_t lx[M];  // LOG[x^i]: x^i is the element 1 << i for i < m
+#pragma unroll
+  for (int i = 0; i < M; ++i) lx[i] = T[1u << i] & 0xFFu;
+  uint32_t xr[M - 1];  // x^(m + j) mod f: the reduction is linear in the bits above m
+  const_table<M, M - 1>(r, r ^ (1u << M), xr);
+  uint32_t nlb = Q1;  // (q - 1) - LOG[bb], bb = 1 at the start
   long long L = 0;
   uint32_t next = __ldg(s);  // S'[t + 1] is loaded during step t, off the critical path
   for (int t = 0; t < steps; ++t) {
@@ -420,9 +461,17 @@ bm_scan_kernel(const uint8_t* __restrict__ sp, const long long* __restrict__ u_i
     for (int k = 0; k < NW; ++k) {
       if (4 * k <= t) clmul_acc<M>(C[k], W[k], ll, hh, mm);
     }
-    const uint32_t delta = reduce1<M>(clmul_sum<M>(ll, hh, mm), r, deg_r);
+    const uint32_t sum = clmul_sum<M>(ll, hh, mm);
+    const uint32_t delta = (sum & Q1) ^ mul_const1<M - 1>(sum >> M, xr);
+    // coef = delta / bb = EXP[LOG delta + (q - 1) - LOG bb], and the table
+    // cx[i] = coef x^i = EXP[LOG coef + LOG x^i]: at delta = 0 it is not 0,
+    // but C keeps its value there (upd below)
+    const uint32_t w = T[delta];
+    uint32_t lc = (w & 0xFFu) + nlb;  // < 2(q - 1)
+    lc = lc >= Q1 ? lc - Q1 : lc;      // LOG coef
     uint32_t cx[M];
-    const_table<M>(mul(One<M>{delta}, inverse<M>(bb, r, deg_r), r, deg_r).x, f, cx);
+#pragma unroll
+    for (int i = 0; i < M; ++i) cx[i] = __byte_perm(T[lc + lx[i]], 0, 0x1111);  // byte 1 into all four
     const bool active = t >= u;  // rows with more erasures start later
     const bool upd = active && delta != 0;
     const bool grow = upd && 2 * L <= t - u;
@@ -437,7 +486,7 @@ bm_scan_kernel(const uint8_t* __restrict__ sp, const long long* __restrict__ u_i
         if (upd) C[k] = c_new;
       }
     }
-    if (grow) bb.x = delta, L = t - u + 1 - L;
+    if (grow) nlb = (w >> 16) & 0xFFu, L = t - u + 1 - L;  // bb = delta
   }
   uint8_t* c = c_out + row * d;
 #pragma unroll
@@ -446,6 +495,88 @@ bm_scan_kernel(const uint8_t* __restrict__ sp, const long long* __restrict__ u_i
     for (int j = 0; j < 4; ++j) {
       if (4 * k + j < d) c[4 * k + j] = static_cast<uint8_t>(C[k] >> (8 * j));
     }
+  }
+  l_out[row] = L;
+}
+
+// 9 <= m <= 16, int64 storage, one thread per codeword and one element of
+// C, B and the window per 32-bit lane (ND >= d of each). The table is
+// pack_tables' uint16 layout (LOG at [0, q), the reduced EXP at [q, 2q - 1),
+// INV at [2q, 3q)); the block stages LOG and EXP (m <= 14, at most 64 KB),
+// or INV alone for INV_FORM (m = 15, 16: LOG alone would be 128 KB at
+// 2^16), where coef = delta * INV[bb] is one scalar product.
+template <int M, int ND, bool INV_FORM>
+__global__ void __launch_bounds__(BM_WIDE_THREADS)
+bm_scan_wide_kernel(const long long* __restrict__ sp, const long long* __restrict__ u_in,
+                    const uint16_t* __restrict__ tab, long long* __restrict__ c_out, long long* __restrict__ l_out,
+                    long long rows, int d, uint32_t f, uint32_t r, int deg_r) {
+  constexpr uint32_t Q = 1u << M, Q1 = Q - 1;
+  constexpr int STAGED = INV_FORM ? Q : 2 * Q;  // uint16 entries
+  extern __shared__ uint4 smem[];
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(tab + (INV_FORM ? 2 * Q : 0));
+    for (int i = threadIdx.x; i < STAGED / 8; i += BM_WIDE_THREADS) smem[i] = __ldg(src + i);
+  }
+  __syncthreads();
+  const uint16_t* T = reinterpret_cast<const uint16_t*>(smem);
+  const long long row = static_cast<long long>(blockIdx.x) * BM_WIDE_THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int steps = d - 1;
+  const long long* s = sp + row * steps;
+  const long long u = __ldg(u_in + row);
+  uint32_t C[ND], Bp[ND], W[ND];
+#pragma unroll
+  for (int k = 0; k < ND; ++k) C[k] = 0, Bp[k] = 0, W[k] = 0;
+  C[0] = 1, Bp[0] = 1;
+  uint32_t kb = INV_FORM ? 1u : Q1;  // bb's key: INV[bb], or (q - 1) - LOG[bb]; bb = 1 at the start
+  long long L = 0;
+  uint32_t next = static_cast<uint32_t>(__ldg(s));
+  for (int t = 0; t < steps; ++t) {
+    const uint32_t s_t = next;
+    if (t + 1 < steps) next = static_cast<uint32_t>(__ldg(s + t + 1));
+#pragma unroll
+    for (int k = ND - 1; k > 0; --k) {
+      if (k <= t) W[k] = W[k - 1];
+    }
+    W[0] = s_t;
+    // delta: the XOR-sum of the unreduced products, reduced once
+    uint32_t acc = 0;
+#pragma unroll
+    for (int k = 0; k < ND; ++k) {
+      if (k <= t) acc ^= clmul1<M>(C[k], W[k]);
+    }
+    const uint32_t delta = reduce1<M>(acc, r, deg_r);
+    uint32_t coef, grown;  // grown: kb's value if the row grows (bb = delta)
+    if constexpr (INV_FORM) {
+      coef = reduce1<M>(clmul1<M>(delta, kb), r, deg_r);
+      grown = T[delta];
+    } else {
+      const uint32_t lg = T[delta];
+      uint32_t sc = lg + kb;
+      sc = sc >= Q1 ? sc - Q1 : sc;
+      coef = T[Q + sc];
+      grown = Q1 - lg;
+    }
+    uint32_t cx[M];
+    const_table<M>(coef, f, cx);
+    const bool active = t >= u;
+    const bool upd = active && delta != 0;
+    const bool grow = upd && 2 * L <= t - u;
+#pragma unroll
+    for (int k = ND - 1; k >= 0; --k) {
+      if (k <= t + 1) {
+        const uint32_t xb = k ? Bp[k - 1] : 0u;
+        const uint32_t c_new = C[k] ^ mul_const1<M>(xb, cx);
+        if (active) Bp[k] = grow ? C[k] : xb;
+        if (upd) C[k] = c_new;
+      }
+    }
+    if (grow) kb = grown, L = t - u + 1 - L;
+  }
+  long long* c = c_out + row * d;
+#pragma unroll
+  for (int k = 0; k < ND; ++k) {
+    if (k < d) c[k] = C[k];
   }
   l_out[row] = L;
 }
@@ -476,17 +607,40 @@ void launch_power(dim3 grid, cudaStream_t s, const void* a, long long a_rs, long
 }
 
 template <int M>
-void launch_bm(int nw, dim3 grid, cudaStream_t s, const uint8_t* sp, const long long* u, uint8_t* c, long long* l,
-               long long rows, int d, uint32_t f, uint32_t r, int deg_r) {
+void launch_bm(int nw, dim3 grid, cudaStream_t s, const uint8_t* sp, const long long* u, const uint32_t* tab,
+               uint8_t* c, long long* l, long long rows, int d, uint32_t r) {
   if (nw <= 2) {
-    bm_scan_kernel<M, 2><<<grid, BM_THREADS, 0, s>>>(sp, u, c, l, rows, d, f, r, deg_r);
+    bm_scan_kernel<M, 2><<<grid, BM_THREADS, 0, s>>>(sp, u, tab, c, l, rows, d, r);
   } else if (nw <= 4) {
-    bm_scan_kernel<M, 4><<<grid, BM_THREADS, 0, s>>>(sp, u, c, l, rows, d, f, r, deg_r);
+    bm_scan_kernel<M, 4><<<grid, BM_THREADS, 0, s>>>(sp, u, tab, c, l, rows, d, r);
   } else if (nw <= 9) {
-    bm_scan_kernel<M, 9><<<grid, BM_THREADS, 0, s>>>(sp, u, c, l, rows, d, f, r, deg_r);
+    bm_scan_kernel<M, 9><<<grid, BM_THREADS, 0, s>>>(sp, u, tab, c, l, rows, d, r);
   } else {
-    bm_scan_kernel<M, 17><<<grid, BM_THREADS, 0, s>>>(sp, u, c, l, rows, d, f, r, deg_r);
+    bm_scan_kernel<M, 17><<<grid, BM_THREADS, 0, s>>>(sp, u, tab, c, l, rows, d, r);
   }
+}
+
+template <int M, int ND>
+cudaError_t launch_wide_nd(dim3 grid, cudaStream_t s, const long long* sp, const long long* u, const uint16_t* tab,
+                           long long* c, long long* l, long long rows, int d, uint32_t f, uint32_t r, int deg_r) {
+  constexpr bool INV_FORM = M > 14;
+  constexpr int smem = (INV_FORM ? 1 : 2) * (1 << M) * static_cast<int>(sizeof(uint16_t));
+  auto kernel = bm_scan_wide_kernel<M, ND, INV_FORM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, BM_WIDE_THREADS, smem, s>>>(sp, u, tab, c, l, rows, d, f, r, deg_r);
+  return cudaSuccess;
+}
+
+template <int M>
+cudaError_t launch_wide(dim3 grid, cudaStream_t s, const long long* sp, const long long* u, const uint16_t* tab,
+                        long long* c, long long* l, long long rows, int d, uint32_t f, uint32_t r, int deg_r) {
+  if (d <= 5) return launch_wide_nd<M, 5>(grid, s, sp, u, tab, c, l, rows, d, f, r, deg_r);
+  if (d <= 9) return launch_wide_nd<M, 9>(grid, s, sp, u, tab, c, l, rows, d, f, r, deg_r);
+  if (d <= 17) return launch_wide_nd<M, 17>(grid, s, sp, u, tab, c, l, rows, d, f, r, deg_r);
+  return launch_wide_nd<M, 33>(grid, s, sp, u, tab, c, l, rows, d, f, r, deg_r);
 }
 
 int deg(uint32_t r) { return r ? 31 - __builtin_clz(r) : 0; }
@@ -522,26 +676,42 @@ extern "C" int gf2m_power_launch(const void* a, long long a_rs, long long a_cs, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8-B: the masked Berlekamp-Massey scan of `rows` codewords over GF(2^m),
-// 2 <= m <= 8, 2 <= d <= 65: sp (rows, d - 1) uint8, u (rows,) int64 in;
-// c (rows, d) uint8 and l (rows,) int64 out.
-extern "C" int bm_scan_launch(const uint8_t* sp, const long long* u, uint8_t* c, long long* l, long long rows, int d,
-                              int m, unsigned f, void* stream) {
-  if (rows <= 0 || d < 2 || d > 65 || m < 2 || m > 8 || (f >> m) != 1u) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (rows + BM_THREADS - 1) / BM_THREADS;
+// K8-B: the masked Berlekamp-Massey scan of `rows` codewords over GF(2^m):
+// sp (rows, d - 1) and c (rows, d) in the field's storage (uint8 for
+// 2 <= m <= 8, 2 <= d <= 65; int64 for 9 <= m <= 16, 2 <= d <= 33), u and l
+// (rows,) int64; tab is pack_tables' table for that storage (int32 byte rows,
+// or the 16-byte aligned uint16 segments).
+extern "C" int bm_scan_launch(const void* sp, const long long* u, const void* tab, void* c, long long* l,
+                              long long rows, int d, int m, unsigned f, void* stream) {
+  if (rows <= 0 || d < 2 || d > (m <= 8 ? 65 : 33) || m < 2 || m > 16 || (f >> m) != 1u || !tab ||
+      (m > 8 && !aligned16(tab))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = m <= 8 ? BM_THREADS : BM_WIDE_THREADS;
+  const long long blocks = (rows + threads - 1) / threads;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t r = f ^ (1u << m);
   const int nw = (d + 3) / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(blocks));
+  const auto* sp8 = static_cast<const uint8_t*>(sp);
+  const auto* tab32 = static_cast<const uint32_t*>(tab);
+  auto* c8 = static_cast<uint8_t*>(c);
+#define BM_CASE(M) \
+  case M: launch_bm<M>(nw, grid, s, sp8, u, tab32, c8, l, rows, d, r); break;
+#define BM_WIDE_CASE(M)                                                                                    \
+  case M:                                                                                                  \
+    e = launch_wide<M>(grid, s, static_cast<const long long*>(sp), u, static_cast<const uint16_t*>(tab),  \
+                       static_cast<long long*>(c), l, rows, d, f, r, deg(r));                              \
+    break;
+  cudaError_t e = cudaSuccess;
   switch (m) {
-    case 2: launch_bm<2>(nw, grid, s, sp, u, c, l, rows, d, f, r, deg(r)); break;
-    case 3: launch_bm<3>(nw, grid, s, sp, u, c, l, rows, d, f, r, deg(r)); break;
-    case 4: launch_bm<4>(nw, grid, s, sp, u, c, l, rows, d, f, r, deg(r)); break;
-    case 5: launch_bm<5>(nw, grid, s, sp, u, c, l, rows, d, f, r, deg(r)); break;
-    case 6: launch_bm<6>(nw, grid, s, sp, u, c, l, rows, d, f, r, deg(r)); break;
-    case 7: launch_bm<7>(nw, grid, s, sp, u, c, l, rows, d, f, r, deg(r)); break;
-    default: launch_bm<8>(nw, grid, s, sp, u, c, l, rows, d, f, r, deg(r)); break;
+    BM_CASE(2) BM_CASE(3) BM_CASE(4) BM_CASE(5) BM_CASE(6) BM_CASE(7) BM_CASE(8)
+    BM_WIDE_CASE(9) BM_WIDE_CASE(10) BM_WIDE_CASE(11) BM_WIDE_CASE(12) BM_WIDE_CASE(13) BM_WIDE_CASE(14)
+    BM_WIDE_CASE(15) BM_WIDE_CASE(16)
   }
+#undef BM_CASE
+#undef BM_WIDE_CASE
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

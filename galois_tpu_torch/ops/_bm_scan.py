@@ -8,8 +8,10 @@ batched torch steps over any field's ops; it follows the jitted ``lax.scan``
 ``berlekamp_massey_scan`` is the kernel's wrapper: CPU tensors take the plain
 version, CUDA tensors launch the kernel (counted in
 ``berlekamp_massey_scan.launches``) or raise. The kernel covers GF(2^m) with
-2 <= m <= 8 and d - 1 <= 64 (``bm_scan_supports``); the decoder keeps the
-plain scan outside that domain, on every device.
+2 <= m <= 8 and d - 1 <= 64, and 9 <= m <= 16 with d - 1 <= 32
+(``bm_scan_supports``); it reads the field's EXP and LOG in ``pack_tables``'
+layout (``ops.packed_tables``). The decoder keeps the plain scan outside
+that domain, on every device.
 """
 
 from __future__ import annotations
@@ -22,12 +24,13 @@ from ._elementwise import _chain_lib
 
 __all__ = ["bm_scan_supports", "berlekamp_massey_scan", "berlekamp_massey_scan_plain", "tree_sum"]
 
-MAX_D = 65  # d - 1 <= 64 syndromes: C and B in at most 17 words of four bytes
+MAX_D = 65  # m <= 8: d - 1 <= 64 syndromes, C and B in at most 17 words of four bytes
+MAX_D_WIDE = 33  # 9 <= m <= 16: one element a lane, C, B and the window in at most 3 x 33 registers
 
 
 def bm_scan_supports(m: int, d: int) -> bool:
     """Whether K8-B takes a code of design distance d over GF(2^m)."""
-    return 2 <= m <= 8 and 2 <= d <= MAX_D
+    return 2 <= m <= 16 and 2 <= d <= (MAX_D if m <= 8 else MAX_D_WIDE)
 
 
 def tree_sum(ops, x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -73,8 +76,8 @@ def berlekamp_massey_scan_plain(ops, Sp: torch.Tensor, u: torch.Tensor, d: int):
 
 def berlekamp_massey_scan(ops, Sp: torch.Tensor, u: torch.Tensor, d: int):
     """K8-B: ``berlekamp_massey_scan_plain``'s (C, L) for a field GF(2^m)
-    inside ``bm_scan_supports``; Sp (B, d - 1) uint8 and u (B,) int64 on one
-    device."""
+    inside ``bm_scan_supports``; Sp (B, d - 1) in the field's storage (uint8
+    for m <= 8, int64 above) and u (B,) int64 on one device."""
     if Sp.device.type == "cpu" and u.device.type == "cpu":
         return berlekamp_massey_scan_plain(ops, Sp, u, d)
     if Sp.device.type != "cuda" or u.device != Sp.device:
@@ -82,20 +85,25 @@ def berlekamp_massey_scan(ops, Sp: torch.Tensor, u: torch.Tensor, d: int):
     meta = ops.meta
     m = meta.degree
     if meta.characteristic != 2 or not bm_scan_supports(m, d):
-        raise ValueError(f"berlekamp_massey_scan: needs GF(2^m), 2 <= m <= 8, and 2 <= d <= {MAX_D}; got {meta.name}, d={d}.")
+        raise ValueError(
+            f"berlekamp_massey_scan: needs GF(2^m) with 2 <= m <= 8 and 2 <= d <= {MAX_D}, or 9 <= m <= 16 and "
+            f"2 <= d <= {MAX_D_WIDE}; got {meta.name}, d={d}."
+        )
     B = Sp.shape[0]
-    if Sp.dtype != torch.uint8 or u.dtype != torch.int64:
-        raise TypeError(f"berlekamp_massey_scan: Sp of {Sp.dtype} and u of {u.dtype}; need uint8 and int64.")
+    dt = torch.uint8 if m <= 8 else torch.int64
+    if Sp.dtype != dt or u.dtype != torch.int64:
+        raise TypeError(f"berlekamp_massey_scan: Sp of {Sp.dtype} and u of {u.dtype}; need {dt} and int64.")
     if Sp.shape != (B, d - 1) or u.shape != (B,):
         raise ValueError(f"berlekamp_massey_scan: Sp {tuple(Sp.shape)} and u {tuple(u.shape)}; need ({B}, {d - 1}) and ({B},).")
     Sp, u = Sp.contiguous(), u.contiguous()
-    C = torch.empty((B, d), dtype=torch.uint8, device=Sp.device)
+    C = torch.empty((B, d), dtype=dt, device=Sp.device)
     L = torch.empty(B, dtype=torch.int64, device=Sp.device)
     if B:
+        tables = ops.packed_tables(Sp.device)
         with torch.cuda.device(Sp.device):
             rc = _chain_lib().bm_scan_launch(
-                Sp.data_ptr(), u.data_ptr(), C.data_ptr(), L.data_ptr(), B, d, m, meta.irreducible_poly_int,
-                ctypes.c_void_p(torch.cuda.current_stream(Sp.device).cuda_stream),
+                Sp.data_ptr(), u.data_ptr(), tables.data_ptr(), C.data_ptr(), L.data_ptr(), B, d, m,
+                meta.irreducible_poly_int, ctypes.c_void_p(torch.cuda.current_stream(Sp.device).cuda_stream),
             )
         if rc != 0:
             raise RuntimeError(f"berlekamp_massey_scan: kernel launch failed with CUDA error {rc}.")

@@ -373,7 +373,7 @@ def _chain_lib():
     lib = load("gf2m_chain")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gf2m_power_launch.argtypes = [vp, i64, i64, vp, i64, i64, i32, vp, i64, i64, i32, ctypes.c_uint, vp]
-    lib.bm_scan_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, ctypes.c_uint, vp]
+    lib.bm_scan_launch.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, ctypes.c_uint, vp]
     lib.gf2m_power_launch.restype = lib.bm_scan_launch.restype = i32
     return lib
 

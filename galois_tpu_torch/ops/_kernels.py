@@ -228,6 +228,15 @@ class BinaryExtOps(FieldOps):
     def square(self, a):
         return gf2m_square_plain(a, self.m, self.f)
 
+    @functools.cached_property
+    def _tables(self) -> _Tables:
+        return _Tables(self.meta, *build_exp_log(self.meta))
+
+    def packed_tables(self, device: torch.device) -> torch.Tensor:
+        """This field's EXP and LOG on ``device`` in ``pack_tables``' layout
+        for its storage (m <= 16): the table K8-B stages."""
+        return self._tables.packed(device)
+
     def reciprocal(self, a):
         if self.m <= 16:
             return gf2m_power(a, None, self.m, self.f)

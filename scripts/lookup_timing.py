@@ -20,44 +20,15 @@ compared in one call: run it with each tree's path in turn.
 
 import inspect
 import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
+from _timing import card, eager_ms, graph_ms
 
 CASES = [
     (2**8, 2**24, 50), (3**5, 2**24, 50), (2**10, 2**24, 20), (2**16, 2**24, 20), (2**8, 2**20, 200), (2**8, 2**26, 20),
 ]
-
-
-def graph_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def eager_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -70,10 +41,7 @@ def main() -> int:
 
     label = sys.argv[1] if len(sys.argv) > 1 else gt.__file__
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     gen = torch.Generator(device=dev).manual_seed(7)
     for q, n, reps in CASES:
         F = gt.GF(q)

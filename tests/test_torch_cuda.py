@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import galois_tpu_torch as gt
-from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain
+from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain, bm_scan_supports
 from galois_tpu_torch.ops._elementwise import (
     device_probe,
     device_probe_plain,
@@ -233,27 +233,50 @@ def test_gf2m_power_kernel_matches_plain(cuda_device, m):
         gf2m_power(a.to(torch.int32), None, m, f)
 
 
-@pytest.mark.parametrize("m", [4, 8])
-@pytest.mark.parametrize("d", [3, 17, 33, 65])
+@pytest.mark.parametrize("m", [2, 4, 8, 9, 12, 16])
+@pytest.mark.parametrize("d", [2, 3, 5, 17, 33, 65])
 def test_bm_scan_kernel_matches_plain(cuda_device, m, d):
     """K8-B at (4099, d - 1): erasure offsets 0, d - 1, beyond and random;
-    rows whose discrepancies are all 0 or start with a run of 0s."""
+    rows whose discrepancies are all 0 or start with a run of 0s. Outside
+    the kernel's domain (d = 65 above m = 8) the wrapper raises."""
     F = gt.GF(2**m)
     ops = get_ops(F._meta, F._mode)
     g = torch.Generator(device=cuda_device).manual_seed(10 * m + d)
     rows = 4099
-    S = torch.randint(0, 2**m, (rows, d - 1), generator=g, device=cuda_device).to(torch.uint8)
+    S = torch.randint(0, 2**m, (rows, d - 1), generator=g, device=cuda_device).to(F._meta.torch_dtype)
     S[1] = 0
     S[2, : (d - 1) // 2] = 0
+    S[3] = 2**m - 1
     u = torch.randint(0, d + 2, (rows,), generator=g, device=cuda_device)
     u[:5] = torch.tensor([0, 0, 0, d - 1, d + 4])
+    if not bm_scan_supports(m, d):
+        with pytest.raises(ValueError):
+            berlekamp_massey_scan(ops, S, u, d)
+        return
     for uu in (u, torch.zeros_like(u)):
         launches = berlekamp_massey_scan.launches
         C, L = berlekamp_massey_scan(ops, S, uu, d)
         torch.cuda.synchronize()
         assert berlekamp_massey_scan.launches == launches + 1
         Cp, Lp = berlekamp_massey_scan_plain(ops, S, uu, d)
-        assert C.shape == (rows, d) and torch.equal(C, Cp) and torch.equal(L, Lp)
+        assert C.shape == (rows, d) and C.dtype == S.dtype and torch.equal(C, Cp) and torch.equal(L, Lp)
+
+
+def test_bch_511_493_decode_on_cuda_runs_the_scan_kernel_once(cuda_device):
+    """BCH(511,493) (GF(2^9), d = 5) on the card: one K8-B launch per decode
+    and no plain scan; the results equal the CPU's."""
+    bch = gt.BCH(511, 493)
+    rng = np.random.default_rng(9)
+    msg = rng.integers(0, 2, (300, bch.k))
+    cw = np.asarray(bch.encode(bch.field.from_numpy(msg, device="cpu"))).astype(np.int64)
+    for i in range(300):
+        cw[i, rng.choice(bch.n, size=i % 5, replace=False)] ^= 1
+    launches = berlekamp_massey_scan.launches
+    got, e_got = bch.decode(bch.field.from_numpy(cw, device=cuda_device), errors=True)
+    torch.cuda.synchronize()
+    assert berlekamp_massey_scan.launches == launches + 1
+    want, e_want = bch.decode(bch.field.from_numpy(cw, device="cpu"), errors=True)
+    assert np.array_equal(np.asarray(got), np.asarray(want)) and np.array_equal(e_got, e_want)
 
 
 def test_rs_decode_on_cuda_runs_the_scan_kernel_once(cuda_device):

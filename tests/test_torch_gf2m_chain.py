@@ -8,10 +8,15 @@ scan) of the torch port, through their plain versions on the CPU.
 - ``berlekamp_massey_scan_plain`` on random syndromes (not from codewords)
   against a per-row Berlekamp-Massey on host field ints written here, with
   erasure offsets u = 0, d - 1, beyond d - 1 and random, and rows whose
-  discrepancy is 0; d in {3, 17, 33, 65}, m in {4, 8}.
+  discrepancy is 0; d in {3, 17, 33, 65}, m in {4, 8, 9, 16}.
+- K8-B's table step emulated in plain torch on ``pack_tables``' layout (the
+  kernel's LOG/EXP indices, its (q-1) - LOG[bb] register, the doubled EXP of
+  the byte rows, the INV form of GF(2^15) and GF(2^16)) against
+  ``berlekamp_massey_scan_plain`` for m = 2..16 over the kernel's d range.
 - RS(255,191) (d = 65, the kernel's edge) and RS(255,187) (d = 69, the
   plain scan on every device) decoded with errors and erasures against the
-  JAX package.
+  JAX package; BCH(511,493) (m = 9, d = 5) routed to K8-B, with t and t + 1
+  errors.
 - ``bm_scan_supports`` on a grid; the routing of ``BinaryExtOps.reciprocal``,
   ``power`` and ``power_static`` and of the decoder's scan.
 
@@ -29,6 +34,8 @@ from galois_tpu.ops._kernels import get_ops as jax_get_ops
 from galois_tpu_torch.codes._decoder import make_decoder
 from galois_tpu_torch.ops import _kernels
 from galois_tpu_torch.ops._bm_scan import (
+    MAX_D,
+    MAX_D_WIDE,
     berlekamp_massey_scan,
     berlekamp_massey_scan_plain,
     bm_scan_supports,
@@ -131,27 +138,137 @@ def _host_bm(hf, S, u, d):
     return C, L
 
 
-@pytest.mark.parametrize("m", [4, 8])
-@pytest.mark.parametrize("d", [3, 17, 33, 65])
-def test_scan_plain_matches_host_berlekamp_massey(m, d):
-    rng = np.random.default_rng(10 * m + d)
-    rows = 24
+def _scan_inputs(m, d, rows, seed):
+    """Random S' (rows, d - 1) with an all-zero row and a row that starts
+    with a run of zeros, and offsets u with 0, d - 1 and past d - 1."""
+    rng = np.random.default_rng(seed)
     S = rng.integers(0, 2**m, (rows, d - 1))
     S[1] = 0  # every discrepancy 0
     S[2, : (d - 1) // 2] = 0  # a run of zero discrepancies first
     u = rng.integers(0, d + 2, rows)
     u[:5] = [0, 0, 0, d - 1, d + 4]
+    return S, u
+
+
+@pytest.mark.parametrize("m", [4, 8, 9, 16])
+@pytest.mark.parametrize("d", [3, 17, 33, 65])
+def test_scan_plain_matches_host_berlekamp_massey(m, d):
+    rows = 24
+    S, u = _scan_inputs(m, d, rows, 10 * m + d)
     F = gt.GF(2**m)
-    C, L = berlekamp_massey_scan_plain(get_ops(F._meta, F._mode), torch.from_numpy(S).to(torch.uint8), torch.from_numpy(u), d)
-    assert C.shape == (rows, d) and C.dtype == torch.uint8 and L.dtype == torch.int64
+    C, L = berlekamp_massey_scan_plain(get_ops(F._meta, F._mode), torch.from_numpy(S).to(_dt(m)), torch.from_numpy(u), d)
+    assert C.shape == (rows, d) and C.dtype == _dt(m) and L.dtype == torch.int64
     hf = get_host_field(gj.GF(2**m)._meta)
     for i in range(rows):
         c, l = _host_bm(hf, [int(v) for v in S[i]], int(u[i]), d)
         assert C[i].tolist() == c and int(L[i]) == l, i
     # the wrapper serves CPU tensors with the plain version and counts nothing
     launches = berlekamp_massey_scan.launches
-    C2, L2 = berlekamp_massey_scan(get_ops(F._meta, F._mode), torch.from_numpy(S).to(torch.uint8), torch.from_numpy(u), d)
+    C2, L2 = berlekamp_massey_scan(get_ops(F._meta, F._mode), torch.from_numpy(S).to(_dt(m)), torch.from_numpy(u), d)
     assert berlekamp_massey_scan.launches == launches and torch.equal(C2, C) and torch.equal(L2, L)
+
+
+def _scan_by_tables(ops, S, u, d):
+    """K8-B's scan as the kernel computes it, in plain torch: the table is
+    ``ops.packed_tables``' layout, read at the kernel's indices. Per row the
+    kernel keeps kb = (q-1) - LOG[bb] (bb = 1 at the start, so kb = q-1)
+    and takes coef = EXP[LOG[delta] + kb]: from the doubled EXP of the byte
+    rows for m <= 8, whose multiply table is EXP[LOG coef + LOG[x^i]]; from
+    the reduced EXP after one conditional subtract for 9 <= m <= 14. For
+    m = 15, 16 kb is INV[bb] and coef = delta * kb. For m <= 8 delta is the
+    XOR of the unreduced carry-less products, reduced by the table of
+    x^(m + j) mod f. Every index is checked against the table's rows, and
+    coef is 0 where delta is 0."""
+    meta = ops.meta
+    m, f = meta.degree, meta.irreducible_poly_int
+    q1 = 2**m - 1
+    tab = ops.packed_tables(S.device).to(torch.int64)
+    if m <= 8:
+        assert tab.shape == (2 * q1,)
+        LOG, EXP, NLOG = tab & 0xFF, (tab >> 8) & 0xFF, (tab >> 16) & 0xFF
+        lx = [int(LOG[1 << i]) for i in range(m)]
+        xr = [f ^ (1 << m)]  # x^(m + j) mod f, j < m - 1
+        for _ in range(m - 2):
+            c = xr[-1] << 1
+            xr.append(c ^ f if c >> m else c)
+    else:
+        tab = tab & 0xFFFF
+        LOG, EXP, INV = tab[: q1 + 1], tab[q1 + 1 : 2 * q1 + 1], tab[2 * q1 + 2 : 3 * q1 + 3]
+    rows, dt = S.shape[0], S.dtype
+    C = torch.zeros((rows, d), dtype=torch.int64)
+    C[:, 0] = 1
+    Bp = C.clone()
+    L = torch.zeros(rows, dtype=torch.int64)
+    kb = torch.full((rows,), 1 if m > 14 else q1, dtype=torch.int64)
+    Sl = S.to(torch.int64)
+    for t in range(d - 1):
+        if m <= 8:  # the unreduced carry-less sum, then the linear map of its high bits
+            a, b = C[:, : t + 1], Sl[:, : t + 1].flip(1)
+            acc = torch.zeros_like(a)
+            for i in range(m):
+                acc ^= torch.where((b >> i) & 1 == 1, a << i, 0)
+            total = torch.zeros(rows, dtype=torch.int64)
+            for i in range(t + 1):
+                total ^= acc[:, i]
+            delta = total & q1
+            for j in range(m - 1):
+                delta ^= torch.where((total >> (m + j)) & 1 == 1, xr[j], 0)
+        else:
+            prods = ops.multiply(C[:, : t + 1].to(dt), Sl[:, : t + 1].flip(1).to(dt)).to(torch.int64)
+            delta = torch.zeros(rows, dtype=torch.int64)
+            for i in range(t + 1):
+                delta ^= prods[:, i]
+        if m <= 8:
+            sc = LOG[delta] + kb
+            assert int(sc.max()) < 2 * q1  # inside the doubled EXP
+            lc = torch.where(sc >= q1, sc - q1, sc)
+            cx = [EXP[lc + lx[i]] for i in range(m)]
+            assert torch.equal(cx[0], EXP[sc])  # LOG[x^0] = 0: the first entry is coef
+            grown = NLOG[delta]
+        else:
+            if m <= 14:
+                lg = LOG[delta]
+                sc = lg + kb
+                assert int(sc.max()) < 2 * q1
+                coef = EXP[torch.where(sc >= q1, sc - q1, sc)]
+                grown = q1 - lg
+            else:
+                coef = ops.multiply(delta, kb)
+                grown = INV[delta]
+            cx, c = [], coef
+            for i in range(m):  # the kernel's const_table: coef x^i mod f
+                cx.append(c)
+                c = c << 1
+                c = c ^ torch.where((c >> m) & 1 == 1, f, 0)
+        cx = [torch.where(delta == 0, 0, c) for c in cx]
+        xB = torch.cat([torch.zeros((rows, 1), dtype=torch.int64), Bp[:, :-1]], dim=1)
+        prod = torch.zeros_like(xB)
+        for i in range(m):
+            prod ^= torch.where((xB >> i) & 1 == 1, cx[i][:, None], 0)
+        active = t >= u
+        upd = active & (delta != 0)
+        grow = upd & (2 * L <= t - u)
+        Bp = torch.where(active[:, None], torch.where(grow[:, None], C, xB), Bp)
+        kb = torch.where(grow, grown, kb)
+        L = torch.where(grow, t - u + 1 - L, L)
+        C = torch.where(upd[:, None], C ^ prod, C)
+    return C.to(dt), L
+
+
+@pytest.mark.parametrize("m", range(2, 17))
+def test_scan_table_step_matches_plain(m):
+    """The kernel's table step (``_scan_by_tables``) equals the plain scan
+    at the short, middle and longest d of K8-B's domain for this m."""
+    F = gt.GF(2**m)
+    ops = get_ops(F._meta, F._mode)
+    for d in (2, 5, 17, MAX_D if m <= 8 else MAX_D_WIDE):
+        assert bm_scan_supports(m, d)
+        S, u = _scan_inputs(m, d, 40, 1000 * m + d)
+        S[3] = 2**m - 1
+        St, ut = torch.from_numpy(S).to(_dt(m)), torch.from_numpy(u)
+        C, L = _scan_by_tables(ops, St, ut, d)
+        Cp, Lp = berlekamp_massey_scan_plain(ops, St, ut, d)
+        assert torch.equal(C, Cp) and torch.equal(L, Lp), d
 
 
 def _rs_words(code, rows, seed):
@@ -197,15 +314,43 @@ def test_rs_at_and_past_the_scan_edge_matches_jax(k):
 
 def test_scan_supports_grid():
     # the codes: RS(255,223) and CCSDS, RS(255,191), QR-class and DVB
-    # (m = 8); the tests' RS(15,11) and RS(31,25); BCH(511) (m = 9) and
-    # d = 69 are outside; so are GF(2) and d = 1
+    # (m = 8); the tests' RS(15,11) and RS(31,25); BCH(511,493) (m = 9,
+    # d = 5) and GF(2^16) codes up to d = 33; d = 69 at m = 8, d = 34 above
+    # it, GF(2), GF(2^17) and d = 1 are outside
     cases = {(8, 33): True, (8, 65): True, (8, 17): True, (4, 5): True, (5, 7): True, (2, 2): True,
-             (8, 69): False, (8, 66): False, (9, 5): False, (16, 9): False, (1, 3): False, (8, 1): False}
+             (9, 5): True, (16, 9): True, (16, 33): True, (12, 2): True,
+             (8, 69): False, (8, 66): False, (9, 34): False, (16, 65): False, (17, 5): False, (1, 3): False,
+             (8, 1): False}
     for (m, d), want in cases.items():
         assert bm_scan_supports(m, d) is want, (m, d)
     for m in range(1, 18):
         for d in range(1, 80):
-            assert bm_scan_supports(m, d) == (2 <= m <= 8 and 2 <= d <= 65)
+            assert bm_scan_supports(m, d) == (2 <= d <= 65 if 2 <= m <= 8 else 9 <= m <= 16 and 2 <= d <= 33)
+
+
+def test_bch_511_493_routes_to_the_scan_kernel_and_matches_jax():
+    """BCH(511,493): GF(2^9) syndromes, d = 5, inside K8-B's domain, so its
+    decoder takes the kernel's wrapper (the CPU runs the plain version);
+    rows with t and t + 1 bit errors decode as the JAX package's do."""
+    ct, cj = gt.BCH(511, 493), gj.BCH(511, 493)
+    ext = ct.extension_field
+    assert (ext.degree, ct.d, ct.t) == (9, 5, 2)
+    dec = make_decoder(ext._meta, ext._mode, 2, 511, 511, ct.d, ct.c, int(ct.alpha), False)
+    assert dec._scan is berlekamp_massey_scan
+    rng = np.random.default_rng(511)
+    rows = 8
+    msg = rng.integers(0, 2, (rows, ct.k))
+    cw = np.asarray(cj.encode(cj.field(msg))).astype(np.int64)
+    counts = [0, 1, ct.t, ct.t + 1, ct.t, ct.t + 1, 1, ct.t + 1]
+    for i, e in enumerate(counts):
+        cw[i, rng.choice(511, size=e, replace=False)] ^= 1
+    launches = berlekamp_massey_scan.launches
+    dt, et = ct.decode(ct.field.from_numpy(cw), errors=True)
+    dj, ej = cj.decode(cj.field(cw), errors=True)
+    assert berlekamp_massey_scan.launches == launches  # the plain version on the CPU
+    assert np.array_equal(np.asarray(dt), np.asarray(dj)) and np.array_equal(et, ej)
+    ok = np.asarray(counts) <= ct.t
+    assert np.array_equal(np.asarray(dt)[ok], msg[ok]) and np.array_equal(et[ok], np.asarray(counts)[ok])
 
 
 @pytest.mark.parametrize("m", [2, 8, 9, 16, 17])
