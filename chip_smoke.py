@@ -17,11 +17,15 @@ Phases, each fatal on failure:
      launch floor), and compiles the Triton kernel;
   3. kernels: every kernel against its plain torch version on the card, at
      the main paths' shapes plus small and ragged ones; results must be
-     exactly equal. K8 (GF(2^m) multiply, m <= 8, four elements per word) at
-     2^24, at a ragged 1,000,003, on an unaligned view and at the RS
-     decoder's (65536, 33) shape, then K8, K7 and K3 timed on the same GF(2^8)
-     inputs; K7 (GF(2^m) multiply, 9 <= m <= 16) on GF(2^9) at 2^24 and at
-     the BCH decoder's shape; an int8 GEMM yardstick (torch._int_mm, the
+     exactly equal. K8 (GF(2^m) multiply, m <= 8, by the field's byte rows)
+     at every m on every layout kind (a ragged length, a view one element
+     in, one element, row and column broadcasts, the three-axis outer
+     product, an inner axis below 16, four axes), at 2^24 and at the RS
+     decoder's own launches (the outer product (65536, 32, 33), Forney's
+     (65536, 255) times (1, 255) and (65536, 255), the derivative's (65536,
+     32) times (1, 32)), timed there through the wrapper, then K8, K7 and
+     K3 timed on the same GF(2^8) inputs; K7 (GF(2^m) multiply, 9 <= m <=
+     16) on GF(2^9) at 2^24 and at the BCH decoder's shape; an int8 GEMM yardstick (torch._int_mm, the
      MACs of one NTT side; not the same function); K1 and K2 (NTT sides)
      and their prologue, the digit split, at the NTT's shapes and ragged
      ones with 3, 4 and 5 planes, raw and K-major tables, timed at 4096^3 x 4
@@ -45,20 +49,27 @@ Phases, each fatal on failure:
      and a ragged 1,000,003 with their edge values. Prints CUDA-event times
      of kernel and plain version (elementwise kernels timed by CUDA graph
      replay, so that host time per call does not hide them).
-     K8-A (the GF(2^m) power chain) on GF(2^8) at 2^24 (reciprocal and an
-     exponent tensor), at Forney's (65536, 255), a 0-D base against an
-     exponent tensor, and every m = 2..16 over all its elements on a ragged
-     view one element off alignment; timed beside K5 (the table reciprocal)
-     on the same inputs. K8-B (the Berlekamp-Massey scan) at RS(255,223)'s
+     K8-A (the GF(2^m) reciprocal and powers, by the field's tables) on
+     GF(2^8) at 2^24 (reciprocal and an exponent tensor), at Forney's
+     (65536, 255), a 0-D base against an exponent tensor, and every m =
+     2..16 over all its elements: the reciprocal aligned or not, by stride
+     and transposed, of 0; 64-bit exponents, the exponents 0, 1, q - 1, q
+     and 2^63 - 1 with nbits 0, m and 64, a = 0, exponents broadcast over
+     three axes and over four (materialized); timed beside K5 (the table
+     reciprocal without the zero mask) on the same inputs, and on int64 at
+     GF(2^16) 2^24 and BCH(511,493)'s (16384, 511) over GF(2^9) beside
+     torch.take of the reciprocal table;
+     K8-B (the Berlekamp-Massey scan) at RS(255,223)'s
      (65536, 32) with u = 0 and random u, at d = 65, at m = 4, and on int64
      storage at GF(2^9) (BCH(511,493)'s (16384, 4) and d = 33), GF(2^12) and
      GF(2^16); timed at RS(255,223)'s shape, d = 65, BCH(511,493)'s and
      GF(2^16) d = 33, with the table form's operations and shared-memory
      wavefronts beside the operations of the form with a reciprocal chain.
-     K7, K8, K8-A and K8-B are bounded by their bytes; the integer operations
-     of their own forms, at the int32 rate of 132 SMs x 64 lanes at the
-     card's maximum SM clock (nvidia-smi), are printed beside as counts of
-     the form, not bounds on the map;
+     K7, K8, K8-A and K8-B are bounded by their bytes and, for the table
+     forms, their shared-memory reads (wavefronts at one a clock per SM);
+     the integer operations of K7's and K8-B's own forms, at the int32 rate
+     of 132 SMs x 64 lanes at the card's maximum SM clock (nvidia-smi), are
+     printed beside as counts of the form, not bounds on the map;
   4. main path 1, through the public API with every launch counter reset to
      0 first: GF(2^8) multiply of 2^24 elements, then np.fft.fft / ifft over
      GF(3*2^30+1) at N = 2^20 (batch 32) and N = 2^24 (batch 4) and ntt /
@@ -141,15 +152,13 @@ def bound(nbytes, ops=0, wavefronts=0):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-# 32-bit integer operations of the GF(2^m) chains of csrc/gf2m_swar.cuh and
-# csrc/gf2m_chain.cu, counted line by line as the int32 pipe would run them
-# at best: one per shift (SHF), one per bitwise function of up to three
-# inputs, an immediate mask included (LOP3), one per add or subtract
-# (IADD3); multiplies (bit * 255, c * 0x01010101, the exponent's modulo) run
-# on the FMA pipe and count 0, and so does loop control. The compiler cannot
-# do with fewer, so the time at 64 int32 lanes per SM is a lower bound for
-# that form; it does not bound the map, which a table form computes with
-# fewer (K3 and K5 on the same GF(2^8) inputs), so bounds count bytes.
+# 32-bit integer operations of K8-B's forms (csrc/gf2m_chain.cu), counted
+# line by line as the int32 pipe would run them at best: one per shift
+# (SHF), one per bitwise function of up to three inputs, an immediate mask
+# included (LOP3), one per add or subtract (IADD3); multiplies run on the
+# FMA pipe and count 0, and so does loop control. The time at 64 int32
+# lanes per SM is a count for that form; it does not bound the scan, so
+# bounds count bytes.
 
 def nib_ops(n):
     """nib_ladder<n>: per step a shift of y, an AND, a shift of x and one
@@ -170,33 +179,17 @@ def fold_costs(m, f):
 
 
 def chain_costs(m, f):
-    """Operations of K8-A's and K8-B's pieces for GF(2^m) with f: a product
-    and a square per word of four elements (m <= 8), per element in a lane,
-    and the squares and products of the Itoh-Tsujii chain."""
+    """Operations of one-element pieces for GF(2^m) with f: a product and a
+    square in a lane, and the squares and products of the Itoh-Tsujii
+    chain (K8-B's form with a reciprocal in the step)."""
     rounds, per_round = fold_costs(m, f)
-    fold_word = rounds * per_round
-    if m <= 4:
-        mul4, sqr4 = nib_ops(m) + fold_word, 4 + fold_word
-    else:  # nibbles 6, three ladders, mid's XORs 3, re-slotting 12, recombining 2; two slot words
-        mul4 = 23 + 2 * nib_ops(4) + nib_ops(m - 4) + 2 * fold_word
-        sqr4 = 17 + 2 * fold_word  # bytes to slots 3, spreads 12, recombining 2
     red1 = rounds * (per_round - 1)  # reduce1: one element, no mask after c >> m
     sq, pr, k = 1, 0, 1  # the final square
     for bit in bin(m - 1)[3:]:
         sq, pr, k = sq + k, pr + 1, 2 * k
         if bit == "1":
             sq, pr, k = sq + 1, pr + 1, k + 1
-    return {"mul4": mul4, "sqr4": sqr4, "mul1": 5 * m - 2 + red1, "sqr1": 8 + red1, "inv_sq": sq, "inv_mul": pr}
-
-
-def power_ops(m, f, n, exponent):
-    """K8-A on n elements, m <= 8: the reciprocal, or the exponent ladder (m
-    products with 3 for each byte-mask select, m - 1 squares, 10 per element
-    to mask, reduce and pack the exponent)."""
-    c, words = chain_costs(m, f), -(-n // 4)
-    if exponent:
-        return words * (m * (c["mul4"] + 3) + (m - 1) * c["sqr4"]) + 10 * n
-    return words * (c["inv_sq"] * c["sqr4"] + c["inv_mul"] * c["mul4"])
+    return {"mul1": 5 * m - 2 + red1, "sqr1": 8 + red1, "inv_sq": sq, "inv_mul": pr}
 
 
 def scan_ops_reciprocal(m, f, d, rows):
@@ -477,19 +470,36 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     a8 = torch.randint(0, 256, (2**24,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
     b8 = torch.randint(0, 256, (2**24,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
-    # K8: its 16-byte path at 2^24, the byte tail at a ragged 1,000,003, byte
-    # loads throughout on a view one byte off alignment, the RS decoder's
-    # (65536, 33) times (65536, 1), and every m < 8 at the ragged length
-    k8_cases = [
-        (8, f8, "n=2^24", a8, b8),
-        (8, f8, "ragged n=1,000,003", a8[:1_000_003], b8[:1_000_003]),
-        (8, f8, "unaligned view n=2^24-1", a8[1:], b8[:-1]),
-        (8, f8, "(65536, 33) x (65536, 1)", a8[: 65536 * 33].reshape(65536, 33), b8[:65536].reshape(65536, 1)),
-    ]
-    for m in range(2, 8):
-        mask = 2**m - 1
-        k8_cases.append((m, gt.GF(2**m)._meta.irreducible_poly_int, "ragged n=1,000,003",
-                         a8[:1_000_003] & mask, b8[:1_000_003] & mask))
+    # K8: every m = 2..8 on every layout kind (whole tensors with a ragged
+    # tail, a view one element in, one element, a row and a column
+    # broadcast, the three-axis outer product, an inner axis below 16, four
+    # axes, which the wrapper materializes); GF(2^8) at 2^24 and at the RS
+    # decoder's own launches (B = 65536): the outer product of conv_trunc,
+    # the derivative's and Forney's products
+    B_k8 = 65536
+    k8_main = {  # (a, b, b's LOG read twice a run of 16: the operand constant along the inner axis)
+        "outer product (65536, 1, 33) x (65536, 32, 1)":
+            (a8[: B_k8 * 33].reshape(B_k8, 1, 33), b8[: B_k8 * 32].reshape(B_k8, 32, 1), True),
+        "Forney's (65536, 255) x (1, 255)": (a8[: B_k8 * 255].reshape(B_k8, 255), b8[:255].reshape(1, 255), False),
+        "Forney's (65536, 255) x (65536, 255)":
+            (a8[: B_k8 * 255].reshape(B_k8, 255), b8[: B_k8 * 255].reshape(B_k8, 255), False),
+        "derivative (65536, 32) x (1, 32)": (a8[: B_k8 * 32].reshape(B_k8, 32), b8[:32].reshape(1, 32), False),
+    }
+    k8_layouts = {
+        "ragged n=1,000,003": lambda x, y: (x[:1_000_003], y[:1_000_003]),
+        "view one element in": lambda x, y: (x[1:1_000_001], y[3:1_000_003]),
+        "one element": lambda x, y: (x[5:6], y[:100_003]),
+        "row broadcast (4096, 255) x (1, 255)": lambda x, y: (x[: 4096 * 255].reshape(4096, 255), y[:255].reshape(1, 255)),
+        "column broadcast (4096, 33) x (4096, 1)": lambda x, y: (x[: 4096 * 33].reshape(4096, 33), y[:4096].reshape(4096, 1)),
+        "outer product (4096, 1, 33) x (4096, 32, 1)":
+            lambda x, y: (x[: 4096 * 33].reshape(4096, 1, 33), y[: 4096 * 32].reshape(4096, 32, 1)),
+        "inner axis of 5 (4096, 3, 5)": lambda x, y: (x[: 4096 * 5].reshape(4096, 1, 5), y[: 4096 * 3].reshape(4096, 3, 1)),
+        "four axes, materialized": lambda x, y: (x[: 64 * 16].reshape(64, 1, 16, 1), y[: 7 * 9].reshape(1, 7, 1, 9)),
+    }
+    k8_cases = [(8, f8, "n=2^24", a8, b8)] + [(8, f8, tag, x, y) for tag, (x, y, _) in k8_main.items()]
+    for m in range(2, 9):
+        mask, f_m = 2**m - 1, gt.GF(2**m)._meta.irreducible_poly_int
+        k8_cases += [(m, f_m, tag, *lay(a8 & mask, b8 & mask)) for tag, lay in k8_layouts.items()]
     for m, f, tag, x, y in k8_cases:
         got = gf2m_multiply_swar(x, y, m, f)
         torch.cuda.synchronize()
@@ -498,26 +508,36 @@ def main() -> int:
         print(f"[kernel] K8 gf2m_multiply_swar m={m} {tag}: max_abs_err {err} (against its plain version and the ladder)", flush=True)
         if err:
             raise AssertionError(f"K8 disagrees with its plain version at m = {m}, {tag}")
-    del got
+    del got, k8_cases
+
+    def k8_bound(x, y, row_const=False):
+        """(ms, what) of K8: each operand's elements read once by stride, the
+        output written once, the byte rows' 2(q - 1) words; three table reads
+        an output at one conflict-free wavefront a warp (LOG b twice a run of
+        16 where b is constant along the inner axis)."""
+        n = max(x.numel(), y.numel(), torch.broadcast_shapes(x.shape, y.shape).numel())
+        reads = n * (2 + (2 / 16 if row_const else 1))
+        return bound(x.numel() + y.numel() + n + 2 * 255 * 4, wavefronts=reads / 32)
+
     k8 = graph_ms(lambda: gf2m_multiply_swar(a8, b8, 8, f8), 50)
     k8_eager = cuda_ms(lambda: gf2m_multiply_swar(a8, b8, 8, f8), 50)
     pms = cuda_ms(lambda: gf2m_multiply_swar_plain(a8, b8, 8, f8), 5)
-    k8_ops = chain_costs(8, f8)["mul4"] * 2**22  # one product a word of four elements
-    record("gf2m_multiply_swar", 0, k8, pms, bound(3 * 2**24))
+    bnd = k8_bound(a8, b8)
+    record("gf2m_multiply_swar", 0, k8, pms, bnd)
     print(
         f"[kernel] K8 gf2m_multiply_swar m=8 n=2^24: kernel {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
-        f"plain {pms:.4f} ms | {bounds_text(3 * 2**24, k8_ops, k8)}",
+        f"plain {pms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at {bnd[0] / k8:.0%}",
         flush=True,
     )
-    # the shape of most of K8's main-path launches: the RS decoder's scan
-    xd, yd = a8[: 65536 * 33].reshape(65536, 33), b8[:65536].reshape(65536, 1)
-    k8_dec = graph_ms(lambda: gf2m_multiply_swar(xd, yd, 8, f8), 50)
-    dec_bytes, dec_ops = 2 * xd.numel() + yd.numel(), chain_costs(8, f8)["mul4"] * -(-xd.numel() // 4)
-    print(
-        f"[kernel] K8 gf2m_multiply_swar m=8 at the RS decoder's (65536, 33) x (65536, 1): kernel {k8_dec:.4f} ms "
-        f"by graph replay | {bounds_text(dec_bytes, dec_ops, k8_dec)}",
-        flush=True,
-    )
+    for tag, (x, y, row_const) in k8_main.items():  # wrapper calls, as the decoder makes them
+        ms = graph_ms(lambda: gf2m_multiply_swar(x, y, 8, f8), 20)
+        bnd = k8_bound(x, y, row_const)
+        print(
+            f"[kernel] K8 gf2m_multiply_swar m=8 at the RS decoder's {tag}, operands by stride: {ms:.4f} ms a "
+            f"wrapper call by graph replay | bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at {bnd[0] / ms:.0%}",
+            flush=True,
+        )
+    del k8_main
     # K7 and K3 on the same GF(2^8) inputs: the three kernels that compute this map
     want = gf2m_multiply_plain(a8, b8, 8, f8)
     got = gf2m_multiply(a8, b8, 8, f8)
@@ -537,7 +557,7 @@ def main() -> int:
     k3 = graph_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256, pk8), 50)
     k3_eager = cuda_ms(lambda: _lookup.lookup_multiply(a8, b8, exp8, log8, 256, pk8), 50)
     print(
-        f"[kernel] GF(2^8) multiply n=2^24, same inputs: K8 SWAR {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
+        f"[kernel] GF(2^8) multiply n=2^24, same inputs: K8 {k8:.4f} ms (eager calls {k8_eager:.4f} ms) | "
         f"K7 ladder {k7:.4f} ms (eager calls {k7_eager:.4f} ms) | K3 table gathers {k3:.4f} ms "
         f"(eager calls {k3_eager:.4f} ms)",
         flush=True,
@@ -570,10 +590,13 @@ def main() -> int:
     del a9, b9
     torch.cuda.empty_cache()
 
-    # K8-A: the reciprocal and an exponent tensor at 2^24 (its 16-byte path),
-    # Forney's (65536, 255) reciprocal, the erasure locator's 0-D base against
-    # (65536, 33) exponents, and every m = 2..16 over all its elements, three
-    # times, on a view one element off alignment (byte loads, ragged tail)
+    # K8-A: at GF(2^8) the reciprocal and an exponent tensor at 2^24,
+    # Forney's (65536, 255) reciprocal and the erasure locator's 0-D base
+    # against (65536, 33) exponents; then every m = 2..16 over all its
+    # elements: the reciprocal on a view one element in with a ragged tail
+    # (K5's pass), by stride 3 and transposed (the strided pass), random
+    # 64-bit exponents, the exponents 0, 1, q - 1, q and 2^63 - 1 against
+    # every element with nbits 0, m and 64, and a = 0
     e8 = torch.randint(0, 2**40, (2**24,), generator=gen, device=dev)
     forney = a8[: 65536 * 255].reshape(65536, 255)
     pow_cases = [
@@ -584,12 +607,25 @@ def main() -> int:
     ]
     for m in range(2, 17):
         Fm = gt.GF(2**m)
-        every = torch.arange(2**m, device=dev).to(Fm._meta.torch_dtype).repeat(3)[1:]
-        ex = torch.randint(-2**62, 2**62, every.shape, generator=gen, device=dev)
-        f_m = Fm._meta.irreducible_poly_int
+        q, f_m, dt_m = 2**m, Fm._meta.irreducible_poly_int, Fm._meta.torch_dtype
+        every = torch.arange(q, device=dev).to(dt_m)
+        thrice = every.repeat(3)
+        ex = torch.randint(-2**62, 2**62, (3 * q - 1,), generator=gen, device=dev)
+        edges = torch.tensor([0, 1, q - 1, q, 2**63 - 1], device=dev)
         pow_cases += [
-            (m, f_m, f"reciprocal, every element, offset view n={every.numel()}", every, None, 0),
-            (m, f_m, f"exponent tensor (64 bits), every element, offset view n={every.numel()}", every, ex, 64),
+            (m, f_m, f"reciprocal, every element, view one element in, n={3 * q - 1}", thrice[1:], None, 0),
+            (m, f_m, "reciprocal, every element by stride 3", thrice[::3], None, 0),
+            (m, f_m, "reciprocal, every element transposed", every.reshape(-1, 2).t(), None, 0),
+            (m, f_m, "reciprocal of 0", torch.zeros(3, dtype=dt_m, device=dev), None, 0),
+            (m, f_m, f"exponent tensor (64 bits), view one element in, n={3 * q - 1}", thrice[1:], ex, 64),
+        ] + [
+            (m, f_m, f"exponents 0, 1, q-1, q, 2^63-1 against every element, nbits {nb}", every[:, None], edges[None, :], nb)
+            for nb in (0, m, 64)
+        ] + [
+            (m, f_m, "a = 0 against the same exponents", torch.zeros(5, dtype=dt_m, device=dev), edges, 64),
+            (m, f_m, "three axes: (2, 1, q/2) against (1, 3, 1)", every.reshape(2, 1, -1), ex[:3].reshape(1, 3, 1), 64),
+            (m, f_m, "four axes, materialized: (2, 1, q/2, 1) against (1, 3, 1, 5)",
+             every.reshape(2, 1, -1, 1), torch.randint(-2**62, 2**62, (1, 3, 1, 5), generator=gen, device=dev), 64),
         ]
     for m, f, tag, x, y, nb in pow_cases:
         got = gf2m_power(x, y, m, f, nb)
@@ -599,41 +635,65 @@ def main() -> int:
         print(f"[kernel] K8-A gf2m_power m={m} {tag}: max_abs_err {err}", flush=True)
         if err:
             raise AssertionError(f"K8-A disagrees with its plain version at m = {m}, {tag}")
-    del got, pow_cases, every, ex
+    del got, pow_cases, every, thrice, ex
     # K5, the table reciprocal, computes the same map on GF(2^8) (0 at 0 aside)
     inv_a = gf2m_power(a8, None, 8, f8)
     inv_k5 = _lookup.lookup_reciprocal(a8, exp8, log8, 256, pk8)
     torch.cuda.synchronize()
-    if not torch.equal(inv_a[a8 != 0], inv_k5[a8 != 0]):
-        raise AssertionError("K8-A and K5 disagree on GF(2^8) reciprocals")
+    if not torch.equal(inv_a[a8 != 0], inv_k5[a8 != 0]) or inv_a[a8 == 0].any():
+        raise AssertionError("K8-A and K5 disagree on GF(2^8) reciprocals, or 1 / 0 is not 0")
     del inv_a, inv_k5
+    # bounds: bytes, and the table reads (one an element for a reciprocal, LOG
+    # and EXP for a power) at one conflict-free wavefront a warp
     n8, n_fy = 2**24, forney.numel()
     recip_ms = graph_ms(lambda: gf2m_power(a8, None, 8, f8), 20)
     k5_ms = graph_ms(lambda: _lookup.lookup_reciprocal(a8, exp8, log8, 256, pk8), 20)
     recip_plain = cuda_ms(lambda: gf2m_power_plain(a8, None, 8, f8), 2)
-    recip_ops = power_ops(8, f8, n8, False)
     pow_ms = graph_ms(lambda: gf2m_power(a8, e8, 8, f8, 40), 10)
     pow_plain = cuda_ms(lambda: gf2m_power_plain(a8, e8, 8, f8, 40), 1)
     fy_ms = graph_ms(lambda: gf2m_power(forney, None, 8, f8), 20)
     fy_k5 = graph_ms(lambda: _lookup.lookup_reciprocal(forney, exp8, log8, 256, pk8), 20)
-    record("gf2m_power", 0, recip_ms, recip_plain, bound(2 * n8))
+    bnd = bound(2 * n8 + 255 * 4, wavefronts=n8 / 32)
+    record("gf2m_power", 0, recip_ms, recip_plain, bnd)
     print(
         f"[kernel] K8-A gf2m_power m=8 reciprocal n=2^24: kernel {recip_ms:.4f} ms by graph replay | K5 "
-        f"lookup_reciprocal (hand kernel, tables) on the same inputs {k5_ms:.4f} ms | plain {recip_plain:.4f} ms | "
-        f"{bounds_text(2 * n8, recip_ops, recip_ms)}",
+        f"lookup_reciprocal (hand kernel, the same table read without the zero mask) {k5_ms:.4f} ms | plain "
+        f"{recip_plain:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at {bnd[0] / recip_ms:.0%}",
         flush=True,
     )
+    bnd = bound(10 * n8 + 255 * 4, wavefronts=2 * n8 / 32)
     print(
         f"[kernel] K8-A gf2m_power m=8 exponent tensor n=2^24: kernel {pow_ms:.4f} ms | plain {pow_plain:.4f} ms | "
-        f"{bounds_text(10 * n8, power_ops(8, f8, n8, True), pow_ms)}",
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at {bnd[0] / pow_ms:.0%}",
         flush=True,
     )
+    bnd = bound(2 * n_fy + 255 * 4, wavefronts=n_fy / 32)
     print(
         f"[kernel] K8-A gf2m_power m=8 reciprocal at Forney's (65536, 255): kernel {fy_ms:.4f} ms | K5 {fy_k5:.4f} ms | "
-        f"{bounds_text(2 * n_fy, power_ops(8, f8, n_fy, False), fy_ms)}",
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at {bnd[0] / fy_ms:.0%}",
         flush=True,
     )
     del e8, forney
+    # on int64 storage: GF(2^16) at 2^24 (INV staged, 128 KB) and BCH(511,493)'s
+    # (16384, 511) over GF(2^9), beside torch.take of the q-entry reciprocal table
+    for m, shape in ((16, (2**24,)), (9, (16384, 511))):
+        f_m = gt.GF(2**m)._meta.irreducible_poly_int
+        x = torch.randint(0, 2**m, shape, generator=gen, device=dev)
+        inv64 = gf2m_power_plain(torch.arange(2**m, device=dev), None, m, f_m)
+        err = max_abs_err(gf2m_power(x, None, m, f_m), torch.take(inv64, x))
+        record("gf2m_power", err)
+        if err:
+            raise AssertionError(f"K8-A disagrees with torch.take of the reciprocal table at m = {m}")
+        ms = graph_ms(lambda: gf2m_power(x, None, m, f_m), 20)
+        take_ms = graph_ms(lambda: torch.take(inv64, x), 20)
+        bnd = bound(16 * x.numel() + 6 * 2**m, wavefronts=x.numel() / 32)
+        print(
+            f"[kernel] K8-A gf2m_power m={m} reciprocal {shape} int64: max_abs_err {err} | kernel {ms:.4f} ms by graph "
+            f"replay | torch.take(INV64, a) {take_ms:.4f} ms | bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at "
+            f"{bnd[0] / ms:.0%}",
+            flush=True,
+        )
+        del x
     torch.cuda.empty_cache()
 
     # K8-B: RS(255,223)'s (65536, 32) with u = 0 and random u (0 to past d - 1,
@@ -1456,15 +1516,16 @@ def main() -> int:
             torch.cuda.synchronize()
         events = prof.key_averages()
         print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
-        groups = {"K8 swar_kernel": 0.0, "K8-A power kernels": 0.0, "K8-B bm_scan_kernel": 0.0,
+        groups = {"K8 mul_kernel": 0.0, "K8-A kernels": 0.0, "K8-B bm_scan_kernel": 0.0,
                   "matmul kernels": 0.0, "other kernels": 0.0}
         for e in events:
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             name = e.key.lower()
             key = (
-                "K8 swar_kernel" if "swar_kernel" in name
-                else "K8-A power kernels" if "power_packed_kernel" in name or "power_scalar_kernel" in name
+                "K8 mul_kernel" if "::mul_kernel(" in name
+                # K8-A: the strided pass, or K5's pass with zero masked (the template's last argument)
+                else "K8-A kernels" if "::power_kernel<" in name or ("unary_kernel<2," in name and "true>" in name)
                 else "K8-B bm_scan_kernel" if "bm_scan_kernel" in name
                 else "matmul kernels" if "gemm" in name or "matmul" in name
                 else "other kernels"
@@ -1494,7 +1555,8 @@ def main() -> int:
         "Chien (bit-plane product)": lambda: dec.fmatmul(C, K["CH_T"]),
         "Chien, Forney and correction": lambda: dec.finish(x._data, r, C, S, C, v, u, 2 * v > dec.nroots),
         f"one reciprocal of ({x.shape[0]}, {rs.n}) (Forney's shape, K8-A)": lambda: dec.ops.reciprocal(r),
-        f"one K8 multiply of ({x.shape[0]}, {rs.d}) x ({x.shape[0]}, 1)": lambda: dec.ops.multiply(C, S[:, :1]),
+        f"conv_trunc's outer product ({x.shape[0]}, {rs.d - 1}, {rs.d}) (K8, operands by stride)":
+            lambda: dec.ops.multiply(C[:, None, :], S[:, :, None]),
     }
     print(
         f"[main] RS(255,223) decode by stage, {x.shape[0]} codewords: "

@@ -11,8 +11,8 @@ New data goes to CUDA unless the caller asks for the CPU
 (``set_default_device``, ``default_device``, or ``device=``). The public
 names and results match the JAX package ``galois_tpu``; this package imports
 neither jax nor galois_tpu. On CUDA tensors the NTT's two matmul sides, the
-lookup tables' gathers, the GF(2^m) multiply for m <= 8 (four elements per
-word), GF(2^m) reciprocals and powers for m <= 16, the RS/BCH decoder's
+lookup tables' gathers, the GF(2^m) multiply for m <= 8 and GF(2^m)
+reciprocals and powers for m <= 16 (by the field's tables), the RS/BCH decoder's
 Berlekamp-Massey scan and the GF(2^31 - 1) and Goldilocks multiplies run
 hand-written CUDA C++ kernels, and the GF(2^m) multiply for 9 <= m <= 16 a
 Triton kernel; CPU tensors take the kernels' plain torch versions.

@@ -21,6 +21,9 @@ Chien, Forney) run on bit planes (``ops/_binary_matmul.py``) for GF(2^m)
 and digit planes (``ops/_digit_matmul.py``) for GF(p^m); every other field
 product is ``ops.multiply``, so GF(2^8) decoding launches K8 and GF(2^9)
 (BCH(511)) K7, and GF(2^m) reciprocals and powers (Forney's, Gamma's) K8-A.
+K8 reads its broadcast operands in place by stride: conv_trunc's (B, lb, la)
+outer product, the derivative's (B, d - 1) times (1, d - 1) and Forney's
+(B, n) times (1, n) launch on views, with no copy.
 The scan (stage 4) is kernel K8-B for GF(2^m) inside
 ``ops/_bm_scan.py::bm_scan_supports`` (m <= 8 with d <= 65, 9 <= m <= 16
 with d <= 33: RS(255,223) and BCH(511,493) among them), on any device (the

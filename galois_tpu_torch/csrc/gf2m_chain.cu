@@ -1,36 +1,43 @@
-// Kernels K8-A and K8-B: K8's SWAR product core (gf2m_swar.cuh) held in
-// registers across whole chains of GF(2^m) products, where K8 alone made one
-// HBM round trip per product.
+// Kernels K8-A and K8-B: GF(2^m) maps of the decoders over the field's own
+// tables in shared memory (ops/_lookup.py::pack_tables' layout, staged as
+// lookup.cuh stages them for K3-K6).
 //
 // K8-A, gf2m_power: out = a^e elementwise in GF(2^m), 2 <= m <= 16, in the
 // field's storage dtype (uint8 for m <= 8, int64 above). Wrapper and plain
 // torch version: ops/_elementwise.py::gf2m_power. The exponent is either
-//   - the compile-time Itoh-Tsujii chain for a^(2^m - 2), the reciprocal
-//     (0 at a = 0, as the plain chain gives): t = a^(2^k - 1) grows along the
-//     bits of m - 1, then one square; 7 squares and 4 products at m = 8; or
-//   - a per-element int64 exponent tensor, read through (row, column) element
-//     strides so that a broadcast operand is not materialized. Only the low
-//     nbits bits count, as in the plain ladder over nbits bits; each exponent
-//     is reduced to e' in [0, 2^m - 1] (e' = 0 only where those bits are 0,
-//     else e' = (e - 1) mod (2^m - 1) + 1, so 0^0 = 1, 0^e = 0 and
-//     a^e = a^e' for a != 0), and the ladder runs over e''s m bits.
+//   - absent: the reciprocal a^(2^m - 2), 0 at a = 0 (the plain chain and the
+//     JAX package give 0 there; pack_tables' INV[0] is 1, so the kernel
+//     masks zero itself); or
+//   - a per-element int64 exponent tensor. Only its low nbits bits count, as
+//     in the plain ladder over nbits bits; each is reduced to e' in
+//     [0, 2^m - 1] (e' = 0 only where those bits are 0, else
+//     e' = (e - 1) mod (2^m - 1) + 1), and a^e = 1 where e' = 0, 0 where
+//     a = 0 < e', else EXP[(LOG a * e') mod (2^m - 1)]. The product is below
+//     2^(2m) <= 2^32 and is reduced by two folds x = (x & (2^m - 1)) +
+//     (x >> m) and one conditional subtract, with no division.
 // It replaces the torch chains of ops/_kernels.py BinaryExtOps.reciprocal,
-// power and power_static (each square some 30 torch passes, each product a
-// K8 or K7 launch). The JAX references are BinaryExtOps.reciprocal and
+// power and power_static. The JAX references are BinaryExtOps.reciprocal and
 // FieldOps.power of galois_tpu/ops/_kernels.py; no Pallas kernel computes
-// these chains (XLA fused them on the TPU).
-// Design: for m <= 8 each thread takes 16 elements, four per u32 word (one
-// 16-byte load when a is contiguous and aligned, byte loads by stride else),
-// and runs the whole chain on its 4 independent words in registers: products
-// are K8's mul_core<M>, squares the bit-spread form (bytes spread to 16-bit
-// slots, then K8's fold), the ladder's selects byte masks. For 9 <= m <= 16
-// each thread takes 4 elements, one per 32-bit lane: an m-step shift-AND-XOR
-// ladder for products, a 4-step bit spread for squares, then folds by
-// r = f ^ x^m. What bounds it: the integer ALUs. At m = 8, f = 0x11D, a
-// product costs about 155 32-bit operations per word of four elements and a
-// square about 71, so the reciprocal is about 1117 per word against 2 bytes
-// moved per element: some 4.7e9 operations at 2^24 elements (0.28 ms at the
-// int32 rate of 132 SMs x 64 lanes x 1.98 GHz) against 0.010 ms of HBM.
+// these maps (XLA fused them on the TPU).
+// Design: the reciprocal of an operand laid out as the output is K5's pass
+// (lookup.cuh) with zero masked: 16-byte evict-first streams, one read of
+// INV a element (byte 3 of the byte rows for m <= 8 with nonzero_bytes on
+// whole words, the staged uint16 INV segment above; 128 KB at m = 16, one
+// block of 1024 threads a SM). Every other call (an exponent tensor, a 0-D
+// exponent, a strided base) is one element a thread and step of a
+// grid-stride pass: operands that are whole tensors or single elements
+// (the decoder's 0-D g against (B, d) exponents, power_static's 0-D
+// exponent) at offset i or 0, four elements' loads in flight, any other at
+// its element strides along the output's merged axes (lookup.cuh's Coord),
+// with LOG and EXP read from the byte rows (m <= 8), LOG and the reduced EXP
+// staged in shared memory (m <= 14, at most 64 KB) or LOG staged and EXP
+// through __ldg out of L1 and L2 (m = 15, 16; K3's log-shared).
+// What bounds it: HBM bytes, 2 a element for a uint8 reciprocal and 16 for
+// an int64 one, 8 more for each element of an int64 exponent tensor. The
+// first design ran the Itoh-Tsujii chain on the TPU SWAR multiply's core in
+// registers, about 1117 32-bit operations per word of four elements at
+// m = 8, and was bound by the integer ALUs (0.227 ms for 2^24 GF(2^8)
+// reciprocals on an H100 80GB HBM3 at 700 W, against 0.0115 ms now; PERF.md).
 //
 // K8-B, berlekamp_massey_scan: the whole masked Berlekamp-Massey scan of the
 // batched RS/BCH decoder in one launch, for 2 <= m <= 8 with d - 1 <= 64
@@ -56,9 +63,9 @@
 // the uint16 LOG and reduced EXP (64 KB at 2^14), for m = 15, 16 the INV
 // segment alone (128 KB at 2^16). Per step t:
 //   - the window shifts up one element and takes S'[t] into element 0;
-//   - delta = sum_i C[i] S'[t - i]: the carry-less products (m <= 8: K8's
-//     nibble Karatsuba in byte slots; above: the one-lane ladder) are
-//     XOR-summed unreduced, then reduced once (the reduction is linear, so
+//   - delta = sum_i C[i] S'[t - i]: the carry-less products (m <= 8: the
+//     TPU SWAR multiply's nibble Karatsuba in byte slots, gf2m_swar.cuh;
+//     above: the one-lane ladder) are XOR-summed unreduced, then reduced once (the reduction is linear, so
 //     this equals summing reduced products): for m <= 8 each bit m + j of
 //     the sum selects x^(m + j) mod f from a table in registers, above by
 //     reduce1's folds;
@@ -94,18 +101,15 @@
 #include <cuda_runtime.h>
 
 #include "gf2m_swar.cuh"
+#include "lookup.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;     // K8-A
-constexpr int SCALAR_ELEMS = 4;  // K8-A, 9 <= m <= 16: elements per thread
 constexpr int BM_THREADS = 64;   // K8-B, m <= 8: 1024 blocks for 65536 rows, about 8 per SM
 constexpr int BM_BLOCKS_PER_SM = 8;  // so up to 128 registers a thread: no spills at 17 words
 constexpr int BM_WIDE_THREADS = 128;  // K8-B, 9 <= m <= 16: up to 3 x 33 elements in registers
 
-__host__ __device__ constexpr int top_bit(int x) { return x < 2 ? 0 : 1 + top_bit(x >> 1); }
-
-// ---- one element per 32-bit lane, m <= 16 ----
+// ---- K8-B, 9 <= m <= 16: one element per 32-bit lane ----
 
 // Carry-less a * b of M-bit values: the shift-AND-XOR ladder over b's bits.
 template <int M>
@@ -130,92 +134,15 @@ __device__ __forceinline__ uint32_t reduce1(uint32_t c, uint32_t r, int deg_r) {
   return c;
 }
 
-// Bit i of a 16-bit value to bit 2i: the carry-less square before reduction.
-__device__ __forceinline__ uint32_t spread16(uint32_t x) {
-  x = (x | (x << 8)) & 0x00FF00FFu;
-  x = (x | (x << 4)) & 0x0F0F0F0Fu;
-  x = (x | (x << 2)) & 0x33333333u;
-  return (x | (x << 1)) & 0x55555555u;
-}
+// ---- K8-A ----
 
-template <int M>
-struct One {  // one element in a lane
-  uint32_t x;
-};
-
-template <int M>
-struct Four {  // 16 elements of M <= 8 bits, four per word
-  uint32_t w[4];
-};
-
-template <int M>
-__device__ __forceinline__ One<M> mul(One<M> a, One<M> b, uint32_t r, int deg_r) {
-  return {reduce1<M>(clmul1<M>(a.x, b.x), r, deg_r)};
-}
-
-template <int M>
-__device__ __forceinline__ One<M> sqr(One<M> a, uint32_t r, int deg_r) {
-  return {reduce1<M>(spread16(a.x), r, deg_r)};
-}
-
-template <int M>
-__device__ __forceinline__ Four<M> mul(Four<M> a, const Four<M>& b, uint32_t r, int deg_r) {
-  mul_core<M>(a.w, b.w, r, deg_r);
-  return a;
-}
-
-// Squares in byte slots: each value's bits spread to twice their place, in
-// byte slots for M <= 4 (7-bit results) and in 16-bit slots of the even and
-// the odd bytes above (as mul_core's products), then K8's folds.
-template <int M>
-__device__ __forceinline__ Four<M> sqr(Four<M> a, uint32_t r, int deg_r) {
-  if constexpr (M <= 4) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t x = a.w[k];
-      x = (x | (x << 2)) & 0x33333333u;
-      a.w[k] = (x | (x << 1)) & 0x55555555u;
-    }
-    fold<M, 8, 4>(a.w, r, deg_r);
-  } else {
-    uint32_t p[8];  // p[0..3]: the even bytes' squares, p[4..7]: the odd bytes'
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      uint32_t x = (k < 4 ? a.w[k] : a.w[k - 4] >> 8) & EVEN;
-      x = (x | (x << 4)) & 0x0F0F0F0Fu;
-      x = (x | (x << 2)) & 0x33333333u;
-      p[k] = (x | (x << 1)) & 0x55555555u;
-    }
-    fold<M, 16, 8>(p, r, deg_r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) a.w[k] = p[k] | (p[k + 4] << 8);
-  }
-  return a;
-}
-
-// a^(2^M - 2) by Itoh-Tsujii: t = a^(2^k - 1) along the bits of M - 1
-// below the top one (k -> 2k: t^(2^k) t; k -> k + 1: t^2 a), then t^2.
-template <int M, class V>
-__device__ __forceinline__ V inverse(const V& a, uint32_t r, int deg_r) {
-  V t = a;
-  int k = 1;
-#pragma unroll
-  for (int bit = top_bit(M - 1) - 1; bit >= 0; --bit) {
-    V tk = t;
-#pragma unroll
-    for (int s = 0; s < k; ++s) tk = sqr(tk, r, deg_r);
-    t = mul(tk, t, r, deg_r);
-    k *= 2;
-    if (((M - 1) >> bit) & 1) {
-      t = mul(sqr(t, r, deg_r), a, r, deg_r);
-      k += 1;
-    }
-  }
-  return sqr(t, r, deg_r);
-}
+// Threads a block: the byte rows (32 KB at m = 8), LOG and the reduced EXP
+// (at most 64 KB) and LOG alone (128 KB at m = 16, one block a SM), as K5.
+__host__ __device__ constexpr int pow_threads(int m) { return m <= 8 ? BYTE_THREADS : m <= 14 ? 512 : 1024; }
 
 // The exponent's low nbits bits, reduced to e' in [0, 2^M - 1] with the same
-// power for every a (see the head).
+// power for every a (see the head); M is a compile-time constant, so the
+// modulo is a multiply.
 template <int M>
 __device__ __forceinline__ uint32_t reduce_exponent(long long e, int nbits) {
   unsigned long long v = static_cast<unsigned long long>(e);
@@ -224,138 +151,107 @@ __device__ __forceinline__ uint32_t reduce_exponent(long long e, int nbits) {
   return v == 0 ? 0u : static_cast<uint32_t>((v - 1) % Q1 + 1);
 }
 
-// a^e, e < 2^M: the binary ladder over e's M bits, every product computed
-// and selected (no divergence).
+// x mod (2^M - 1) for x < 2^(2M): two folds leave at most 2^M, then one
+// conditional subtract.
 template <int M>
-__device__ __forceinline__ One<M> power(One<M> a, uint32_t e, uint32_t r, int deg_r) {
-  One<M> result{1u}, base = a;
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    const One<M> prod = mul(result, base, r, deg_r);
-    result.x = ((e >> i) & 1u) ? prod.x : result.x;
-    if (i + 1 < M) base = sqr(base, r, deg_r);
-  }
-  return result;
+__device__ __forceinline__ uint32_t mod_q1(uint32_t x) {
+  constexpr uint32_t Q1 = (1u << M) - 1;
+  x = (x & Q1) + (x >> M);
+  x = (x & Q1) + (x >> M);
+  return x >= Q1 ? x - Q1 : x;
 }
 
-// The same ladder on four words; e holds the 16 exponents in the elements'
-// byte slots, and bit i of each byte widens to a byte mask.
+// out = a^e' over the output's n elements, a (uint8 for M <= 8, int64
+// above) and e (int64) read at their strides; e null: every e' is e_fixed
+// (2^M - 2 for a strided reciprocal, 0 < e_fixed < 2^M). tab: pack_tables'
+// table of the field, the byte rows (M <= 8) or the uint16 segments.
+// a_unit, e_unit: flat_unit's 1 or 0 where every operand has one (offsets
+// i * unit, no walk), else -1.
 template <int M>
-__device__ __forceinline__ Four<M> power(const Four<M>& a, const uint32_t (&e)[4], uint32_t r, int deg_r) {
-  Four<M> result, base = a;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) result.w[k] = ONES;  // 1 in every byte
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    const Four<M> prod = mul(result, base, r, deg_r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t bit = (e[k] >> i) & ONES;
-      const uint32_t mask = (bit << 8) - bit;
-      result.w[k] = (prod.w[k] & mask) | (result.w[k] & ~mask);
-    }
-    if (i + 1 < M) base = sqr(base, r, deg_r);
-  }
-  return result;
-}
-
-// ---- K8-A ----
-
-// m <= 8: one thread per 16-element chunk of the (rows, cols) output; a and
-// e are read at row * rs + col * cs (element strides). Chunks below nvec
-// (a contiguous, a and out 16-byte aligned) take 16-byte loads of a and
-// 16-byte stores, the rest byte accesses.
-template <int M, bool POW>
-__global__ void __launch_bounds__(THREADS)
-power_packed_kernel(const uint8_t* __restrict__ a, long long a_rs, long long a_cs,
-                    const long long* __restrict__ e, long long e_rs, long long e_cs, int nbits,
-                    uint8_t* __restrict__ out, long long n, long long cols, long long nvec,
-                    uint32_t r, int deg_r) {
-  const long long chunk = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  const long long base = chunk * 16;
-  if (base >= n) return;
-  const bool vec = chunk < nvec;
-  Four<M> A;
-  uint32_t E[4] = {0u, 0u, 0u, 0u};
-  if (vec) {
-    const uint4 va = __ldg(reinterpret_cast<const uint4*>(a) + chunk);
-    A.w[0] = va.x, A.w[1] = va.y, A.w[2] = va.z, A.w[3] = va.w;
-  }
-  if (!vec || POW) {
-    long long row = base / cols, col = base - row * cols;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!vec) A.w[k] = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (base + 4 * k + j < n) {
-          if (!vec) A.w[k] |= static_cast<uint32_t>(a[row * a_rs + col * a_cs]) << (8 * j);
-          if constexpr (POW) E[k] |= reduce_exponent<M>(__ldg(e + row * e_rs + col * e_cs), nbits) << (8 * j);
-        }
-        if (++col == cols) col = 0, ++row;
-      }
-    }
-  }
-  Four<M> R;
-  if constexpr (POW) {
-    R = power<M>(A, E, r, deg_r);
-  } else {
-    R = inverse<M>(A, r, deg_r);
-  }
-  if (vec) {
-    reinterpret_cast<uint4*>(out)[chunk] = make_uint4(R.w[0], R.w[1], R.w[2], R.w[3]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long i = base + 4 * k + j;
-        if (i < n) out[i] = static_cast<uint8_t>(R.w[k] >> (8 * j));
-      }
-    }
-  }
-}
-
-// 9 <= m <= 16, int64 storage: SCALAR_ELEMS elements a thread, THREADS
-// apart (coalesced), each its own chain in a 32-bit lane.
-template <int M, bool POW>
-__global__ void __launch_bounds__(THREADS)
-power_scalar_kernel(const long long* __restrict__ a, long long a_rs, long long a_cs,
-                    const long long* __restrict__ e, long long e_rs, long long e_cs, int nbits,
-                    long long* __restrict__ out, long long n, long long cols, uint32_t r, int deg_r) {
-  const long long first = static_cast<long long>(blockIdx.x) * (THREADS * SCALAR_ELEMS) + threadIdx.x;
-  One<M> x[SCALAR_ELEMS];
-  uint32_t ex[SCALAR_ELEMS];
-#pragma unroll
-  for (int s = 0; s < SCALAR_ELEMS; ++s) {
-    const long long i = first + s * THREADS;
-    x[s].x = 0, ex[s] = 0;
-    if (i < n) {
-      const long long row = i / cols, col = i - row * cols;
-      x[s].x = static_cast<uint32_t>(__ldg(a + row * a_rs + col * a_cs));
-      if constexpr (POW) ex[s] = reduce_exponent<M>(__ldg(e + row * e_rs + col * e_cs), nbits);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < SCALAR_ELEMS; ++s) {
-    if constexpr (POW) {
-      x[s] = power<M>(x[s], ex[s], r, deg_r);
+__global__ void __launch_bounds__(pow_threads(M))
+power_kernel(const void* __restrict__ a, Strides as, long long a_unit, const long long* __restrict__ e, Strides es,
+             long long e_unit, int nbits, uint32_t e_fixed, void* __restrict__ out, Axes ax,
+             const void* __restrict__ tab) {
+  constexpr int THREADS = pow_threads(M);
+  constexpr int Q = 1 << M, Q8 = (Q + 7) & ~7, E8 = (Q - 1 + 7) & ~7;
+  extern __shared__ uint4 smem[];
+  if constexpr (M <= 8) stage_byte_rows(smem, static_cast<const uint32_t*>(tab), Q, THREADS);
+  else stage_u16(smem, static_cast<const uint16_t*>(tab), M <= 14 ? Q8 + E8 : Q8, THREADS);
+  const uint8_t* col = reinterpret_cast<const uint8_t*>(smem) + 4 * (threadIdx.x & 31);
+  const uint16_t* s16 = reinterpret_cast<const uint16_t*>(smem);
+  const uint16_t* exp16 = M <= 14 ? s16 + Q8 : static_cast<const uint16_t*>(tab) + Q8;
+  const long long tid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
+  auto load_a = [a](long long oa) -> uint32_t {
+    if constexpr (M <= 8) return __ldg(static_cast<const uint8_t*>(a) + oa);
+    else return static_cast<uint32_t>(__ldg(static_cast<const long long*>(a) + oa));
+  };
+  // element i of the output from its base x and its exponent's low word(s) ew
+  auto element = [&](long long i, uint32_t x, long long ew) {
+    uint32_t r;
+    const uint32_t ev = e ? reduce_exponent<M>(ew, nbits) : e_fixed;
+    if constexpr (M <= 8) {
+      r = col[mod_q1<M>(col[x * ROW] * ev) * ROW + 1];
     } else {
-      x[s] = inverse<M>(x[s], r, deg_r);
+      const uint32_t t = mod_q1<M>(s16[x] * ev);
+      r = M <= 14 ? exp16[t] : __ldg(exp16 + t);
     }
-  }
+    r = ev == 0 ? 1u : x == 0 ? 0u : r;
+    if constexpr (M <= 8) static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(r);
+    else static_cast<long long*>(out)[i] = r;
+  };
+  if (a_unit >= 0 && e_unit >= 0) {  // whole tensors and single elements: no walk, U elements' loads in flight
+    constexpr int U = 4;
+    for (long long i0 = tid; i0 < ax.n; i0 += U * nthreads) {
+      uint32_t x[U];
+      long long ew[U];
 #pragma unroll
-  for (int s = 0; s < SCALAR_ELEMS; ++s) {
-    const long long i = first + s * THREADS;
-    if (i < n) out[i] = x[s].x;
+      for (int u = 0; u < U; ++u) {
+        const long long i = i0 + u * nthreads;
+        if (i < ax.n) x[u] = load_a(i * a_unit), ew[u] = e ? __ldg(e + i * e_unit) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * nthreads < ax.n) element(i0 + u * nthreads, x[u], ew[u]);
+    }
+    return;
   }
+  if (tid >= ax.n) return;
+  Coord c(tid, ax);
+  long long oa = c.offset(tid, as, ax), oe = e ? c.offset(tid, es, ax) : 0;
+  for (long long i = tid; i < ax.n; i += nthreads) {
+    element(i, load_a(oa), e ? __ldg(e + oe) : 0);
+    bool carry2, carry1;
+    c.step(ax, carry2, carry1);
+    advance(oa, as, carry2, carry1);
+    if (e) advance(oe, es, carry2, carry1);
+  }
+}
+
+template <int M>
+cudaError_t launch_power(const void* a, const long long (&ast)[3], const long long* e, const long long (&est)[3],
+                         int nbits, void* out, long long n, long long n1, long long n2, const void* tab,
+                         cudaStream_t s) {
+  constexpr int Q = 1 << M, Q8 = (Q + 7) & ~7, E8 = (Q - 1 + 7) & ~7;
+  constexpr int smem = M <= 8 ? Q * static_cast<int>(ROW) : 2 * (M <= 14 ? Q8 + E8 : Q8);
+  auto kernel = power_kernel<M>;
+  unsigned blocks = 0;
+  cudaError_t err = persistent_grid(kernel, pow_threads(M), smem, n, &blocks);
+  if (err != cudaSuccess) return err;
+  const long long step = static_cast<long long>(blocks) * pow_threads(M), n0 = n / (n1 * n2);
+  const Axes ax = make_axes(n, n1, n2, step);
+  kernel<<<blocks, pow_threads(M), smem, s>>>(
+      a, make_strides(ast[0], ast[1], ast[2], ax, step), flat_unit(ast[0], ast[1], ast[2], n0, n1, n2), e,
+      make_strides(est[0], est[1], est[2], ax, step), e ? flat_unit(est[0], est[1], est[2], n0, n1, n2) : 0, nbits,
+      static_cast<uint32_t>(Q - 2), out, ax, tab);
+  return cudaGetLastError();
 }
 
 // ---- K8-B ----
 
 // XOR-accumulate the unreduced byte-slot products of the words x and y:
-// for M <= 4 one ladder (7-bit slot products), above it K8's nibble
-// Karatsuba pieces lo*lo, hi*hi and (lo^hi)*(lo^hi), each summed apart.
+// for M <= 4 one ladder (7-bit slot products), above it the nibble
+// Karatsuba pieces of the TPU's SWAR multiply lo*lo, hi*hi and (lo^hi)*(lo^hi), each summed apart.
 template <int M>
 __device__ __forceinline__ void clmul_acc(uint32_t x, uint32_t y, uint32_t& ll, uint32_t& hh, uint32_t& mm) {
   if constexpr (M <= 4) {
@@ -581,30 +477,6 @@ bm_scan_wide_kernel(const long long* __restrict__ sp, const long long* __restric
   l_out[row] = L;
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-template <int M>
-void launch_power(dim3 grid, cudaStream_t s, const void* a, long long a_rs, long long a_cs, const long long* e,
-                  long long e_rs, long long e_cs, int nbits, void* out, long long n, long long cols, long long nvec,
-                  uint32_t r, int deg_r) {
-  if constexpr (M <= 8) {
-    const auto* a8 = static_cast<const uint8_t*>(a);
-    auto* o8 = static_cast<uint8_t*>(out);
-    if (e) {
-      power_packed_kernel<M, true><<<grid, THREADS, 0, s>>>(a8, a_rs, a_cs, e, e_rs, e_cs, nbits, o8, n, cols, nvec, r, deg_r);
-    } else {
-      power_packed_kernel<M, false><<<grid, THREADS, 0, s>>>(a8, a_rs, a_cs, e, e_rs, e_cs, nbits, o8, n, cols, nvec, r, deg_r);
-    }
-  } else {
-    const auto* a64 = static_cast<const long long*>(a);
-    auto* o64 = static_cast<long long*>(out);
-    if (e) {
-      power_scalar_kernel<M, true><<<grid, THREADS, 0, s>>>(a64, a_rs, a_cs, e, e_rs, e_cs, nbits, o64, n, cols, r, deg_r);
-    } else {
-      power_scalar_kernel<M, false><<<grid, THREADS, 0, s>>>(a64, a_rs, a_cs, e, e_rs, e_cs, nbits, o64, n, cols, r, deg_r);
-    }
-  }
-}
 
 template <int M>
 void launch_bm(int nw, dim3 grid, cudaStream_t s, const uint8_t* sp, const long long* u, const uint32_t* tab,
@@ -648,32 +520,34 @@ int deg(uint32_t r) { return r ? 31 - __builtin_clz(r) : 0; }
 }  // namespace
 
 // K8-A: out[i] = a[i]^(2^m - 2) (e == nullptr) or a[i]^e[i] (the low nbits
-// bits of e), i < n, over the (n / cols, cols) output; a (uint8 for m <= 8,
-// int64 above) and e (int64) are read at row * rs + col * cs. f is the
-// irreducible polynomial of degree m (bit k: coefficient of x^k).
-extern "C" int gf2m_power_launch(const void* a, long long a_rs, long long a_cs, const long long* e, long long e_rs,
-                                 long long e_cs, int nbits, void* out, long long n, long long cols, int m, unsigned f,
-                                 void* stream) {
-  if (n <= 0 || cols <= 0 || m < 2 || m > 16 || (f >> m) != 1u || nbits < 0 || nbits > 64) {
+// bits of e) over the output's n elements, (n / (n1 n2), n1, n2), 16-byte
+// aligned; a (uint8 for m <= 8, int64 above) and e (int64) are read at
+// element strides (s0, s1, s2) along those axes. tab: pack_tables' table of
+// the field for that storage (the byte rows, or the uint16 segments), 16-byte
+// aligned.
+extern "C" int gf2m_power_launch(const void* a, long long as0, long long as1, long long as2, const long long* e,
+                                 long long es0, long long es1, long long es2, int nbits, void* out, long long n,
+                                 long long n1, long long n2, int m, const void* tab, void* stream) {
+  if (n <= 0 || n1 <= 0 || n2 <= 0 || n % (n1 * n2) || m < 2 || m > 16 || nbits < 0 || nbits > 64 ||
+      !aligned16(out) || !aligned16(tab)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const uint32_t r = f ^ (1u << m);
-  const long long per_block = m <= 8 ? 16LL * THREADS : 1LL * SCALAR_ELEMS * THREADS;
-  const long long blocks = (n + per_block - 1) / per_block;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const bool contiguous = a_cs == 1 && (cols >= n || a_rs == cols);
-  const long long nvec = m <= 8 && contiguous && aligned16(a) && aligned16(out) ? n / 16 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
+  if (!e && flat_unit(as0, as1, as2, n / (n1 * n2), n1, n2) == 1) {  // K5's pass, zero masked
+    const int place = m <= 8 ? PLACE_BYTES : m <= 14 ? PLACE_SHARED : PLACE_LOG_SHARED;
+    return static_cast<int>(launch_unary<OP_RECIP, true>(place, a, out, tab, nullptr, nullptr, 1 << m, n, s));
+  }
+  const long long ast[3] = {as0, as1, as2}, est[3] = {es0, es1, es2};
+  cudaError_t err = cudaErrorInvalidValue;
 #define GF2M_POWER_CASE(M) \
-  case M: launch_power<M>(grid, s, a, a_rs, a_cs, e, e_rs, e_cs, nbits, out, n, cols, nvec, r, deg(r)); break;
+  case M: err = launch_power<M>(a, ast, e, est, nbits, out, n, n1, n2, tab, s); break;
   switch (m) {
     GF2M_POWER_CASE(2) GF2M_POWER_CASE(3) GF2M_POWER_CASE(4) GF2M_POWER_CASE(5) GF2M_POWER_CASE(6)
     GF2M_POWER_CASE(7) GF2M_POWER_CASE(8) GF2M_POWER_CASE(9) GF2M_POWER_CASE(10) GF2M_POWER_CASE(11)
     GF2M_POWER_CASE(12) GF2M_POWER_CASE(13) GF2M_POWER_CASE(14) GF2M_POWER_CASE(15) GF2M_POWER_CASE(16)
   }
 #undef GF2M_POWER_CASE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // K8-B: the masked Berlekamp-Massey scan of `rows` codewords over GF(2^m):

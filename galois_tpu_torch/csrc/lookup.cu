@@ -48,7 +48,8 @@
 // Every placement streams 16 bytes of a and of b a thread and step, two
 // steps' loads in flight, and reads and writes the streams with evict-first
 // hints (__ldcs/__stcs), so that a stream read once does not push the tables
-// out of L1 and L2 (Stream, stream_pass). An operand that is not 16-byte
+// out of L1 and L2 (Stream, stream_pass; in lookup.cuh with the staging, the
+// byte-row reads and K5/K6, which K8 and K8-A share). An operand that is not 16-byte
 // aligned (a view one element in) takes two aligned loads and a funnel shift
 // a word, so that its chunks line up with the output's; an operand of one
 // element (stride 0) is read once a thread, never materialized.
@@ -95,124 +96,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookup.cuh"
+
 namespace {
-
-enum { OP_MUL = 0, OP_DIV = 1, OP_RECIP = 2, OP_LOG = 3 };
-enum { PLACE_BYTES = 0, PLACE_SHARED = 1, PLACE_LOG_SHARED = 2, PLACE_GLOBAL = 3 };
-
-// Blocks of at most as many as the SMs hold at once, enough for `units`
-// threads' worth of work; raises the dynamic shared memory limit first.
-template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, int threads, int smem, long long units, unsigned* blocks) {
-  cudaError_t err;
-  if (smem > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
-    return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
-    return err;
-  long long n = (units + threads - 1) / threads;
-  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  *blocks = static_cast<unsigned>(n < 1 ? 1 : (n > resident ? resident : n));
-  return cudaSuccess;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// ----------------------------------------------------------------------
-// K3/K4: the element streams
-// ----------------------------------------------------------------------
-
-// One operand's 16-byte chunks. An aligned operand is one load a chunk; one
-// k bytes past 16-byte alignment (a view some elements in) is two aligned
-// loads and a funnel shift of each word, so its chunks line up with the
-// output's; an operand of one element is its value repeated (rep).
-struct Stream {
-  const uint4* base;  // the operand rounded down to 16 bytes
-  int k;              // bytes from there to the operand
-  bool one;
-  uint4 rep;
-
-  __device__ __forceinline__ Stream(const void* p, bool one_, uint4 rep_) : one(one_), rep(rep_) {
-    k = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
-    base = reinterpret_cast<const uint4*>(static_cast<const char*>(p) - k);
-  }
-
-  __device__ __forceinline__ uint4 chunk(long long v) const {
-    if (one) return rep;
-    const uint4 lo = __ldcs(base + v);
-    if (k == 0) return lo;
-    const uint4 hi = __ldcs(base + v + 1);  // holds the chunk's last byte, so lies inside the operand's pages
-    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    const int s = k >> 2, sh = 8 * (k & 3);
-    uint32_t r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t x0 = s == 0 ? w[j] : s == 1 ? w[j + 1] : s == 2 ? w[j + 2] : w[j + 3];
-      const uint32_t x1 = s == 0 ? w[j + 1] : s == 1 ? w[j + 2] : s == 2 ? w[j + 3] : w[j + 4];
-      r[j] = __funnelshift_r(x0, x1, sh);
-    }
-    return make_uint4(r[0], r[1], r[2], r[3]);
-  }
-};
-
-// The chunks [0, nv) of a grid-stride pass, two chunks' loads in flight per
-// thread; f maps a chunk of a and one of b to one of out (16-byte aligned).
-template <typename F>
-__device__ __forceinline__ void stream_pass(const Stream& A, const Stream& B, uint4* __restrict__ out, long long nv,
-                                            long long tid, long long nthreads, F f) {
-  for (long long v = tid; v < nv; v += 2 * nthreads) {
-    const long long w = v + nthreads;
-    const bool two = w < nv;
-    const uint4 x0 = A.chunk(v), y0 = B.chunk(v);
-    uint4 x1 = x0, y1 = y0;
-    if (two) {
-      x1 = A.chunk(w);
-      y1 = B.chunk(w);
-    }
-    __stcs(out + v, f(x0, y0));
-    if (two) __stcs(out + w, f(x1, y1));
-  }
-}
 
 // ----------------------------------------------------------------------
 // K3/K4, bytes placement
 // ----------------------------------------------------------------------
-
-constexpr int BYTE_THREADS = 256;
-constexpr unsigned ROW = 128;  // bytes of one table row: 32 lanes of 4 bytes
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
-  return r;
-}
-
-// 0xFF in each byte of w that is not 0, 0x00 in each that is.
-__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
-  const uint32_t t = ((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w;  // bit 7 of a byte: the byte is not 0
-  return prmt(t, 0, 0xBA98);  // each byte filled with its bit 7
-}
-
-// One element from this lane's column (fields: 0 LOG, 1 EXP, 2 (q-1) - LOG),
-// before the zero test.
-template <int OP>
-__device__ __forceinline__ uint32_t byte_op(const uint8_t* col, uint32_t x, uint32_t y) {
-  const uint32_t s = col[x * ROW] + col[y * ROW + (OP == OP_MUL ? 0 : 2)];
-  return col[s * ROW + 1];
-}
-
-// Four elements of one 32-bit word of a and of b.
-template <int OP>
-__device__ __forceinline__ uint32_t word_op(const uint8_t* col, uint32_t A, uint32_t B) {
-  uint32_t r[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r[k] = byte_op<OP>(col, (A >> (8 * k)) & 0xFF, (B >> (8 * k)) & 0xFF);
-  const uint32_t w = prmt(prmt(r[0], r[1], 0x0040), prmt(r[2], r[3], 0x0040), 0x5410);
-  return w & (OP == OP_MUL ? nonzero_bytes(A) & nonzero_bytes(B) : nonzero_bytes(A));
-}
 
 // rows_g: 2(q-1) words, byte 0 LOG[r] (r < q), byte 1 EXP[r], byte 2
 // (q-1) - LOG[r] (r < q). a_one / b_one: that operand is one element.
@@ -221,11 +111,7 @@ __global__ void __launch_bounds__(BYTE_THREADS)
 bytes_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, uint8_t* __restrict__ out,
              const uint32_t* __restrict__ rows_g, int rows, int a_one, int b_one, long long n) {
   extern __shared__ uint4 s_rows[];  // rows x 32 lanes x 4 bytes
-  for (int i = threadIdx.x; i < rows * 8; i += BYTE_THREADS) {
-    const uint32_t w = __ldg(rows_g + (i >> 3));
-    s_rows[i] = make_uint4(w, w, w, w);
-  }
-  __syncthreads();
+  stage_byte_rows(s_rows, rows_g, rows, BYTE_THREADS);
   const uint8_t* col = reinterpret_cast<const uint8_t*>(s_rows) + 4 * (threadIdx.x & 31);
   const long long tid = static_cast<long long>(blockIdx.x) * BYTE_THREADS + threadIdx.x;
   const long long nthreads = static_cast<long long>(gridDim.x) * BYTE_THREADS;
@@ -247,11 +133,6 @@ bytes_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, uint8
 // ----------------------------------------------------------------------
 // K3/K4, int64 placements
 // ----------------------------------------------------------------------
-
-template <int PLACE>
-__host__ __device__ constexpr int wide_threads() {
-  return PLACE == PLACE_LOG_SHARED ? 1024 : 512;
-}
 
 // The gathers of one placement. log16/exp16: uint16 LOG (q entries) and
 // reduced EXP (q - 1 entries); log32/exp32: the int32 tables (global).
@@ -295,8 +176,7 @@ wide_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b, int64_
             const int32_t* __restrict__ log32, int q, int a_one, int b_one, long long n) {
   constexpr int THREADS = wide_threads<PLACE>();
   extern __shared__ uint4 s_tab[];
-  for (int i = threadIdx.x; i < staged / 8; i += THREADS) s_tab[i] = __ldg(reinterpret_cast<const uint4*>(packed) + i);
-  __syncthreads();
+  stage_u16(s_tab, packed, staged, THREADS);
   const uint16_t* s16 = reinterpret_cast<const uint16_t*>(s_tab);
   const WideTables<PLACE> t{s16, PLACE == PLACE_SHARED ? s16 + q8 : packed + q8, log32, exp32, q - 1};
   const long long tid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -311,8 +191,6 @@ wide_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b, int64_
   for (long long i = (nv << 1) + tid; i < n; i += nthreads)  // the ragged tail
     out[i] = t.template apply<OP>(a_one ? a0 : static_cast<int>(a[i]), b_one ? b0 : static_cast<int>(b[i]));
 }
-
-int round8(int x) { return (x + 7) & ~7; }
 
 template <int OP>
 cudaError_t launch_binary(int place, const void* a, int a_one, const void* b, int b_one, void* out,
@@ -348,168 +226,6 @@ cudaError_t launch_binary(int place, const void* a, int a_one, const void* b, in
     default: return cudaErrorInvalidValue;
   }
 #undef LAUNCH_WIDE
-}
-
-// ----------------------------------------------------------------------
-// K5/K6
-// ----------------------------------------------------------------------
-
-// The chunks [0, nv) of one operand in a grid-stride pass, U chunks' loads
-// in flight per thread; f(v, x) writes what chunk v of the operand (x)
-// gives. A warp's lanes hold consecutive chunks, so the lanes that call f
-// for one u are the whole warp wherever the warp's 32 chunks lie below nv.
-template <int U, typename F>
-__device__ __forceinline__ void unary_pass(const Stream& A, long long nv, long long tid, long long nthreads, F f) {
-  for (long long v = tid; v < nv; v += U * nthreads) {
-    uint4 x[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (v + u * nthreads < nv) x[u] = A.chunk(v + u * nthreads);
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (v + u * nthreads < nv) f(v + u * nthreads, x[u]);
-  }
-}
-
-// Four elements of one 32-bit word, each one byte read from this lane's
-// column (col points at the field read).
-__device__ __forceinline__ uint32_t word_lookup(const uint8_t* col, uint32_t w) {
-  uint32_t r[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r[k] = col[((w >> (8 * k)) & 0xFF) * ROW];
-  return prmt(prmt(r[0], r[1], 0x0040), prmt(r[2], r[3], 0x0040), 0x5410);
-}
-
-// bytes placement: rows_g is pack_tables' byte rows, of which the first q
-// are staged. K5 writes uint8 INV[a] (byte 3), K6 int64 LOG[a] (byte 0).
-// Four chunks in flight a thread: on an H100 K5 took 0.051-0.052 ms at
-// 2^26 so, 0.054 ms with two (a cap of 64 registers for four blocks a SM
-// gained nothing and spilled). The int64 kernels ran best with one.
-template <int OP>
-__global__ void __launch_bounds__(BYTE_THREADS)
-bytes_unary_kernel(const uint8_t* __restrict__ a, void* __restrict__ out, const uint32_t* __restrict__ rows_g,
-                   int q, long long n) {
-  extern __shared__ uint4 s_rows[];  // q rows x 32 lanes x 4 bytes
-  for (int i = threadIdx.x; i < q * 8; i += BYTE_THREADS) {
-    const uint32_t w = __ldg(rows_g + (i >> 3));
-    s_rows[i] = make_uint4(w, w, w, w);
-  }
-  __syncthreads();
-  const uint8_t* col = reinterpret_cast<const uint8_t*>(s_rows) + 4 * (threadIdx.x & 31) + (OP == OP_RECIP ? 3 : 0);
-  const long long tid = static_cast<long long>(blockIdx.x) * BYTE_THREADS + threadIdx.x;
-  const long long nthreads = static_cast<long long>(gridDim.x) * BYTE_THREADS;
-  const Stream A(a, false, make_uint4(0, 0, 0, 0));
-  const long long nv = n >> 4;
-  uint4* o = static_cast<uint4*>(out);
-  if constexpr (OP == OP_RECIP) {
-    unary_pass<4>(A, nv, tid, nthreads, [col, o](long long v, uint4 x) {
-      __stcs(o + v, make_uint4(word_lookup(col, x.x), word_lookup(col, x.y), word_lookup(col, x.z),
-                               word_lookup(col, x.w)));
-    });
-    for (long long i = (nv << 4) + tid; i < n; i += nthreads)  // the ragged tail
-      static_cast<uint8_t*>(out)[i] = col[a[i] * ROW];
-  } else {
-    // Sixteen LOG bytes a lane, then eight 16-byte int64 stores. A whole
-    // warp (32 chunks, 512 elements) stores them transposed: store j of lane
-    // l holds elements 2(32j + l) and 2(32j + l) + 1 of the warp's group,
-    // bytes 2(l % 8) and 2(l % 8) + 1 of lane 4j + l / 8's LOG bytes, so
-    // each store instruction writes 512 contiguous bytes (each lane storing
-    // its own chunk's eight, 128 bytes apart from the next lane's, took 0.23
-    // ms at 2^24 on an H100, four times as long). The last, partial warp of
-    // the pass stores each lane's own chunk.
-    const int lane = threadIdx.x & 31;
-    unary_pass<4>(A, nv, tid, nthreads, [col, o, nv, lane](long long v, uint4 x) {
-      const uint32_t r[4] = {word_lookup(col, x.x), word_lookup(col, x.y), word_lookup(col, x.z),
-                             word_lookup(col, x.w)};
-      const long long first = v - lane;  // the warp's first chunk
-      if (first + 32 <= nv) {  // the same for every lane of the warp
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int src = 4 * j + (lane >> 3), k = (lane & 7) >> 1;
-          const uint32_t w0 = __shfl_sync(0xFFFFFFFFu, r[0], src), w1 = __shfl_sync(0xFFFFFFFFu, r[1], src);
-          const uint32_t w2 = __shfl_sync(0xFFFFFFFFu, r[2], src), w3 = __shfl_sync(0xFFFFFFFFu, r[3], src);
-          const uint32_t h = (k == 0 ? w0 : k == 1 ? w1 : k == 2 ? w2 : w3) >> (16 * (lane & 1));
-          __stcs(o + 8 * first + 32 * j + lane, make_uint4(h & 0xFF, 0, (h >> 8) & 0xFF, 0));
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {  // elements 2j and 2j + 1 of this lane's chunk
-          const uint32_t h = r[j >> 1] >> (16 * (j & 1));
-          __stcs(o + 8 * v + j, make_uint4(h & 0xFF, 0, (h >> 8) & 0xFF, 0));
-        }
-      }
-    });
-    for (long long i = (nv << 4) + tid; i < n; i += nthreads)
-      static_cast<int64_t*>(out)[i] = col[a[i] * ROW];
-  }
-}
-
-// int64 placements: seg is the staged uint16 segment of pack_tables'
-// table (INV for K5, LOG for K6; `staged` entries, 0 for global), or for
-// global the int32 tables. Writes int64 INV[a] (K5) or LOG[a] (K6).
-template <int OP, int PLACE>
-__global__ void __launch_bounds__(PLACE == PLACE_LOG_SHARED ? 1024 : 512, PLACE == PLACE_LOG_SHARED ? 1 : 2)
-wide_unary_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ out, const uint16_t* __restrict__ seg,
-                  int staged, const int32_t* __restrict__ exp32, const int32_t* __restrict__ log32, int q,
-                  long long n) {
-  constexpr int THREADS = wide_threads<PLACE>();
-  extern __shared__ uint4 s_tab[];
-  for (int i = threadIdx.x; i < staged / 8; i += THREADS) s_tab[i] = __ldg(reinterpret_cast<const uint4*>(seg) + i);
-  __syncthreads();
-  const uint16_t* s16 = reinterpret_cast<const uint16_t*>(s_tab);
-  const int q1 = q - 1;
-  // one element: x is the low word of an int64 storage value in [0, q)
-  auto f = [s16, exp32, log32, q1](uint32_t x) -> uint32_t {
-    if constexpr (PLACE == PLACE_GLOBAL) {
-      const int l = __ldg(log32 + x);
-      return OP == OP_RECIP ? __ldg(exp32 + (q1 - l)) : l;
-    } else {
-      return s16[x];
-    }
-  };
-  const long long tid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  const long long nthreads = static_cast<long long>(gridDim.x) * THREADS;
-  const Stream A(a, false, make_uint4(0, 0, 0, 0));
-  const long long nv = n >> 1;
-  uint4* o = reinterpret_cast<uint4*>(out);
-  unary_pass<1>(A, nv, tid, nthreads, [f, o](long long v, uint4 x) { __stcs(o + v, make_uint4(f(x.x), 0, f(x.z), 0)); });
-  for (long long i = (nv << 1) + tid; i < n; i += nthreads)  // the ragged tail
-    out[i] = f(static_cast<uint32_t>(a[i]));
-}
-
-template <int OP>
-cudaError_t launch_unary(int place, const void* a, void* out, const void* packed, const int32_t* exp_t,
-                         const int32_t* log_t, int q, long long n, cudaStream_t stream) {
-  unsigned blocks = 0;
-  cudaError_t err;
-  if (place == PLACE_BYTES) {
-    const int smem = q * static_cast<int>(ROW);
-    auto kernel = bytes_unary_kernel<OP>;
-    if ((err = persistent_grid(kernel, BYTE_THREADS, smem, n / 16 + 1, &blocks)) != cudaSuccess) return err;
-    kernel<<<blocks, BYTE_THREADS, smem, stream>>>(static_cast<const uint8_t*>(a), out,
-                                                    static_cast<const uint32_t*>(packed), q, n);
-    return cudaGetLastError();
-  }
-  const int q8 = round8(q), e8 = round8(q - 1);
-  const int64_t* a64 = static_cast<const int64_t*>(a);
-  int64_t* o64 = static_cast<int64_t*>(out);
-  // INV at q8 + e8 (K5) or LOG at 0 (K6) of the uint16 placements' table
-  const uint16_t* seg = packed ? static_cast<const uint16_t*>(packed) + (OP == OP_RECIP ? q8 + e8 : 0) : nullptr;
-#define LAUNCH_WIDE_UNARY(PLACE, STAGED)                                                                 \
-  do {                                                                                                   \
-    auto kernel = wide_unary_kernel<OP, PLACE>;                                                          \
-    const int staged = (STAGED), smem = 2 * staged, threads = wide_threads<PLACE>();                     \
-    if ((err = persistent_grid(kernel, threads, smem, n / 2 + 1, &blocks)) != cudaSuccess) return err;  \
-    kernel<<<blocks, threads, smem, stream>>>(a64, o64, seg, staged, exp_t, log_t, q, n);                \
-    return cudaGetLastError();                                                                           \
-  } while (0)
-  switch (place) {
-    case PLACE_SHARED: LAUNCH_WIDE_UNARY(PLACE_SHARED, q8);
-    case PLACE_LOG_SHARED: LAUNCH_WIDE_UNARY(PLACE_LOG_SHARED, q8);
-    case PLACE_GLOBAL: LAUNCH_WIDE_UNARY(PLACE_GLOBAL, 0);
-    default: return cudaErrorInvalidValue;
-  }
-#undef LAUNCH_WIDE_UNARY
 }
 
 bool placed_ok(int place, int q, const void* out, const void* packed) {

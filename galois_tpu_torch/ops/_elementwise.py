@@ -1,7 +1,8 @@
 """Elementwise field kernels: K7 (GF(2^m) multiply, Triton), K8 (GF(2^m)
-multiply for m <= 8, four elements per word, CUDA C++ in
-``csrc/gf2m_swar.cu``), K9 and K10 (prime-field multiplies, CUDA C++ in
-``csrc/prime_mul.cu``) and K11 (the device probe, ``csrc/probe.cu``).
+multiply for m <= 8, CUDA C++ in ``csrc/gf2m_swar.cu``), K8-A (GF(2^m)
+reciprocal and powers, ``csrc/gf2m_chain.cu``), K9 and K10 (prime-field
+multiplies, CUDA C++ in ``csrc/prime_mul.cu``) and K11 (the device probe,
+``csrc/probe.cu``).
 
 Each wrapper serves CPU tensors with its plain torch version, launches its
 kernel for CUDA tensors and counts the launch in ``<wrapper>.launches``, and
@@ -31,19 +32,28 @@ the TPU and are not carried over; the ragged tail is masked.
 
 K8 replaces ``gf2m_multiply_swar_pallas``
 (``galois_tpu/ops/_pallas/_elementwise.py:447``): the same map for
-2 <= m <= 8 with four uint8 elements per 32-bit word, nibble-Karatsuba
-carry-less products in byte slots and constant folds by f, about half K7's
-operations per product. Its plain version below is the same SWAR
-algorithm in torch int64 arithmetic.
+2 <= m <= 8 on uint8 storage. The TPU kernel computes it with four
+elements per 32-bit word, nibble-Karatsuba carry-less products in byte
+slots and constant folds by f; its plain version below is that SWAR
+algorithm in torch int64 arithmetic. On the card the kernel reads the
+field's tables instead: EXP[LOG a + LOG b] from the byte rows of
+``pack_tables`` in shared memory, one copy per bank, as K3 reads them.
+Operands are read where they lie, by element strides along the output's
+axes merged into at most three (``_merged_axes``), so the RS decoder's
+broadcasts (the (B, lb, la) outer product of ``conv_trunc``, the
+derivative's and Forney's rows) are not materialized.
 
-K8-A (``gf2m_power``, CUDA C++ in ``csrc/gf2m_chain.cu``) runs K8's SWAR
-core in registers across a whole chain of products: the Itoh-Tsujii
-reciprocal a^(2^m - 2) or the binary ladder of a per-element exponent, for
-2 <= m <= 16, in one launch. ``BinaryExtOps.reciprocal``, ``power`` and
-``power_static`` take it for those m. Its plain version is the torch chain
-those methods ran before: bit-spread squares (``gf2m_square_plain``), the
-Itoh-Tsujii chain (``itoh_tsujii``) and the exponent ladder
-(``power_ladder``) over K7's plain product.
+K8-A (``gf2m_power``) computes a^(2^m - 2), the reciprocal (0 for 0), or
+a**e for an int64 exponent tensor, for 2 <= m <= 16, in one launch, by the
+field's tables: INV (0 masked) for the reciprocal of an operand laid out as
+the output, else EXP[(LOG a * e') mod (2^m - 1)] with e' the exponent's
+reduction, both operands by stride. ``BinaryExtOps.reciprocal``, ``power``
+and ``power_static`` take it for those m. Its plain version is the torch
+chain those methods ran before: bit-spread squares
+(``gf2m_square_plain``), the Itoh-Tsujii chain (``itoh_tsujii``) and the
+exponent ladder (``power_ladder``) over K7's plain product. K8, K8-A and
+K8-B read one table per (m, f, device), ``_lookup.gf2m_packed_tables``: the
+field's ``build_exp_log`` tables from the cache that K3-K6 read too.
 
 Triton is imported inside the launching function, so this module imports
 on machines without Triton; there the wrapper serves CPU tensors only.
@@ -58,6 +68,7 @@ import math
 import torch
 
 from ._limbs import align_planar, mul_limbs, normalize_limbs
+from ._lookup import gf2m_packed_tables
 
 __all__ = [
     "gf2m_multiply",
@@ -158,7 +169,8 @@ gf2m_multiply.launches = 0
 
 
 # ----------------------------------------------------------------------
-# K8: GF(2^m) multiply, 2 <= m <= 8, four elements per word (csrc/gf2m_swar.cu)
+# K8: GF(2^m) multiply, 2 <= m <= 8 (csrc/gf2m_swar.cu); its plain version
+# is the TPU kernel's SWAR algorithm
 # ----------------------------------------------------------------------
 
 _ONES = 0x01010101  # bit 0 of every byte
@@ -249,8 +261,8 @@ def _swar_lib():
     from .._build import load
 
     lib = load("gf2m_swar")
-    vp = ctypes.c_void_p
-    lib.gf2m_swar_launch.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, vp]
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.gf2m_swar_launch.argtypes = [vp, i64, i64, i64, vp, i64, i64, i64, vp, i64, i64, i64, ctypes.c_int, vp, vp]
     lib.gf2m_swar_launch.restype = ctypes.c_int
     return lib
 
@@ -259,22 +271,24 @@ def gf2m_multiply_swar(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> 
     """K8: GF(2^m) product of two uint8 storage tensors (broadcast), 2 <= m <= 8.
 
     CPU tensors take ``gf2m_multiply_swar_plain``; CUDA tensors launch the
-    kernel (counted in ``gf2m_multiply_swar.launches``) or raise. A
-    broadcast operand is materialized first."""
-    a, b = torch.broadcast_tensors(a, b)
+    kernel (counted in ``gf2m_multiply_swar.launches``) or raise. The kernel
+    reads the field's byte rows (``gf2m_packed_tables``) and takes broadcast
+    operands in place by stride where the output's axes merge into three;
+    beyond that they are materialized first."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gf2m_multiply_swar_plain(a, b, m, f_int)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"gf2m_multiply_swar: operands on {a.device} and {b.device}; need one CUDA device.")
     _check_swar(a, b, m, f_int)
-    a = a.contiguous()
-    b = b.contiguous()
-    out = torch.empty(a.shape, dtype=torch.uint8, device=a.device)
-    n = a.numel()
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.uint8, device=a.device)
+    n = out.numel()
     if n:
+        (a, b), n1, n2, (sa, sb) = _strided(shape, (a, b))
+        rows = gf2m_packed_tables(m, f_int, a.device)
         with torch.cuda.device(a.device):
             rc = _swar_lib().gf2m_swar_launch(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, f_int,
+                a.data_ptr(), *sa, b.data_ptr(), *sb, out.data_ptr(), n, n1, n2, m, rows.data_ptr(),
                 ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
             )
         if rc != 0:
@@ -287,7 +301,8 @@ gf2m_multiply_swar.launches = 0
 
 
 # ----------------------------------------------------------------------
-# K8-A: GF(2^m) powers, 2 <= m <= 16, the chain in registers (csrc/gf2m_chain.cu)
+# K8-A: GF(2^m) reciprocal and powers, 2 <= m <= 16, by the field's tables
+# (csrc/gf2m_chain.cu); its plain version is the torch chain
 # ----------------------------------------------------------------------
 
 def gf2m_reduce_plain(c: torch.Tensor, m: int, f_int: int) -> torch.Tensor:
@@ -372,17 +387,18 @@ def _chain_lib():
 
     lib = load("gf2m_chain")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.gf2m_power_launch.argtypes = [vp, i64, i64, vp, i64, i64, i32, vp, i64, i64, i32, ctypes.c_uint, vp]
+    lib.gf2m_power_launch.argtypes = [vp, i64, i64, i64, vp, i64, i64, i64, i32, vp, i64, i64, i64, i32, vp, vp]
     lib.bm_scan_launch.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, ctypes.c_uint, vp]
     lib.gf2m_power_launch.restype = lib.bm_scan_launch.restype = i32
     return lib
 
 
-def _rows_cols(shape, *strides):
-    """The elements of ``shape``, in order, as (rows, cols) with per-operand
-    element strides [(rs, cs), ...]: axes of size 1 dropped, neighbours
-    merged where every operand's strides allow. None when more than two
-    axes remain."""
+def _merged_axes(shape, *strides):
+    """The elements of ``shape``, in order, as three axes (n0, n1, n2) with
+    per-operand element strides [(s0, s1, s2), ...]: axes of size 1
+    dropped, neighbours merged where every operand's strides allow, missing
+    outer axes of size 1 and stride 0. None when more than three axes
+    remain."""
     merged = []
     for i, size in enumerate(shape):
         if size == 1:
@@ -392,26 +408,37 @@ def _rows_cols(shape, *strides):
             merged[-1] = (merged[-1][0] * size, st)
         else:
             merged.append((size, st))
-    if len(merged) > 2:
+    if len(merged) > 3:
         return None
-    while len(merged) < 2:
-        merged.insert(0, (1, [0] * len(strides)))
-    (rows, rst), (cols, cst) = merged
-    return rows, cols, list(zip(rst, cst))
+    merged = [(1, [0] * len(strides))] * (3 - len(merged)) + merged
+    return tuple(size for size, _ in merged), [tuple(st[k] for _, st in merged) for k in range(len(strides))]
+
+
+def _strided(shape, operands):
+    """The operands as a kernel of K8 or K8-A reads them: views broadcast to
+    ``shape``, with the inner axes (n1, n2) of ``_merged_axes`` and each
+    operand's strides along the three. A layout of more than three axes is
+    materialized first."""
+    views = [x.expand(shape) for x in operands]
+    layout = _merged_axes(shape, *(v.stride() for v in views))
+    if layout is None:
+        views = [v.contiguous() for v in views]
+        layout = _merged_axes(shape, *(v.stride() for v in views))
+    (_, n1, n2), strides = layout
+    return views, n1, n2, strides
 
 
 def gf2m_power(a: torch.Tensor, e, m: int, f_int: int, nbits: int = 0) -> torch.Tensor:
-    """K8-A: a^(2^m - 2), the reciprocal, when ``e`` is None; else a**e for
-    the int64 exponent tensor ``e`` (broadcast against a; its low ``nbits``
-    bits count, 0**0 = 1). GF(2^m), 2 <= m <= 16, storage uint8 for m <= 8
-    and int64 above.
+    """K8-A: a^(2^m - 2), the reciprocal (0 for 0), when ``e`` is None; else
+    a**e for the int64 exponent tensor ``e`` (broadcast against a; its low
+    ``nbits`` bits count, 0**0 = 1). GF(2^m), 2 <= m <= 16, storage uint8
+    for m <= 8 and int64 above.
 
     CPU tensors take ``gf2m_power_plain``; CUDA tensors launch the kernel
-    (counted in ``gf2m_power.launches``) or raise. Broadcast operands are read
-    by stride where the output's axes merge into two; beyond that they are
+    (counted in ``gf2m_power.launches``) or raise. The kernel reads the
+    field's tables (``gf2m_packed_tables``); broadcast operands are read by
+    stride where the output's axes merge into three, beyond that they are
     materialized first."""
-    if e is not None:
-        a, e = torch.broadcast_tensors(a, e)
     if a.device.type == "cpu" and (e is None or e.device.type == "cpu"):
         return gf2m_power_plain(a, e, m, f_int, nbits)
     if a.device.type != "cuda" or (e is not None and e.device != a.device):
@@ -421,21 +448,16 @@ def gf2m_power(a: torch.Tensor, e, m: int, f_int: int, nbits: int = 0) -> torch.
     dtype = torch.uint8 if m <= 8 else torch.int64
     if a.dtype != dtype or (e is not None and e.dtype != torch.int64):
         raise TypeError(f"gf2m_power: a of {a.dtype} and e of {None if e is None else e.dtype}; need {dtype} and int64.")
-    out = torch.empty(a.shape, dtype=dtype, device=a.device)
+    shape = a.shape if e is None else torch.broadcast_shapes(a.shape, e.shape)
+    out = torch.empty(shape, dtype=dtype, device=a.device)
     n = out.numel()
     if n:
-        operands = [a] if e is None else [a, e]
-        layout = _rows_cols(a.shape, *(x.stride() for x in operands))
-        if layout is None:
-            operands = [x.contiguous() for x in operands]
-            layout = _rows_cols(a.shape, *(x.stride() for x in operands))
-        _, cols, st = layout
-        a_rs, a_cs = st[0]
-        e_rs, e_cs = st[1] if e is not None else (0, 0)
-        e_ptr = operands[1].data_ptr() if e is not None else None
+        ops, n1, n2, st = _strided(shape, [a] if e is None else [a, e])
+        e_ptr, e_st = (None, (0, 0, 0)) if e is None else (ops[1].data_ptr(), st[1])
+        tab = gf2m_packed_tables(m, f_int, a.device)
         with torch.cuda.device(a.device):
             rc = _chain_lib().gf2m_power_launch(
-                operands[0].data_ptr(), a_rs, a_cs, e_ptr, e_rs, e_cs, nbits, out.data_ptr(), n, cols, m, f_int,
+                ops[0].data_ptr(), *st[0], e_ptr, *e_st, nbits, out.data_ptr(), n, n1, n2, m, tab.data_ptr(),
                 ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
             )
         if rc != 0:

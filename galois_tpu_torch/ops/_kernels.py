@@ -8,10 +8,13 @@ Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
 - ``GF2Ops``        GF(2), bitwise
 - ``BinaryExtOps``  GF(2^m), m <= 32; the multiply is kernel K8 for
                     2 <= m <= 8 (``ops/_elementwise.py::gf2m_multiply_swar``,
-                    uint8 storage) and kernel K7 for 9 <= m <= 16
-                    (``gf2m_multiply``), a torch ladder above; reciprocal
-                    and powers for 2 <= m <= 16 are kernel K8-A
-                    (``gf2m_power``), torch chains above
+                    uint8 storage, by the field's tables) and kernel K7 for
+                    9 <= m <= 16 (``gf2m_multiply``), a torch ladder above;
+                    reciprocal and powers for 2 <= m <= 16 are kernel K8-A
+                    (``gf2m_power``, by the field's tables), torch chains
+                    above; K8, K8-A and K8-B share one table per (m, f,
+                    device) (``packed_tables``), the one that lookup mode
+                    reads for that field
 - ``OddExtOps``     GF(p^m), p odd, p^m <= 2^31: base-p digit arithmetic;
                     the public multiply of orders <= 4096 is kernel K3
 - ``LookupOps``     the 'jit-lookup' mode of any field of order <= 2^20:
@@ -59,7 +62,15 @@ from ._elementwise import (
     power_ladder,
 )
 from ._limbs import align_planar, mul_limbs, normalize_limbs
-from ._lookup import lookup_divide, lookup_log, lookup_multiply, lookup_reciprocal, pack_tables
+from ._lookup import (
+    field_tables,
+    gf2m_packed_tables,
+    lookup_divide,
+    lookup_log,
+    lookup_multiply,
+    lookup_reciprocal,
+    pack_tables,
+)
 
 __all__ = ["get_ops", "FieldOps", "mulmod"]
 
@@ -228,14 +239,11 @@ class BinaryExtOps(FieldOps):
     def square(self, a):
         return gf2m_square_plain(a, self.m, self.f)
 
-    @functools.cached_property
-    def _tables(self) -> _Tables:
-        return _Tables(self.meta, *build_exp_log(self.meta))
-
     def packed_tables(self, device: torch.device) -> torch.Tensor:
         """This field's EXP and LOG on ``device`` in ``pack_tables``' layout
-        for its storage (m <= 16): the table K8-B stages."""
-        return self._tables.packed(device)
+        for its storage (m <= 16): the table K8, K8-A and K8-B stage, one per
+        (m, f, device) (``_lookup.gf2m_packed_tables``)."""
+        return gf2m_packed_tables(self.m, self.f, torch.device(device))
 
     def reciprocal(self, a):
         if self.m <= 16:
@@ -262,10 +270,16 @@ class BinaryExtOps(FieldOps):
 class _Tables:
     """A field's EXP (length 2(q-1)) and LOG (length q) as int32 NumPy
     arrays, and their copies on each device they are used on, with the
-    packed table K3-K6 read there (``_lookup.pack_tables``)."""
+    packed table K3-K6 read there (``_lookup.pack_tables``). The field's own
+    tables (``exp`` and ``log`` not given) come from the one cache per field
+    and device, ``_lookup.field_tables``; tables installed by the caller
+    are copied here."""
 
-    def __init__(self, meta: FieldMeta, exp, log):
+    def __init__(self, meta: FieldMeta, exp=None, log=None):
         q = meta.order
+        self._own = exp is None
+        if self._own:
+            exp, log = build_exp_log(meta)
         exp, log = np.asarray(exp), np.asarray(log)
         if exp.shape != (2 * (q - 1),) or log.shape != (q,) or not np.array_equal(exp[: q - 1], exp[q - 1 :]):
             raise ValueError(
@@ -286,6 +300,8 @@ class _Tables:
         return self._device(device)[2]
 
     def _device(self, device):
+        if self._own:
+            return field_tables(self.meta, torch.device(device))
         if device not in self._on:
             exp_t, log_t = (torch.from_numpy(t).to(device) for t in (self.EXP, self.LOG))
             packed = pack_tables(exp_t, log_t, self.meta.order, self.meta.torch_dtype)
@@ -353,7 +369,7 @@ class OddExtOps(FieldOps):
 
     @functools.cached_property
     def _tables(self) -> _Tables:
-        return _Tables(self.meta, *build_exp_log(self.meta))
+        return _Tables(self.meta)
 
     def multiply_bulk(self, a, b):
         if self.meta.order <= self.BULK_LOOKUP_MAX_ORDER:
@@ -384,7 +400,7 @@ class LookupOps:
         self._calc = calc
         self.meta = calc.meta
         self.dt = calc.dt
-        self.load_tables(*build_exp_log(self.meta))
+        self._tables = _Tables(self.meta)
 
     def __getattr__(self, name):
         return getattr(self._calc, name)

@@ -11,7 +11,7 @@ Tables are the field's EXP (int32, length 2(q-1)) and LOG (int32, length q)
 on the data's device; elements are storage tensors (uint8 for q <= 2^8,
 else int64) holding values in [0, q). K3-K6 read the tables in the form
 that ``lookup_placement`` picks for ``(q, dtype)`` and ``pack_tables``
-builds (``ops/_kernels.py::_Tables`` keeps one per device). Each wrapper
+builds (``field_tables`` keeps one per field and device). Each wrapper
 serves CPU tensors with its plain version and launches its kernel for CUDA
 tensors, counting the launch in ``<wrapper>.launches``; it raises on
 anything else.
@@ -22,7 +22,11 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
+
+from ..fields._meta import FieldMeta
+from ..fields._tables import build_exp_log
 
 __all__ = [
     "lookup_multiply",
@@ -35,6 +39,8 @@ __all__ = [
     "lookup_log_plain",
     "lookup_placement",
     "pack_tables",
+    "field_tables",
+    "gf2m_packed_tables",
 ]
 
 _MUL, _DIV, _RECIP, _LOG = 0, 1, 2, 3  # op codes of the launchers
@@ -107,6 +113,30 @@ def pack_tables(exp_t: torch.Tensor, log_t: torch.Tensor, q: int, dtype: torch.d
     packed[q8 : q8 + q - 1] = exp_t[: q - 1]
     packed[q8 + e8 : q8 + e8 + q] = inv
     return torch.where(packed >= 2**15, packed - 2**16, packed).to(torch.int16)
+
+
+@functools.lru_cache(maxsize=None)
+def field_tables(meta: FieldMeta, device: torch.device):
+    """(EXP, LOG, packed) of the field ``meta`` on ``device``: its
+    ``build_exp_log`` tables as int32 and ``pack_tables``' table for its
+    storage, built once per field and device and shared by every kernel
+    that reads them."""
+    exp_t, log_t = (torch.from_numpy(t.astype(np.int32)).to(device) for t in build_exp_log(meta))
+    return exp_t, log_t, pack_tables(exp_t, log_t, meta.order, meta.torch_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def gf2m_packed_tables(m: int, f: int, device: torch.device):
+    """``pack_tables``' table of GF(2)[x]/f, 2 <= m <= 16, for its storage
+    (uint8 for m <= 8, int64 above) on ``device``: ``field_tables``' for the
+    field ``GF(2**m, irreducible_poly=f)``, so the one tensor that K8, K8-A
+    and K8-B read, that ``BinaryExtOps.packed_tables`` serves and that K3-K6
+    read for that field in lookup mode. Every primitive element gives the
+    same products, reciprocals and powers. Raises ValueError where f is not
+    irreducible of degree m."""
+    from ..fields import GF  # the field factory imports this module
+
+    return field_tables(GF(2**m, irreducible_poly=f)._meta, torch.device(device))[2]
 
 
 # ----------------------------------------------------------------------

@@ -219,7 +219,8 @@ def test_gf2m_power_kernel_matches_plain(cuda_device, m):
         (a, e, 40), (a[: 2**16], e[: 2**16], 64), (a[1:], e[:-1], 64), (a[1:], e[:-1], m),
         (a[:1000].reshape(10, 100), e[:10].reshape(10, 1), 64),  # exponent column, read with stride 0
         (a[5], e[:1000].reshape(40, 25), 40),  # 0-D base, as the erasure locator's g
-        (a[:200].reshape(4, 1, 50), e[:3].reshape(1, 3, 1), 40),  # three axes: materialized
+        (a[:200].reshape(4, 1, 50), e[:3].reshape(1, 3, 1), 40),  # three axes, read by stride
+        (a[:8].reshape(2, 1, 4, 1), e[:15].reshape(1, 3, 1, 5), 40),  # four axes: materialized
         (zeros, torch.zeros(100, dtype=torch.int64, device=cuda_device), 8),  # 0^0 = 1
     ]
     for x, y, nbits in cases:
@@ -231,6 +232,67 @@ def test_gf2m_power_kernel_matches_plain(cuda_device, m):
     assert torch.equal(gf2m_power(zeros, torch.zeros(100, dtype=torch.int64, device=cuda_device), m, f, 8), torch.ones_like(zeros))
     with pytest.raises(TypeError):
         gf2m_power(a.to(torch.int32), None, m, f)
+
+
+# K8's layouts, (a, b) as slices of two random buffers: whole tensors, the
+# RS decoder's broadcasts (read by stride), an inner axis below 16 (element
+# by element), a transposed operand, four axes (materialized), one element.
+K8_LAYOUTS = {
+    "contiguous": lambda a, b: (a[:100_003], b[:100_003]),
+    "view one element in": lambda a, b: (a[1:50_001], b[3:50_003]),
+    "one element": lambda a, b: (a[7:8], b[:4099]),
+    "0-D": lambda a, b: (a[7], b[:4099].reshape(1, 4099)),
+    "outer product (B, 1, 33) x (B, 32, 1)": lambda a, b: (a[: 999 * 33].reshape(999, 1, 33), b[: 999 * 32].reshape(999, 32, 1)),
+    "outer product swapped": lambda a, b: (b[: 999 * 32].reshape(999, 32, 1), a[: 999 * 33].reshape(999, 1, 33)),
+    "row broadcast (B, 255) x (1, 255)": lambda a, b: (a[: 500 * 255].reshape(500, 255), b[:255].reshape(1, 255)),
+    "column broadcast (B, 33) x (B, 1)": lambda a, b: (a[: 999 * 33].reshape(999, 33), b[:999].reshape(999, 1)),
+    "derivative (B, 32) x (1, 32)": lambda a, b: (a[: 999 * 32].reshape(999, 32), b[:32].reshape(1, 32)),
+    "inner axis of 5": lambda a, b: (a[: 999 * 5].reshape(999, 1, 5), b[: 999 * 3].reshape(999, 3, 1)),
+    "transposed": lambda a, b: (a[: 300 * 200].reshape(300, 200).t(), b[: 200 * 300].reshape(200, 300)),
+    "four axes": lambda a, b: (a[: 6 * 16].reshape(6, 1, 16, 1)[:, :, ::2], b[: 7 * 9].reshape(1, 7, 1, 9)),
+}
+
+
+@pytest.mark.parametrize("layout", list(K8_LAYOUTS))
+@pytest.mark.parametrize("m", [2, 5, 8])
+def test_gf2m_multiply_swar_kernel_layouts(cuda_device, m, layout):
+    """K8 by the field's byte rows on every layout kind: one launch, equal
+    to its plain version (the SWAR form) and to the ladder."""
+    f = gt.GF(2**m)._meta.irreducible_poly_int
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    a = torch.randint(0, 2**m, (2**17,), generator=g, device=cuda_device).to(torch.uint8)
+    b = torch.randint(0, 2**m, (2**17,), generator=g, device=cuda_device).to(torch.uint8)
+    a[::97] = 0
+    x, y = K8_LAYOUTS[layout](a, b)
+    launches = gf2m_multiply_swar.launches
+    got = gf2m_multiply_swar(x, y, m, f)
+    torch.cuda.synchronize()
+    assert gf2m_multiply_swar.launches == launches + 1
+    assert got.shape == torch.broadcast_shapes(x.shape, y.shape)
+    assert torch.equal(got, gf2m_multiply_swar_plain(x, y, m, f))
+    assert torch.equal(got, gf2m_multiply_plain(x, y, m, f))
+
+
+@pytest.mark.parametrize("m", [3, 8, 9, 14, 15, 16])
+def test_gf2m_power_kernel_placements(cuda_device, m):
+    """K8-A on each table placement (byte rows; LOG and EXP staged; LOG
+    staged and EXP through L1): every element (or a sample above 2^12) by
+    the reciprocal pass and by the strided pass, exponents 0, 1, q - 1, q,
+    2^63 - 1 and -1 with nbits 0, m and 64, and 0^e."""
+    F = gt.GF(2**m)
+    f, dt, q = F._meta.irreducible_poly_int, F._meta.torch_dtype, 2**m
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    every = torch.arange(q, device=cuda_device) if q <= 4096 else torch.randint(0, q, (4096,), generator=g, device=cuda_device)
+    every = every.to(dt)
+    edges = torch.tensor([0, 1, q - 1, q, 2**63 - 1, -1], device=cuda_device)
+    cases = [(every, None, 0), (every.repeat(2)[::2], None, 0), (every.reshape(2, -1).t(), None, 0)]
+    cases += [(every[:, None], edges[None, :], nb) for nb in (0, m, 64)]
+    cases += [(torch.zeros(6, dtype=dt, device=cuda_device), edges, 64)]
+    for x, y, nb in cases:
+        got = gf2m_power(x, y, m, f, nb)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and torch.equal(got, gf2m_power_plain(x, y, m, f, nb))
+    assert int(gf2m_power(torch.zeros(1, dtype=dt, device=cuda_device), None, m, f)) == 0  # 1 / 0 is 0, as the chain
 
 
 @pytest.mark.parametrize("m", [2, 4, 8, 9, 12, 16])

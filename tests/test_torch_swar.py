@@ -1,8 +1,8 @@
-"""Kernel K8 of the torch port: the GF(2^m) multiply with four elements per
-32-bit word, 2 <= m <= 8.
+"""Kernel K8 of the torch port: the GF(2^m) multiply, 2 <= m <= 8.
 
-Its plain torch version (what CPU tensors run, and what the kernel is held
-against on the card) against the JAX package's ``_swar_mul_core``, called on
+Its plain torch version, the TPU kernel's SWAR algorithm with four elements
+per 32-bit word (what CPU tensors run, and what the kernel, which reads the
+field's tables, is held against on the card), against the JAX package's ``_swar_mul_core``, called on
 numpy-packed words as ``tests/test_pallas.py`` calls it, and against the
 port's one-element ladder (K7's plain version), for every m, the default
 (Conway) and another irreducible f, sizes 0, 1, 3 and 4099 and broadcast
