@@ -106,7 +106,23 @@ Phases, each fatal on failure:
      peak device memory. Then, after the launches are read, so that they
      are not counted: a torch.profiler table of one RS decode, and the RS
      and BCH decodes' times stage by stage (BCH's scan also by the plain
-     loop).
+     loop);
+  8. main path 5, the same way: BASELINE.json config 3, a Poly product of
+     two random degree-(2^19 - 1) Polys over GF(3*2^30+1) (the NTT at
+     N = 2^20), held on its 2^12 lowest and highest coefficients against a
+     NumPy schoolbook product and by f(r) g(r) = h(r) at 4 points; divmod of
+     degree 767 by 255 on the device, held by q b + r = a at 4 points;
+     pow(a, 2^10 + 3, m) with deg m = 512 against a NumPy square-and-multiply;
+     np.convolve at 2^12 x 2^12 taps over GF(2^8) (K8), GF(2^16) (K7),
+     GF(2^31 - 1) (K9) and Goldilocks (K10), held on their 64 lowest and
+     highest coefficients; config 5 on one device, np.fft.fft / ifft over
+     the BLS12-381 scalar field and Goldilocks at N = 2^24 (round trips; 16
+     bins against a direct DFT in Python ints at N = 2^12 on the same plan
+     path; plan build, transform time, peak memory, a torch.profiler split
+     of the BLS transform's int8 GEMMs); the recursive 6-step at N = 2^26
+     over GF(3*2^30+1), 4096 x (128 x 128), with its round trip and 16 bins
+     against a direct DFT in NumPy. K1, K2 (the 2^26 leaves included), K7,
+     K8, K9 and K10 must have been launched.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -124,6 +140,7 @@ import torch
 P = 3 * 2**30 + 1
 M31 = 2**31 - 1
 GOLDILOCKS = 2**64 - 2**32 + 1
+BLS_R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 SMS, INT32_LANES = 132, 64  # H100 SXM: SMs, int32 lanes per SM per clock
@@ -273,6 +290,41 @@ def direct_dft_bins(x, bins, p, generator):
         terms = xu * np_ladder(pow(omega, k, p), N, p) % np.uint64(p)
         out.append(int(terms.sum(dtype=np.uint64)) % p)
     return np.array(out, dtype=np.int64)
+
+
+def np_conv_mod(a, b, p):
+    """Schoolbook product of two coefficient arrays mod p < 2^32 (NumPy
+    uint64: each product < 2^64 is reduced before it is added)."""
+    a, b = np.asarray(a).astype(np.uint64) % np.uint64(p), np.asarray(b).astype(np.uint64) % np.uint64(p)
+    out = np.zeros(len(a) + len(b) - 1, dtype=np.uint64)
+    for j, bj in enumerate(b):
+        out[j : j + len(a)] = (out[j : j + len(a)] + a * bj % np.uint64(p)) % np.uint64(p)
+    return out.astype(np.int64)
+
+
+def np_polymod(a, m, p):
+    """Remainder of a by the monic m (descending coefficients), deg m long."""
+    dm = len(m) - 1
+    r = np.concatenate([np.zeros(max(0, dm - len(a)), dtype=np.uint64), np.asarray(a).astype(np.uint64) % np.uint64(p)])
+    mu = np.asarray(m).astype(np.uint64)
+    for i in range(len(r) - dm):
+        c = int(r[i])
+        if c:
+            r[i : i + dm + 1] = (r[i : i + dm + 1] + np.uint64(p - c) * mu % np.uint64(p)) % np.uint64(p)
+    return r[len(r) - dm :].astype(np.int64)
+
+
+def np_powmod(base, e, m, p):
+    """base^e mod (m, p) by square-and-multiply on NumPy arrays."""
+    result = np.zeros(len(m) - 1, dtype=np.int64)
+    result[-1] = 1
+    while e:
+        if e & 1:
+            result = np_polymod(np_conv_mod(result, base, p), m, p)
+        e >>= 1
+        if e:
+            base = np_polymod(np_conv_mod(base, base, p), m, p)
+    return result
 
 
 def np_gf2m_multiply(a, b, m, f):
@@ -1588,6 +1640,257 @@ def main() -> int:
     del dec, K, r, S, u, C, v, stages
     del msg, cw, x, msg_b, cw_b, x_b
     torch.cuda.empty_cache()
+
+    # -- 8. main path 5: Poly mul via NTT, np.convolve, the limb NTT, the recursive NTT --
+    # sizes are BASELINE.json's: config 3 (a Poly product of degree 2^20 - 2 through
+    # the NTT at N = 2^20) and config 5 (the BLS12-381 scalar field's NTT at 2^24, on
+    # one device, and the Goldilocks NTT beside it); then the 6-step at N = 2^26,
+    # which no two-factor split <= 4096 reaches
+    from galois_tpu_torch.ops import _ntt
+
+    for fn in counters:
+        fn.launches = 0
+    rng = np.random.default_rng(50)
+
+    def deltas(fn_call):
+        """Run fn_call, synchronize; return its result and the launches it made."""
+        before = {fn.__name__: fn.launches for fn in counters}
+        out = fn_call()
+        torch.cuda.synchronize()
+        return out, {k: fn.launches - before[k] for k, fn in zip(before, counters) if fn.launches > before[k]}
+
+    def poly_at(coeffs_desc, r, p):
+        """sum c_k r^k mod p of a descending NumPy coefficient array (np_ladder's powers)."""
+        pw = np_ladder(r, len(coeffs_desc), p)
+        return int((coeffs_desc[::-1].astype(np.uint64) * pw % np.uint64(p)).sum(dtype=np.uint64)) % p
+
+    F = gt.GF(P)
+    alpha = int(F.primitive_element)
+    half = 2**19
+    fc, gc = rng.integers(0, P, half), rng.integers(0, P, half)
+    fc[0] = gc[0] = 1
+    f, g = gt.Poly(fc, field=F), gt.Poly(gc, field=F)
+    t0 = time.perf_counter()
+    h, used = deltas(lambda: f * g)
+    first_s = time.perf_counter() - t0
+    if h.degree != 2**20 - 2 or not (used.get("plane_matmul_data_right") and used.get("plane_matmul_data_left")):
+        raise AssertionError(f"Poly product of degree 2^20 - 2: degree {h.degree}, launches {used}")
+    hc = np.asarray(h.coefficients()).astype(np.int64)
+    ends = 2**12
+    if not (np.array_equal(hc[:ends], np_conv_mod(fc[:ends], gc[:ends], P)[:ends])
+            and np.array_equal(hc[-ends:], np_conv_mod(fc[-ends:], gc[-ends:], P)[-ends:])):
+        raise AssertionError("Poly product's ends disagree with the NumPy schoolbook product")
+    for r in rng.integers(2, P, 4):
+        if poly_at(fc, int(r), P) * poly_at(gc, int(r), P) % P != poly_at(hc, int(r), P):
+            raise AssertionError(f"Poly product: f(r) g(r) != h(r) at r = {r}")
+    ms = cuda_ms(lambda: f * g, 3)
+    fa, ga = f.coefficients(), g.coefficients()
+    dev_ms = cuda_ms(lambda: np.convolve(fa, ga), 5)
+    N = 2**20
+    both = torch.zeros((2, N), dtype=torch.int64, device=dev)
+    both[0, :half], both[1, :half] = fa._data, ga._data
+    XY = _ntt.fft_data(F, both, N)
+    stages = {
+        "forward NTT batch 2 (K1 + K2)": lambda: _ntt.fft_data(F, both, N),
+        "pointwise product": lambda: get_ops(F._meta, F._mode).multiply(XY[0], XY[1]),
+        "inverse NTT with 1/N (K1 + K2, scaling)": lambda: _ntt.fft_data(F, XY[0], N, inverse=True),
+        "zero padding of both operands": lambda: both.new_zeros((2, N)).narrow(1, 0, half).copy_(both[:, :half]),
+        "coefficients to a device array (host)": lambda: f.coefficients(),
+    }
+    print(
+        f"[main] Poly product, degree 2^19 - 1 x 2^19 - 1 over GF(3*2^30+1) (NTT at N = 2^20): {ms:.3f} ms per "
+        f"product through Poly (host coefficients included; first call {first_s * 1e3:.1f} ms with the plans), "
+        f"{dev_ms:.3f} ms per np.convolve of the device coefficient arrays | launches per product {used} | by stage: "
+        + "; ".join(f"{k} {cuda_ms(fn, 5):.3f} ms" for k, fn in stages.items()),
+        flush=True,
+    )
+    del h, hc, fa, ga, both, XY
+
+    ac, bc = rng.integers(0, P, 768), rng.integers(0, P, 256)
+    ac[0] = bc[0] = 7
+    a_p, b_p = gt.Poly(ac, field=F), gt.Poly(bc, field=F)
+    (q, r), used = deltas(lambda: divmod(a_p, b_p))
+    qc, rc = (np.asarray(v.coefficients()).astype(np.int64) for v in (q, r))
+    for x0 in rng.integers(2, P, 4):
+        x0 = int(x0)
+        if (poly_at(qc, x0, P) * poly_at(bc, x0, P) + poly_at(rc, x0, P)) % P != poly_at(ac, x0, P):
+            raise AssertionError(f"divmod: q b + r != a at {x0}")
+    div_ms = cuda_ms(lambda: divmod(a_p, b_p), 3)
+    mc = rng.integers(0, P, 513)
+    mc[0] = 1
+    m_p = gt.Poly(mc, field=F)
+    e = 2**10 + 3
+    (w, pow_used) = deltas(lambda: pow(a_p, e, m_p))
+    want = np_powmod(np_polymod(ac, mc, P), e, mc, P)
+    if not np.array_equal(np.asarray(w.coefficients(size=512)).astype(np.int64), want):
+        raise AssertionError("pow(a, e, m) disagrees with the NumPy square-and-multiply")
+    pow_ms = cuda_ms(lambda: pow(a_p, e, m_p), 1)
+    print(
+        f"[main] Poly divmod, degree 767 by 255 over GF(3*2^30+1) (513 x 256 >= 2^17: the device division): "
+        f"{div_ms:.3f} ms, launches {used} | pow(a, 2^10 + 3, m), deg m = 512: {pow_ms:.3f} ms, launches {pow_used}",
+        flush=True,
+    )
+
+    # np.convolve at 2^12 x 2^12 taps, held on its 64 lowest and highest coefficients
+    taps = 2**12
+    for q_f, need, label in (
+        (2**8, gf2m_multiply_swar, "GF(2^8)"), (2**16, gf2m_multiply, "GF(2^16)"),
+        (M31, m31_multiply, "GF(2^31-1)"), (GOLDILOCKS, goldilocks_multiply, "Goldilocks"),
+    ):
+        Fq = gt.GF(q_f)
+        u, v = Fq.Random(taps, seed=60, device=dev), Fq.Random(taps, seed=61, device=dev)
+        t0 = time.perf_counter()
+        c, used = deltas(lambda: np.convolve(u, v))
+        first_s = time.perf_counter() - t0
+        if c.shape != (2 * taps - 1,) or c.device != dev or not used.get(need.__name__):
+            raise AssertionError(f"np.convolve over {label}: shape {c.shape}, launches {used}")
+        us, vs, cs = ints(u), ints(v), ints(c)
+        for k_range in (range(64), range(2 * taps - 65, 2 * taps - 1)):
+            for k in k_range:
+                lo, hi_ = max(0, k - taps + 1), min(k, taps - 1)
+                if q_f in (2**8, 2**16):
+                    m_deg = 8 if q_f == 2**8 else 16
+                    f_red = f8 if q_f == 2**8 else 0x1002D
+                    terms = np_gf2m_multiply(np.array(us[lo : hi_ + 1]), np.array(vs[k - hi_ : k - lo + 1][::-1]), m_deg, f_red)
+                    want_k = int(np.bitwise_xor.reduce(terms))
+                else:
+                    want_k = sum(us[i] * vs[k - i] for i in range(lo, hi_ + 1)) % q_f
+                if cs[k] != want_k:
+                    raise AssertionError(f"np.convolve over {label} disagrees with the schoolbook product at {k}")
+        ms = cuda_ms(lambda: np.convolve(u, v), 3)
+        print(
+            f"[main] np.convolve over {label}, {taps} x {taps} taps: {ms:.3f} ms (first call {first_s * 1e3:.1f} ms) | "
+            f"launches per product {used}",
+            flush=True,
+        )
+        del u, v, c
+    torch.cuda.empty_cache()
+
+    # config 5 on one device: the BLS12-381 scalar field's and Goldilocks' NTT at 2^24
+    for p_f, label in ((BLS_R, "BLS12-381 r"), (GOLDILOCKS, "Goldilocks")):
+        Fq = gt.GF(p_f)
+        x12 = Fq.Random(2**12, seed=70, device=dev)
+        X12 = np.fft.fft(x12)
+        om12 = _ntt._get_omega(Fq, 2**12)
+        xs12 = ints(x12)
+        bins = [0, 1, 2, 3, 5, 2**11, 2**12 - 1] + [int(k) for k in rng.integers(0, 2**12, 9)]
+        Xs12 = ints(X12)
+        for k in bins:
+            wk, acc = pow(om12, k, p_f), 0
+            for n_i in range(2**12 - 1, -1, -1):  # Horner in w^k
+                acc = (acc * wk + xs12[n_i]) % p_f
+            if Xs12[k] != acc:
+                raise AssertionError(f"{label} NTT at 2^12 disagrees with the direct DFT at bin {k}")
+        if not torch.equal(np.fft.ifft(X12)._data, x12._data):
+            raise AssertionError(f"{label} NTT at 2^12 does not round-trip")
+        del x12, X12
+        N = 2**24
+        x = Fq.Random(N, seed=71, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plan = _ntt._plan(Fq._meta, N, _ntt._get_omega(Fq, N), Fq._mode, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        X, used = deltas(lambda: np.fft.fft(x))
+        xb, used_inv = deltas(lambda: np.fft.ifft(X))
+        if X.shape != (N,) or X.device != dev or not torch.equal(xb._data, x._data):
+            raise AssertionError(f"{label} NTT at 2^24 does not round-trip")
+        if p_f == GOLDILOCKS and not used.get("goldilocks_multiply"):
+            raise AssertionError(f"{label} NTT at 2^24 did not launch K10: {used}")
+        del xb
+        ms = cuda_ms(lambda: np.fft.fft(x), 2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sides = {
+            "side 1 limb matmul": lambda: _ntt.limb_matmul(Fq._meta, plan.w1, x._data.reshape(-1, plan.n1, plan.n2)),
+            "twiddle multiply": lambda: _ntt._multiply_chunked(plan.ops, x._data.reshape(-1, plan.n1, plan.n2), plan.t),
+        }
+        print(
+            f"[main] {label} NTT N=2^24 batch 1 ({plan.n1} x {plan.n2}, {Fq._meta.storage_width} limbs): plan build "
+            f"{build_s:.2f} s, {ms:.1f} ms per forward transform, peak device memory {peak:.2f} GiB | launches "
+            f"forward {used}, inverse {used_inv} | "
+            + "; ".join(f"{k} {cuda_ms(fn, 1):.1f} ms" for k, fn in sides.items()),
+            flush=True,
+        )
+        if p_f == BLS_R:
+            # the int8 product of the middle diagonal of one output chunk, 32 digit pairs
+            # side by side (K = 32 x 2048), as _limb_matmul runs it (B K-major), with B
+            # row-major beside it
+            from galois_tpu_torch.ops import _limb_matmul
+
+            nc = max(32, _limb_matmul._CHUNK_BYTES // _limb_matmul._bytes_per_column(4096, 63, 34, 16) // 32 * 32)
+            ga = torch.randint(-128, 128, (4096, 32 * 2048), generator=gen, device=dev, dtype=torch.int8)
+            gbt = torch.randint(-128, 128, (nc, 32 * 2048), generator=gen, device=dev, dtype=torch.int8)
+            gb = gbt.t().contiguous()
+            km_ms = cuda_ms(lambda: torch._int_mm(ga, gbt.t()), 10)
+            rm_ms = cuda_ms(lambda: torch._int_mm(ga, gb), 10)
+            gemm_bnd = bound(0, 2 * 4096 * 32 * 2048 * nc)[0]
+            print(
+                f"[main] {label} side's middle-diagonal int8 product, (4096, {32 * 2048}) @ ({32 * 2048}, {nc}): "
+                f"{km_ms:.3f} ms with B K-major ({gemm_bnd / km_ms:.1%} of the int8 peak), {rm_ms:.3f} ms with B "
+                f"row-major | 63 diagonals x 2 K blocks x {-(-4096 // nc)} output chunks a side",
+                flush=True,
+            )
+            del ga, gbt, gb
+            # where a transform's device time goes: the int8 GEMMs against the rest
+            try:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    np.fft.fft(x)
+                    torch.cuda.synchronize()
+                groups = {"int8 GEMM (torch._int_mm)": 0.0, "other kernels": 0.0}
+                for ev in prof.key_averages():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA:
+                        name = ev.key.lower()
+                        key = "int8 GEMM (torch._int_mm)" if ("gemm" in name or "imma" in name or "i8" in name) else "other kernels"
+                        groups[key] += ev.self_device_time_total / 1e3
+                busy = sum(groups.values())
+                print(
+                    f"[main] {label} NTT N=2^24, device time by kernel (torch.profiler): "
+                    + ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.1%})" for k, v in groups.items())
+                    + f"; device busy {busy:.1f} ms of a {ms:.1f} ms transform",
+                    flush=True,
+                )
+            except Exception as exc:  # a diagnostic: the checks above do not depend on it
+                print(f"[main] torch.profiler gave no table: {type(exc).__name__}: {exc}", flush=True)
+        del x, X, plan
+        _ntt._plan.cache_clear()
+        torch.cuda.empty_cache()
+
+    # the recursive 6-step: GF(3*2^30+1) at N = 2^26 = 4096 x 16384, the second
+    # side a 128 x 128 sub-plan
+    N = 2**26
+    x = F.Random(N, seed=80, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = _ntt._plan(F._meta, N, _ntt._get_omega(F, N), F._mode, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if (plan.n1, plan.n2) != (4096, 16384) or plan.sub2 is None or (plan.sub2.n1, plan.sub2.n2) != (128, 128):
+        raise AssertionError("the 2^26 plan is not 4096 x (128 x 128)")
+    X, used = deltas(lambda: np.fft.fft(x))
+    leaves = plan.sub2.kernel_sides and used.get("plane_matmul_data_right", 0) >= 2 and used.get("plane_matmul_data_left")
+    if not leaves:
+        raise AssertionError(f"the 2^26 NTT did not launch K1/K2 in its leaves: {used}")
+    if not torch.equal(np.fft.ifft(X)._data, x._data):
+        raise AssertionError("the 2^26 NTT does not round-trip")
+    bins = [0, 1, 2, 3, 5, N // 2, N - 1] + [int(k) for k in rng.integers(0, N, 9)]
+    if not np.array_equal(np.asarray(X._data[bins].cpu()), direct_dft_bins(np.asarray(x._data.cpu()), bins, P, alpha)):
+        raise AssertionError("the 2^26 NTT disagrees with the direct DFT")
+    ms = cuda_ms(lambda: np.fft.fft(x), 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(
+        f"[main] NTT N=2^26 batch 1 over GF(3*2^30+1) (4096 x (128 x 128), recursive): plan build {build_s:.2f} s, "
+        f"{ms:.3f} ms per forward transform, peak device memory {peak:.2f} GiB | launches per transform {used}",
+        flush=True,
+    )
+    del x, X, plan
+    _ntt._plan.cache_clear()
+    torch.cuda.empty_cache()
+    read_counts(5, (plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply_swar, gf2m_multiply,
+                    m31_multiply, goldilocks_multiply))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),

@@ -174,7 +174,7 @@ class FieldArrayMeta(type):
             )
         if mode == "python-calculate":
             raise NotImplementedError(
-                "The 'python-calculate' mode is not ported yet (ROADMAP.md, queue 1 item 2)."
+                "The 'python-calculate' mode is not ported yet (it needs the host ufuncs of that mode)."
             )
         cls._mode = mode
 
@@ -472,7 +472,7 @@ class FieldArray(metaclass=FieldArrayMeta):
         name = ufunc.__name__
         if method != "__call__":
             raise NotImplementedError(
-                f"Ufunc method {method!r} is not ported yet (ROADMAP.md, queue 1 item 6)."
+                f"Ufunc method {method!r} is not ported yet (it needs the ufunc methods of fields/_array.py)."
             )
         if name in ("add", "subtract", "true_divide", "divide", "floor_divide"):
             if not all(isinstance(x, FieldArray) for x in inputs):

@@ -74,12 +74,12 @@ class FieldMeta:
         if p == 2 and m > 32:
             raise NotImplementedError(
                 f"GF(2^{m}) needs the limb storage of binary fields (LimbBinaryOps), which the "
-                "torch port does not have yet (ROADMAP.md, queue 1 item 6)."
+                "torch port does not have yet."
             )
         if m > 1 and p > 2 and q > 2**31:
             raise NotImplementedError(
-                f"GF({p}^{m}) needs digit storage, which the torch port does not have yet "
-                "(ROADMAP.md, queue 1 item 6)."
+                f"GF({p}^{m}) needs digit storage (OddExtOps on base-p digits), which the torch "
+                "port does not have yet."
             )
         if m == 1 and q > 2**32:
             self.storage = STORAGE_LIMBS

@@ -12,7 +12,7 @@ from:
   class.
 
 The char/min polys of a square matrix (``ops/_charpoly.py``,
-``ops/_minpoly.py``) are still to be ported (ROADMAP.md, queue 1 item 7).
+``ops/_minpoly.py``) are still to be ported.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ def _element_char_poly(x, minimal: bool):
     if x.ndim != 0:
         raise NotImplementedError(
             "The characteristic and minimal polynomials of a matrix need ops/_charpoly.py and "
-            "ops/_minpoly.py, which the torch port does not have yet (ROADMAP.md, queue 1 item 7)."
+            "ops/_minpoly.py, which the torch port does not have yet."
         )
     meta = x._meta
     hf = get_host_field(meta)

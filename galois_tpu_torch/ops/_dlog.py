@@ -96,7 +96,7 @@ def log(x, base=None) -> np.ndarray:
     if cls._mode != "jit-lookup":
         raise NotImplementedError(
             f"log() of {meta.name} in {cls._mode!r} mode (the batched device Pohlig-Hellman) is "
-            "not ported yet (ROADMAP.md, queue 1 item 6); compile the field with 'jit-lookup'."
+            "not ported yet (it needs the batched Pohlig-Hellman of ops/_dlog.py); compile the field with 'jit-lookup'."
         )
     if bool((x._data == 0).any()):
         raise ArithmeticError("The discrete logarithm of 0 does not exist.")

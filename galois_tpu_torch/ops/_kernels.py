@@ -599,5 +599,5 @@ def get_ops(meta: FieldMeta, mode: str):
             raise ValueError(f"{meta.name} does not support lookup mode.")
         return LookupOps(calc)
     if mode != "jit-calculate":
-        raise NotImplementedError(f"Mode {mode!r} is not ported yet (ROADMAP.md, queue 1 item 2).")
+        raise NotImplementedError(f"Mode {mode!r} is not ported yet (it needs the host ufuncs of python-calculate).")
     return calc

@@ -7,10 +7,9 @@ helpers of ``galois_tpu/ops/_linalg.py``. ``matmul`` follows NumPy's rules
 product mod 2, GF(p) to ``_prime_matmul``, GF(2^m) to the bit planes of
 ``ops/_binary_matmul.py``, GF(p^m) to the digit planes of
 ``ops/_digit_matmul.py`` where their sums stay exact, and anything else to
-a loop of field multiply-adds over the contraction axis. Limb fields need
-``ops/_limb_matmul.py``, which is still to be ported (ROADMAP.md, queue 1
-item 7). Row reduction, inverse, determinant and solve are still to be
-ported too.
+a loop of field multiply-adds over the contraction axis. Limb fields
+(p > 2^32) go to the digit planes of ``ops/_limb_matmul.py``. Row
+reduction, inverse, determinant and solve are still to be ported.
 
 The prime-field planes: A residue x in
 [0, p) maps to its symmetric residue x' = x - p*(x > p//2), |x'| <= p/2, and
@@ -124,11 +123,6 @@ def matmul(A, B):
 
 
 def _matmul_data(meta, mode: str, a, b, a_vec: bool, b_vec: bool):
-    if meta.storage != STORAGE_INT:
-        raise NotImplementedError(
-            f"matmul over {meta.name} needs the limb matmul of ops/_limb_matmul.py, which the torch "
-            "port does not have yet (ROADMAP.md, queue 1 item 7)."
-        )
     from ._binary_matmul import binary_matmul
     from ._binary_matmul import supports as bin_supports
     from ._digit_matmul import digit_matmul
@@ -141,7 +135,12 @@ def _matmul_data(meta, mode: str, a, b, a_vec: bool, b_vec: bool):
     if a.shape[-1] != b.shape[-2]:
         raise ValueError(f"matmul: contraction lengths differ, {a.shape[-1]} and {b.shape[-2]}.")
     p, K = meta.characteristic, a.shape[-1]
-    if meta.degree == 1:
+    if meta.storage != STORAGE_INT:
+        # planar limbs (L, ..., M, K): the limb axis leads and rides as a batch axis
+        from ._limb_matmul import limb_matmul
+
+        out = limb_matmul(meta, a, b)
+    elif meta.degree == 1:
         if p == 2:
             out = _gf2_matmul(a, b, K)
         else:

@@ -3,20 +3,24 @@
 Port of ``galois_tpu/ops/_ntt.py``. ``_plan`` picks, per (field, N, omega,
 device):
 
-- ``MatmulFFTPlan`` for prime fields whose N splits into two factors
-  <= 4096: the 4-step NTT as two exact modular matmuls around a twiddle
-  multiply. Where the side kernels' gate holds (``_plane_matmul.supports``),
-  side 1 is kernel K1 with the twiddle fused in and side 2 is kernel K2
-  with a transposed store, as on the TPU; otherwise both sides are the
-  plain plane matmul of ``_linalg.py``.
+- ``MatmulFFTPlan`` for prime fields, int or planar limb storage, whose N
+  splits into two factors <= 4096, or, for larger 4096-smooth N, into a
+  factor <= 4096 and one that is itself a recursive 6-step sub-plan: the
+  4-step NTT as two exact modular matmuls around a twiddle multiply.
+  - int storage: where the side kernels' gate holds
+    (``_plane_matmul.supports``), a direct side 1 is kernel K1 with the
+    twiddle fused in and a direct side 2 is kernel K2 with a transposed
+    store, as on the TPU; otherwise the plain plane matmul of
+    ``_linalg.py``.
+  - limb storage (Goldilocks, BLS12-381's scalar field, ...): the sides are
+    ``ops/_limb_matmul.py``; the tables are gathered on the device from
+    three power ladders of length <= 4096 (the factored tables).
 - ``FFTPlan``, the direct-DFT and mixed-radix Cooley-Tukey path, for
   N <= 64, non-prime fields and N without such a split.
 
 Plans hold their tables as tensors on the device they were built for.
-Host tables are built with vectorized NumPy uint64 modular arithmetic
-(residues < 2^32, so products < 2^64). Recursive 6-step sub-plans
-(N > 2^24) and the limb-storage branch are still to be ported; limb
-fields raise ``NotImplementedError``.
+Host tables of int-storage plans are built with vectorized NumPy uint64
+modular arithmetic (residues < 2^32, so products < 2^64).
 """
 
 from __future__ import annotations
@@ -27,17 +31,29 @@ from typing import List
 import numpy as np
 import torch
 
-from ..fields._array import _ints_to_storage
+from ..fields._array import _ints_to_limbs, _ints_to_storage
 from ..fields._hostfield import get_host_field
-from ..fields._meta import FieldMeta
+from ..fields._meta import STORAGE_INT, STORAGE_LIMBS, FieldMeta
 from ..nt import factors as int_factors
 from ._kernels import get_ops, mulmod
+from ._limb_matmul import limb_matmul
+from ._limb_matmul import supports_any as _limb_supports
+from ._limbs import align_planar
 from ._linalg import _prime_matmul, balanced_planes_np
 from ._plane_matmul import kmajor_planes, plane_matmul_data_left, plane_matmul_data_right, supports
 
 __all__ = ["fft_data", "field_fft", "field_ifft", "FFTPlan", "MatmulFFTPlan"]
 
 _MAX_BASE = 64  # transforms at or below this size use a direct DFT
+# A DFT factor above this size is itself a recursive 6-step sub-plan; factors
+# up to it stay one direct matmul. Recursion serves the N that no two-factor
+# split <= 4096 reaches (N > 2^24).
+_RECURSE_ABOVE = 4096
+# Memory budget of one chunk of a wide-limb elementwise multiply
+# (``_multiply_chunked``): ``LimbPrimeOps.multiply`` holds about 96 L bytes
+# of int64 limb planes an element (the widened operands, the 2L-limb
+# product, Barrett's products and their carries).
+_MUL_BYTES = 2**31
 
 
 def _radix_schedule(N: int) -> List[int]:
@@ -60,11 +76,13 @@ def _radix_schedule(N: int) -> List[int]:
 
 
 def _power_ladder(meta: FieldMeta, g: int, n: int) -> np.ndarray:
-    """[g^0, g^1, ..., g^(n-1)] as int64 int reprs.
+    """[g^0, g^1, ..., g^(n-1)] as int reprs: int64, or Python ints (object)
+    for limb fields.
 
-    Prime fields double the filled prefix with NumPy uint64 products
-    (both factors < p <= 2^32); GF(2^m) steps with exact host arithmetic."""
-    if meta.is_prime_field:
+    Prime fields below 2^32 double the filled prefix with NumPy uint64
+    products (both factors < p); other fields step with exact host
+    arithmetic."""
+    if meta.is_prime_field and meta.characteristic < 2**32:
         p = meta.characteristic
         out = np.empty(n, dtype=np.uint64)
         out[0] = 1
@@ -76,7 +94,7 @@ def _power_ladder(meta: FieldMeta, g: int, n: int) -> np.ndarray:
             g_filled = g_filled * g_filled % p
         return out.astype(np.int64)
     hf = get_host_field(meta)
-    out = np.empty(n, dtype=np.int64)
+    out = np.empty(n, dtype=object if meta.storage == STORAGE_LIMBS else np.int64)
     cur = 1
     for k in range(n):
         out[k] = cur
@@ -84,9 +102,36 @@ def _power_ladder(meta: FieldMeta, g: int, n: int) -> np.ndarray:
     return out
 
 
+def _multiply_chunked(ops, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``ops.multiply(a, b)`` of planar limb tensors (b broadcasts against
+    a). Fields wider than 4 limbs run it in chunks along the longest element
+    axis, so that the product's int64 limb planes stay within ``_MUL_BYTES``;
+    Goldilocks is kernel K10, which holds no such planes."""
+    w = a.shape[0]
+    if w <= 4:
+        return ops.multiply(a, b)
+    a, b = align_planar(a, b)
+    shape = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+    if not shape:
+        return ops.multiply(a, b)
+    d = 1 + max(range(len(shape)), key=lambda i: shape[i])
+    n = shape[d - 1]
+    step = max(1, _MUL_BYTES // (96 * w * (int(np.prod(shape)) // n)))
+    if step >= n:
+        return ops.multiply(a, b)
+    out = torch.empty((w,) + shape, dtype=a.dtype, device=a.device)
+    for r0 in range(0, n, step):
+        r = min(step, n - r0)
+        pa = a.narrow(d, r0, r) if a.shape[d] > 1 else a
+        pb = b.narrow(d, r0, r) if b.shape[d] > 1 else b
+        out.narrow(d, r0, r).copy_(ops.multiply(pa, pb))
+    return out
+
+
 class FFTPlan:
     """Precomputed tables for a size-N field FFT over GF(q) (N | q-1):
-    mixed-radix recursion with direct-DFT contractions of radix <= 64."""
+    mixed-radix recursion with direct-DFT contractions of radix <= 64.
+    Planar limb storage rides through with its limb axis leading."""
 
     # Cap on materialized product elements in a contraction; bigger
     # workloads loop over j-chunks.
@@ -153,7 +198,7 @@ class FFTPlan:
         chunk = self._chunk(x.numel() * n, n)
         out = None
         for j0 in range(0, n, chunk):
-            prod = ops.multiply(x[..., j0 : j0 + chunk].unsqueeze(-2), W[:, j0 : j0 + chunk])
+            prod = ops.multiply(x[..., j0 : j0 + chunk].unsqueeze(-2), W[..., j0 : j0 + chunk])
             part = _field_sum(ops, prod)
             out = part if out is None else ops.add(out, part)
         return out
@@ -167,7 +212,7 @@ class FFTPlan:
         out = None
         for j0 in range(0, r, chunk):
             zj = z[..., j0 : j0 + chunk].unsqueeze(-3)  # (..., 1, M, c)
-            Wj = W[:, j0 : j0 + chunk].unsqueeze(-2)  # (r, 1, c)
+            Wj = W[..., j0 : j0 + chunk].unsqueeze(-2)  # (r, 1, c)
             part = _field_sum(ops, ops.multiply(zj, Wj))  # (..., r, M)
             out = part if out is None else ops.add(out, part)
         return out.reshape(out.shape[:-2] + (out.shape[-2] * out.shape[-1],))
@@ -203,93 +248,188 @@ def _matmul_split(N: int):
     return None if best is None else best[1]
 
 
+def _balanced_split(K: int):
+    """Largest divisor of K that is <= sqrt(K); None if K is prime."""
+    best = None
+    d = 2
+    while d * d <= K:
+        if K % d == 0:
+            best = d
+        d += 1
+    return best
+
+
+def _largest_divisor_le(K: int, cap: int):
+    """Largest divisor of K that is <= cap; None if only 1 qualifies."""
+    best = None
+    d = 1
+    while d * d <= K:
+        if K % d == 0:
+            for c in (d, K // d):
+                if 1 < c <= cap and (best is None or c > best):
+                    best = c
+        d += 1
+    return best
+
+
 class MatmulFFTPlan:
-    """Single-device 4-step NTT for int-storage prime fields.
+    """Single-device 4-step NTT for prime fields.
 
     X[k1 + N1*k2] = sum_{n2} W2[n2,k2] * ( T[k1,n2] * sum_{n1} W1[k1,n1] *
-    M[n1,n2] ) with M[n1,n2] = x[n1*N2 + n2]: two exact modular matmuls on
-    balanced int8 planes (the W tables' planes are precomputed) around one
-    elementwise twiddle.
+    M[n1,n2] ) with M[n1,n2] = x[n1*N2 + n2]: two exact modular matmuls
+    around one elementwise twiddle. A side whose factor exceeds
+    ``_RECURSE_ABOVE`` is a recursive sub-plan over omega^(N/factor)
+    (``sub1``, ``sub2``) instead of a direct table.
 
-    ``W1``, ``T`` and ``W2`` are the host tables in the JAX package's layout
-    and dtype (``meta.internal_dtype``); ``load_tables`` installs a set of
-    them as this plan's device tensors.
+    int storage: ``W1``, ``T`` and ``W2`` are the host tables in the JAX
+    package's layout and dtype (``meta.internal_dtype``; None for a side that
+    is a sub-plan); ``load_tables`` installs a set of them as this plan's
+    device tensors, W1 and W2 as their balanced int8 planes.
+
+    limb storage (``factored``): the plan keeps the three ladders ``lad_hi``
+    (omega^n2, length n1), ``lad_lo`` (omega, length n2) and ``lad_w2``
+    (omega^n1, length n2; None when side 2 is a sub-plan) as planar host
+    limbs, as the JAX package's plan does, and gathers W1[k,j] =
+    lad_hi[kj mod n1], W2 likewise, and T[k,j] = lad_hi[kj // n2] *
+    lad_lo[kj mod n2] on the device.
     """
 
     def __init__(self, meta: FieldMeta, N: int, omega_int: int, mode: str, n1: int, device):
         self.meta = meta
         self.N = N
         self.n1 = n1
-        self.n2 = N // n1
+        self.n2 = n2 = N // n1
         self.ops = get_ops(meta, mode)
         self.device = torch.device(device)
         hf = get_host_field(meta)
         if hf.power(omega_int, N) != 1:
             raise ValueError("omega must be an N-th root of unity.")
-        p, n2 = meta.characteristic, self.n2
+        self.factored = meta.storage == STORAGE_LIMBS
+        if self.factored and N >= 2**31:
+            # the JAX package gathers with int32 indices k*j < N
+            raise ValueError(f"Factored-table NTT plans require N < 2^31, got N = {N}.")
+        self.sub1 = self.sub2 = None
+        s1 = _balanced_split(n1) if n1 > _RECURSE_ABOVE else None
+        if s1 is not None:
+            self.sub1 = MatmulFFTPlan(meta, n1, hf.power(omega_int, n2), mode, s1, device)
+        s2 = _balanced_split(n2) if n2 > _RECURSE_ABOVE else None
+        if s2 is not None:
+            self.sub2 = MatmulFFTPlan(meta, n2, hf.power(omega_int, n1), mode, s2, device)
         # W1[k, j] = omega^(n2*k*j mod N) = (omega^n2)^(k*j mod n1); likewise
         # W2 with omega^n1. T[k, j] = omega^(k*j), k*j = q*n2 + r, is
         # (omega^n2)^q * omega^r: every table gathers from ladders of
-        # length <= 4096 instead of a length-N power table.
-        lad_hi = _power_ladder(meta, hf.power(omega_int, n2), n1).astype(np.uint64)
-        lad_lo = _power_ladder(meta, omega_int, n2).astype(np.uint64)
-        lad_w2 = _power_ladder(meta, hf.power(omega_int, n1), n2)
+        # length <= 4096 (<= the larger factor with a sub-plan).
+        lad_hi = _power_ladder(meta, hf.power(omega_int, n2), n1)
+        lad_lo = _power_ladder(meta, omega_int, n2)
+        lad_w2 = _power_ladder(meta, hf.power(omega_int, n1), n2) if self.sub2 is None else None
+        if self.factored:
+            L = meta.storage_width
+            self.lad_hi, self.lad_lo = _ints_to_limbs(L, lad_hi), _ints_to_limbs(L, lad_lo)
+            self.lad_w2 = None if lad_w2 is None else _ints_to_limbs(L, lad_w2)
+            self._factored_tables()
+            return
+        p = meta.characteristic
         k1 = np.arange(n1, dtype=np.int64)
         k2 = np.arange(n2, dtype=np.int64)
         kj = k1[:, None] * k2[None, :]
-        T = lad_hi[kj // n2] * lad_lo[kj % n2] % np.uint64(p)
-        self.load_tables(
-            lad_hi[(k1[:, None] * k1[None, :]) % n1], T, lad_w2[(k2[:, None] * k2[None, :]) % n2]
-        )
+        T = lad_hi.astype(np.uint64)[kj // n2] * lad_lo.astype(np.uint64)[kj % n2] % np.uint64(p)
+        W1 = None if self.sub1 is not None else lad_hi[(k1[:, None] * k1[None, :]) % n1]
+        W2 = None if self.sub2 is not None else lad_w2[(k2[:, None] * k2[None, :]) % n2]
+        self.load_tables(W1, T, W2)
 
-    def load_tables(self, W1: np.ndarray, T: np.ndarray, W2: np.ndarray) -> None:
+    def _factored_tables(self) -> None:
+        """W1 (w, n1, n1), T (w, n1, n2) and W2 (w, n2, n2) on the device,
+        gathered from the ladders; T is one chunked limb multiply."""
+        dev, n1, n2 = self.device, self.n1, self.n2
+
+        def take(ladder, idx):
+            # CUDA has no uint16 gather: gather the same bits as int16
+            return torch.from_numpy(ladder.view(np.int16)).to(dev)[:, idx].view(torch.uint16)
+
+        k1 = torch.arange(n1, dtype=torch.int64, device=dev)
+        k2 = torch.arange(n2, dtype=torch.int64, device=dev)
+        self.w1 = None if self.sub1 is not None else take(self.lad_hi, (k1[:, None] * k1[None, :]) % n1)
+        self.w2 = None if self.sub2 is not None else take(self.lad_w2, (k2[:, None] * k2[None, :]) % n2)
+        kj = k1[:, None] * k2[None, :]  # < N
+        self.t = _multiply_chunked(self.ops, take(self.lad_hi, kj // n2), take(self.lad_lo, kj % n2))
+
+    def load_tables(self, W1, T: np.ndarray, W2) -> None:
         """Install host tables (e.g. ``plan.W1, plan.T, plan.W2`` of the JAX
-        package's plan for the same field, N and omega) as this plan's
-        device tensors: W1 and W2 as their balanced int8 planes, T as int64."""
+        package's plan for the same field, N and omega; None for a side that
+        is a sub-plan) as this plan's device tensors: W1 and W2 as their
+        balanced int8 planes, T as int64."""
         n1, n2, p = self.n1, self.n2, self.meta.characteristic
-        W1, T, W2 = (np.asarray(t).astype(self.meta.internal_dtype) for t in (W1, T, W2))
-        if W1.shape != (n1, n1) or T.shape != (n1, n2) or W2.shape != (n2, n2):
-            raise ValueError(
-                f"Tables of shapes {W1.shape}, {T.shape}, {W2.shape} do not fit a "
-                f"{n1} x {n2} plan."
-            )
+        W1, T, W2 = (None if t is None else np.asarray(t).astype(self.meta.internal_dtype) for t in (W1, T, W2))
+        want = (None if self.sub1 else (n1, n1), (n1, n2), None if self.sub2 else (n2, n2))
+        got = tuple(None if t is None else t.shape for t in (W1, T, W2))
+        if got != want:
+            raise ValueError(f"Tables of shapes {got} do not fit a {n1} x {n2} plan (want {want}).")
         self.W1, self.T, self.W2 = W1, T, W2
-        self.w1_planes = torch.from_numpy(balanced_planes_np(W1, p)).to(self.device)
-        self.w2_planes = torch.from_numpy(balanced_planes_np(W2, p)).to(self.device)
         self.t = torch.from_numpy(T.astype(np.int64)).to(self.device)
-        self.kernel_sides = supports(p, n1, n1, n2) and supports(p, n1, n2, n2)
-        if self.kernel_sides:
-            # the layout the kernels read: W1 (n, k1, n1) and W2 (n, k2, n2), K padded to 16
-            self.w1_planes = kmajor_planes(self.w1_planes, 2)
-            self.w2_planes = kmajor_planes(self.w2_planes, 1)
+        # the side kernels, as the JAX package's gate: both side shapes
+        # inside it, and the side a direct table
+        ok = supports(p, n1, n1, n2) and supports(p, n1, n2, n2)
+        self.kernel1, self.kernel2 = ok and self.sub1 is None, ok and self.sub2 is None
+        self.kernel_sides = self.kernel1 and self.kernel2
+        self.w1_planes = self.w2_planes = None
+        if W1 is not None:
+            self.w1_planes = torch.from_numpy(balanced_planes_np(W1, p)).to(self.device)
+            if self.kernel1:
+                # the layout K1 reads: W1 (n, k1, n1), K padded to 16
+                self.w1_planes = kmajor_planes(self.w1_planes, 2)
+        if W2 is not None:
+            self.w2_planes = torch.from_numpy(balanced_planes_np(W2, p)).to(self.device)
+            if self.kernel2:
+                # the layout K2 reads: W2 (n, k2, n2), K padded to 16
+                self.w2_planes = kmajor_planes(self.w2_planes, 1)
 
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         """Transform the trailing axis of a storage tensor."""
-        p = self.meta.characteristic
+        if self.factored:
+            return self._transform_limbs(x)
+        p, n1, n2 = self.meta.characteristic, self.n1, self.n2
         batch = x.shape[:-1]
-        M = x.reshape(batch + (self.n1, self.n2)).to(torch.int64)
-        if self.kernel_sides:
-            # Side 1 fuses the twiddle into its epilogue; side 2 stores its
-            # tiles transposed, so the final (k1, k2) -> (k2, k1) swap is free.
-            A = plane_matmul_data_right(self.w1_planes, M, p, twiddle=self.t)
-            X = plane_matmul_data_left(A, self.w2_planes, p, transpose_out=True)
+        M = x.reshape(batch + (n1, n2)).to(torch.int64)
+        if self.sub1 is not None:
+            A = self.sub1.transform(M.transpose(-1, -2)).transpose(-1, -2).to(torch.int64)
+            B = mulmod(A, self.t, p)
+        elif self.kernel1:
+            # side 1 fuses the twiddle into its epilogue
+            B = plane_matmul_data_right(self.w1_planes, M, p, twiddle=self.t)
         else:
-            A = _prime_matmul(None, M, p, self.n1, a_planes=self.w1_planes)
-            C = _prime_matmul(mulmod(A, self.t, p), None, p, self.n2, b_planes=self.w2_planes)
-            X = C.transpose(-1, -2)
+            B = mulmod(_prime_matmul(None, M, p, n1, a_planes=self.w1_planes), self.t, p)
+        if self.sub2 is not None:
+            X = self.sub2.transform(B).transpose(-1, -2)
+        elif self.kernel2:
+            # side 2 stores its tiles transposed: the (k1, k2) -> (k2, k1) swap is free
+            X = plane_matmul_data_left(B, self.w2_planes, p, transpose_out=True)
+        else:
+            X = _prime_matmul(B, None, p, n2, b_planes=self.w2_planes).transpose(-1, -2)
         return X.reshape(batch + (self.N,)).to(self.meta.torch_dtype)
 
+    def _transform_limbs(self, x: torch.Tensor) -> torch.Tensor:
+        """The 4-step on planar (w, ..., N) limbs: the limb axis rides as a
+        batch axis, the sides are limb matmuls."""
+        batch = x.shape[:-1]  # includes the leading (w,)
+        M = x.reshape(batch + (self.n1, self.n2))
+        if self.sub1 is not None:
+            A = self.sub1.transform(M.transpose(-1, -2)).transpose(-1, -2)
+        else:
+            A = limb_matmul(self.meta, self.w1, M)
+        B = _multiply_chunked(self.ops, A, self.t)
+        C = self.sub2.transform(B) if self.sub2 is not None else limb_matmul(self.meta, B, self.w2)
+        return C.transpose(-1, -2).reshape(batch + (self.N,))
 
-# Bounded: a 2^24 plan holds about 256 MB of device tables.
+
+# Bounded: a 2^24 plan holds up to 1.5 GB of device tables (BLS12-381).
 @functools.lru_cache(maxsize=16)
 def _plan(meta: FieldMeta, N: int, omega_int: int, mode: str, device: torch.device):
-    if meta.is_prime_field and meta.characteristic > 2:
+    if meta.is_prime_field and meta.characteristic > 2 and (meta.storage == STORAGE_INT or _limb_supports(meta)):
         n1 = _matmul_split(N)
         if n1 is None and N > _MAX_BASE and max(int_factors(N)[0]) <= 4096:
-            raise NotImplementedError(
-                f"N = {N} needs a recursive 6-step plan, which the torch port does not have "
-                "yet (ROADMAP.md, queue 1 item 3)."
-            )
+            # no two-factor split <= 4096: a recursive 6-step plan serves any
+            # 4096-smooth N, with the direct side as large as it can be
+            n1 = _largest_divisor_le(N, 4096)
         if n1 is not None:
             return MatmulFFTPlan(meta, N, omega_int, mode, n1, device)
     return FFTPlan(meta, N, omega_int, mode, device)
@@ -309,11 +449,6 @@ def fft_data(cls, data: torch.Tensor, N: int, inverse: bool = False, scale: bool
     """Transform the trailing axis of a storage tensor on its device.
     ``scale`` defaults to False forward and True inverse (NumPy's norm)."""
     meta = cls._meta
-    if meta.storage_first:
-        raise NotImplementedError(
-            f"The NTT over {meta.name} needs the limb branch of MatmulFFTPlan (ops/_limb_matmul.py), "
-            "which the torch port does not have yet (ROADMAP.md, queue 1 item 7)."
-        )
     hf = get_host_field(meta)
     omega = _get_omega(cls, N)
     if scale is None:
@@ -326,7 +461,8 @@ def fft_data(cls, data: torch.Tensor, N: int, inverse: bool = False, scale: bool
         # subfield element N mod p (not the integer representation N).
         n_inv = hf.reciprocal(N % meta.characteristic)
         ops = get_ops(meta, cls._mode)
-        out = ops.multiply(out, torch.tensor(n_inv, dtype=meta.torch_dtype, device=out.device))
+        n_inv = _ints_to_storage(meta, np.array(n_inv, dtype=object), out.device)
+        out = _multiply_chunked(ops, out, n_inv) if meta.storage != STORAGE_INT else ops.multiply(out, n_inv)
     return out
 
 

@@ -6,10 +6,10 @@ divmod_jit (src/galois/_polys/_dense.py:126-198).
 
 - ``batched_floordiv`` divides a batch of codewords by g(x): the message
   recovery of non-systematic cyclic codes;
-- ``poly_divmod_device`` divides one dense Poly by another. The JAX package
-  takes it above ``_DEVICE_POLY_WORK`` coefficient operations; the port's
-  ``Poly`` keeps the host division, which gives the same polynomials, until
-  the device product (``ops/_convolve.py``) is ported beside it.
+- ``poly_divmod_device`` divides one dense Poly by another: ``Poly``'s
+  ``divmod``, ``//`` and ``%`` take it above ``_DEVICE_POLY_WORK``
+  coefficient operations, as in the JAX package, and the modular power
+  ladder through them.
 
 A Python loop over the quotient's coefficients takes the place of the
 ``lax.scan``; the storage tensor is updated in place on a private copy.

@@ -11,11 +11,13 @@ Matrix evaluation ``f(X, elementwise=False)`` runs on the field matmul
 (``ops/_linalg.py``); ``is_irreducible`` and ``is_primitive`` are the host
 tests of ``polys/_irreducible.py`` and ``polys/_primitive.py``.
 
-Not ported yet (ROADMAP.md, queue 1 item 4): the device product
-(``ops/_convolve.py``) and the device division (``ops/_poly_div.py`` has
-it, unwired) that the JAX package takes above ``_DEVICE_POLY_WORK``
-coefficient operations, where the host path below gives the same
-polynomials; roots, factorization and the Conway tests. Those methods raise
+Above ``_DEVICE_POLY_WORK`` coefficient operations, dense products,
+divisions, remainders and both power ladders move to the device, as in the
+JAX package: the product to ``ops/_convolve.py`` (the NTT where the field
+admits one) and the division to ``ops/_poly_div.py``'s synthetic division.
+
+Not ported yet: roots and the Conway tests (``polys/_roots.py`` and
+``polys/_conway.py`` of the JAX package). Those methods raise
 ``NotImplementedError``.
 """
 
@@ -48,6 +50,16 @@ def _default_field():
     from ..fields import GF2
 
     return GF2
+
+
+# Host synthetic division and schoolbook product are Python-int loops;
+# above this many coefficient operations the work moves to the device
+# (ops/_poly_div.py's division, ops/_convolve.py's product).
+_DEVICE_POLY_WORK = 1 << 17
+
+
+def _use_device_poly_ops(field) -> bool:
+    return field._mode != "python-calculate"
 
 
 def _field_of(field):
@@ -83,7 +95,7 @@ class Poly:
         field = _field_of(field)
 
         if isinstance(coeffs, FieldArray):
-            clist = [int(v) for v in np.asarray(coeffs, dtype=object).reshape(-1)]
+            clist = np.asarray(coeffs).reshape(-1).tolist()  # Python ints, in bulk
         elif isinstance(coeffs, (list, tuple, np.ndarray)):
             arr = np.asarray(coeffs, dtype=object).reshape(-1)
             clist = []
@@ -163,6 +175,8 @@ class Poly:
         return self
 
     def _compact(self):
+        if 0 not in self._coeffs:
+            return
         nz = [(d, c) for d, c in zip(self._degrees, self._coeffs) if c != 0]
         if not nz:
             self._degrees, self._coeffs = (0,), (0,)
@@ -345,7 +359,7 @@ class Poly:
         out = [0] * (self.degree + 1)
         for d, c in zip(self._degrees, self._coeffs):
             out[self.degree - d] = c
-        return self._field(out)
+        return self._field(_int_array(out, self._field))
 
     def coefficients(self, size: Optional[int] = None, order: str = "desc"):
         """Dense coefficients, optionally zero-padded to `size`
@@ -355,12 +369,15 @@ class Poly:
         size = n if size is None else int(size)
         if size < n:
             raise ValueError(f"Argument 'size' must be >= {n}, not {size}.")
-        out = [0] * size
-        for d, c in zip(self._degrees, self._coeffs):
-            out[size - 1 - d] = c
+        if len(self._coeffs) == size:  # every coefficient nonzero: the terms are the dense array
+            out = list(self._coeffs)
+        else:
+            out = [0] * size
+            for d, c in zip(self._degrees, self._coeffs):
+                out[size - 1 - d] = c
         if order == "asc":
             out = out[::-1]
-        return self._field(out)
+        return self._field(_int_array(out, self._field))
 
     @property
     def is_monic(self) -> bool:
@@ -496,6 +513,12 @@ class Poly:
                     d = d1 + d2
                     out[d] = F.add(out.get(d, 0), F.multiply(c1, c2))
             return Poly._from_sparse(list(out), list(out.values()), self._field)
+        if _use_device_poly_ops(self._field) and (self.degree + 1) * (other.degree + 1) >= _DEVICE_POLY_WORK:
+            # a large dense product: the device convolution (through the NTT
+            # where the field admits one) instead of the O(n m) host loop
+            from ..ops._convolve import convolve
+
+            return Poly(convolve(self._field(self.coefficients()), self._field(other.coefficients())))
         return Poly._from_asc(hp.mul(F, self._asc(), other._asc()), self._field)
 
     def __rmul__(self, other):
@@ -506,6 +529,10 @@ class Poly:
         if self._type == "binary" and other._type == "binary":
             q, r = bp.divmod_(self._int, other._int)
             return Poly._from_int2(q, self._field), Poly._from_int2(r, self._field)
+        if self._device_division(other):
+            from ..ops._poly_div import poly_divmod_device
+
+            return poly_divmod_device(self, other)
         F = _hf(self._field)
         q, r = hp.divmod_(F, self._asc(), other._asc())
         return Poly._from_asc(q, self._field), Poly._from_asc(r, self._field)
@@ -546,6 +573,10 @@ class Poly:
         other = self._check_same_field(other)
         if self._type == "binary" and other._type == "binary":
             return Poly._from_int2(bp.mod(self._int, other._int), self._field)
+        if self._device_division(other):
+            from ..ops._poly_div import poly_divmod_device
+
+            return poly_divmod_device(self, other)[1]
         F = _hf(self._field)
         if self._type == "sparse":
             # Reduce term by term: x^d mod other via repeated squaring.
@@ -561,6 +592,15 @@ class Poly:
         other = self._check_same_field(other)
         return other.__mod__(self)
 
+    def _device_division(self, other) -> bool:
+        """Dense by dense, with (deg q + 1)(deg b + 1) >= _DEVICE_POLY_WORK."""
+        return (
+            self._type == "dense"
+            and other._type == "dense"
+            and _use_device_poly_ops(self._field)
+            and (self.degree - other.degree + 1) * (other.degree + 1) >= _DEVICE_POLY_WORK
+        )
+
     def __pow__(self, exponent, modulus=None):
         e = int(exponent)
         if e < 0:
@@ -573,12 +613,34 @@ class Poly:
         F = _hf(self._field)
         if modulus is not None:
             modulus = self._check_same_field(modulus)
+            if _use_device_poly_ops(self._field) and modulus.degree**2 >= _DEVICE_POLY_WORK and e > 1:
+                # each step is a (deg m)^2 product and reduction: route the
+                # ladder through __mul__ and __mod__, which go to the device
+                result, base = Poly.One(self._field), self % modulus
+                while e:
+                    if e & 1:
+                        result = (result * base) % modulus
+                    e >>= 1
+                    if e:
+                        base = (base * base) % modulus
+                return result
             out = hp.pow_mod(F, self._asc(), e, modulus._asc())
             return Poly._from_asc(out, self._field)
         if self._degrees == (0,) or len(self._degrees) == 1:
             # monomial fast path: (c x^d)^e = c^e x^(d e)
             d, c = self._degrees[0], self._coeffs[0]
             return Poly._from_sparse([d * e], [F.power(c, e)], self._field)
+        if _use_device_poly_ops(self._field) and e > 1 and (self.degree * e) ** 2 >= 4 * _DEVICE_POLY_WORK:
+            # the unreduced ladder ends at degree deg * e: its last squaring
+            # is about (deg e / 2)^2 coefficient operations
+            result, base = Poly.One(self._field), self
+            while e:
+                if e & 1:
+                    result = result * base
+                e >>= 1
+                if e:
+                    base = base * base
+            return result
         result = [1]
         base = self._asc()
         while e:
@@ -707,8 +769,15 @@ class Poly:
 
 def _not_ported(name: str):
     raise NotImplementedError(
-        f"Poly.{name}() is not ported to the torch port yet (ROADMAP.md, queue 1 item 4)."
+        f"Poly.{name}() is not ported to the torch port yet (it needs "
+        f"{'polys/_roots.py' if name == 'roots' else 'polys/_conway.py'})."
     )
+
+
+def _int_array(values: list, field) -> np.ndarray:
+    """Python-int coefficients as one NumPy array (int64 where the order
+    allows), which the field converts in bulk rather than element by element."""
+    return np.array(values, dtype=np.int64 if field._meta.order <= 2**63 else object)
 
 
 def _hf(field):

@@ -29,6 +29,7 @@ from galois_tpu_torch.ops._elementwise import (
     m31_multiply_plain,
 )
 from galois_tpu_torch.ops._kernels import get_ops
+from galois_tpu_torch.ops._limb_matmul import int8_matmul
 from galois_tpu_torch.ops._linalg import balanced_planes_np
 from galois_tpu_torch.ops._lookup import (
     SMEM_MAX_ORDER,
@@ -757,3 +758,71 @@ def test_limb_fields_on_cuda_match_cpu(cuda_device):
         assert np.array_equal(np.asarray(F.Zeros(4, device=cuda_device)), np.asarray(F.Zeros(4, device="cpu")))
         with pytest.raises(ZeroDivisionError):
             x / F.Zeros(40, device=cuda_device)
+
+
+# torch._int_mm's shape rules (M > 16, K and N multiples of 8) met by padding
+INT8_SHAPES = [(1, 1, 1), (17, 13, 9), (100, 300, 7), (33, 2048, 40), (5, 4100, 3), (40, 5, 160), (4096, 2048, 5888)]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_matmul_ragged_shapes_match_cpu(cuda_device, shape):
+    M, K, N = shape
+    g = torch.Generator().manual_seed(M * K + N)
+    a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8)
+    a[0, :] = -128  # the largest magnitudes a row can sum: 128^2 K < 2^31
+    b[:, 0] = -128
+    got = int8_matmul(a.to(cuda_device), b.T.contiguous().to(cuda_device))
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    want = int8_matmul(a, b.T)
+    assert torch.equal(got.cpu(), want)
+    # into a given output, from views whose rows are longer than K (read in place)
+    wide_a = torch.zeros((M, K + 64), dtype=torch.int8, device=cuda_device)
+    wide_b = torch.zeros((N, K + 32), dtype=torch.int8, device=cuda_device)
+    wide_a[:, 32 : 32 + K], wide_b[:, :K] = a.to(cuda_device), b.T.to(cuda_device)
+    out = torch.full((M, N), -1, dtype=torch.int32, device=cuda_device)
+    int8_matmul(wide_a[:, 32 : 32 + K], wide_b[:, :K], out=out)
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize("p", [GOLDILOCKS, BLS_R])
+def test_limb_matmul_on_cuda_matches_cpu(cuda_device, p):
+    """Ragged shapes, a batched side, and every digit at p - 1 at a K past
+    one block (the diagonal sums nearest their int32 bound)."""
+    F = gt.GF(p)
+    for sa, sb in (((5, 7), (7, 3)), ((17, 9), (9, 33)), ((2, 3, 20), (20, 6)), ((40, 2053), (2053, 5))):
+        a, b = F.Random(sa, seed=1, device="cpu"), F.Random(sb, seed=2, device="cpu")
+        got = F(a._data, device=cuda_device) @ F(b._data, device=cuda_device)
+        assert got.device.type == "cuda" and torch.equal(got._data.cpu(), (a @ b)._data)
+    K = 13315 + 5 if p == GOLDILOCKS else 2048 + 5
+    full = F(np.full((3, K), p - 1, dtype=object), device=cuda_device)
+    got = np.asarray(full @ full.T, dtype=object)
+    assert all(int(v) == K % p for v in got.reshape(-1))
+
+
+@pytest.mark.parametrize("p", [GOLDILOCKS, BLS_R])
+def test_limb_ntt_on_cuda_matches_cpu(cuda_device, p):
+    F = gt.GF(p)
+    x = F.Random((2, 2**12), seed=3, device="cpu")
+    k10 = goldilocks_multiply.launches
+    X = np.fft.fft(F(x._data, device=cuda_device))
+    assert X.device.type == "cuda" and torch.equal(X._data.cpu(), np.fft.fft(x)._data)
+    assert torch.equal(np.fft.ifft(X)._data.cpu(), x._data)
+    if p == GOLDILOCKS:
+        assert goldilocks_multiply.launches > k10  # the twiddle multiply and the scaling
+
+
+def test_poly_product_via_ntt_on_cuda_matches_cpu(cuda_device):
+    """400 x 400 coefficients over GF(3 * 2^30 + 1): the NTT at N = 1024, K1
+    and K2 launched; and a device division above its threshold."""
+    F = gt.GF(P)
+    rng = np.random.default_rng(4)
+    a, b, d = (gt.Poly(rng.integers(1, P, n), field=F) for n in (400, 400, 256))
+    before = (plane_matmul_data_right.launches, plane_matmul_data_left.launches)
+    with gt.default_device(cuda_device):
+        got = a * b
+        q, r = divmod(got, d)
+    assert plane_matmul_data_right.launches > before[0] and plane_matmul_data_left.launches > before[1]
+    with gt.default_device("cpu"):
+        assert got == a * b
+        assert (q, r) == divmod(a * b, d)

@@ -123,8 +123,8 @@ def test_other_limb_kinds_still_raise():
         gt.GF(2**40)
     with pytest.raises(NotImplementedError, match="digit storage"):
         gt.GF(3**21)
-    with pytest.raises(NotImplementedError, match="limb branch"):
-        np.fft.fft(gt.GF(GOLDILOCKS)([1, 2, 3, 4]))
+    # the NTT over a limb field, once a raise, now the JAX package's transform
+    _same(np.fft.fft(gt.GF(GOLDILOCKS)([1, 2, 3, 4])), np.fft.fft(gj.GF(GOLDILOCKS)([1, 2, 3, 4])))
 
 
 @pytest.mark.parametrize("p", FIELDS)
