@@ -122,7 +122,24 @@ Phases, each fatal on failure:
      of the BLS transform's int8 GEMMs); the recursive 6-step at N = 2^26
      over GF(3*2^30+1), 4096 x (128 x 128), with its round trip and 16 bins
      against a direct DFT in NumPy. K1, K2 (the 2^26 leaves included), K7,
-     K8, K9 and K10 must have been launched.
+     K8, K9 and K10 must have been launched;
+  9. main path 6, the same way: linear algebra over GF(q) through the public
+     API: row_reduce of mceliece8192128's parity-check matrix (GF(2), 1664 x
+     8192, H[i, j] = alpha_j^i / g(alpha_j) over GF(2^13) bit-expanded),
+     held as an RREF of rank 1664 with H == H[:, pivots] @ R through the
+     port's matmul; over GF(2^8) at n = 1024 inv, solve, plu_decompose, det
+     and matrix_rank (A @ inv(A) == I, A @ x == b, P @ L @ U == A with L unit
+     lower and U upper, det of A = (L0 U0)[q] known as sign(q) prod(diag U0)),
+     inv in 'jit-lookup' mode, inv over GF(2^16) at n = 512, solve and det
+     over GF(2^31 - 1) at n = 1024, inv and det over Goldilocks at n = 256;
+     the char and min polys at n = 512 over GF(2^8) and GF(2^31 - 1) of
+     S C(f) S^-1 (both f) and S diag(C(g), C(g)) S^-1 (g^2 and g), C a
+     companion matrix; then the same calls at n = 128 (Goldilocks 65) on the
+     card against the port's CPU plain versions. Each line prints the ms of
+     the call (CUDA events), its launches by wrapper and the peak device
+     memory; inv's K8 (K3, K7) launches must be two a column and a few a
+     call, its K8-A (K5, K8-A) launches one a call. K3, K5, K7, K8, K8-A, K9 and K10 must have been
+     launched.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -394,6 +411,302 @@ def np_exp_log(mul, alpha, q):
     log = np.zeros(q, dtype=np.int64)
     log[exp] = np.arange(q - 1)
     return exp, log
+
+
+# Main path 6's sizes: mceliece8192128's parity-check matrix (mt x n with m = 13,
+# t = 128, n = 8192); n of the dense fields' matrices; n of the char and min polys
+# (galois_tpu/ops/_charpoly.py:15); n of the card-against-CPU checks (Goldilocks
+# apart: its plain Fermat reciprocal is 127 limb products a column on the host)
+LINALG_SIZES = {
+    "mceliece": (13, 128, 8192), "gf256": 1024, "gf65536": 512, "m31": 1024, "goldilocks": 256,
+    "polys": 512, "small": 128, "goldilocks_small": 65,
+}
+
+
+
+def np_conv_gf2m(a, b, m, f):
+    """Product of two coefficient arrays over GF(2^m) (NumPy int64)."""
+    a, b = np.asarray(a, dtype=np.int64), np.asarray(b, dtype=np.int64)
+    out = np.zeros(len(a) + len(b) - 1, dtype=np.int64)
+    for j, bj in enumerate(b):
+        out[j : j + len(a)] ^= np_gf2m_multiply(a, np.full(len(a), bj), m, f)
+    return out
+
+
+def perm_parity(q):
+    """0 for an even permutation (a list), 1 for an odd one."""
+    seen, cycles = [False] * len(q), 0
+    for i in range(len(q)):
+        if not seen[i]:
+            cycles += 1
+            j = i
+            while not seen[j]:
+                seen[j] = True
+                j = q[j]
+    return (len(q) - cycles) % 2
+
+
+def linalg_path(gt, dev, timed):
+    """Main path 6: row reduction, inv, solve, det, PLU, rank, and the char and
+    min polys of matrices, through the public API on ``dev``. Every check is
+    exact and independent of the elimination: products through the port's
+    matmul, determinants and polynomials known by construction, and at n = 128
+    the card's results against the port's CPU plain versions. ``timed(call)``
+    returns (result, ms, launches by wrapper, peak device MiB) of one call."""
+    from galois_tpu_torch.ops._linalg import _i16, _where
+    from scripts._timing import mceliece_parity_check
+
+    t_path = time.perf_counter()
+
+    def line(label, ms, used, peak, extra=""):
+        print(f"[main] {label}: {ms:.1f} ms per call, launches {used}, peak device memory {peak:.0f} MiB{extra}",
+              flush=True)
+
+    def host_mul(F):
+        p, m = F.characteristic, F.degree
+        if p == 2 and m > 1:
+            f = F._meta.irreducible_poly_int
+            return lambda a, b: int(np_gf2m_multiply(np.array([a]), np.array([b]), m, f)[0])
+        return lambda a, b: a * b % p
+
+    def neg(F, a):
+        return a if F.characteristic == 2 else (-a) % F.characteristic
+
+    def is_identity(X):
+        return torch.equal(X._data, type(X).Identity(X.shape[0], device=X.device)._data)
+
+    def masks(n):
+        r, c = torch.arange(n, device=dev)[:, None], torch.arange(n, device=dev)[None, :]
+        return r > c, r == c, r < c
+
+    def factors(F, n, seed):
+        """L unit lower, U upper with the nonzero diagonal D, random on the card."""
+        lower, diag, upper = masks(n)
+        R1, R2 = (F.Random((n, n), seed=seed + k, device=dev) for k in range(2))
+        D = F.Random(n, low=1, seed=seed + 2, device=dev)
+        I = F.Identity(n, device=dev)._data
+        L = F._view(_where(lower, R1._data, I))
+        U = F._view(_where(upper, R2._data, _where(diag, D._data.unsqueeze(-2), torch.zeros_like(I))))
+        return L, U, D
+
+    def built(F, n, seed):
+        """A = (L U)[q], q a random row order, and det(A) = sign(q) prod(D),
+        the product in Python ints."""
+        L, U, D = factors(F, n, seed)
+        q = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+        X = (L @ U)._data
+        A = F._view(_i16(X).index_select(-2, q).view(X.dtype))
+        mul, d = host_mul(F), 1
+        for v in ints(D):
+            d = mul(d, v)
+        return A, (neg(F, d) if perm_parity(q.tolist()) else d)
+
+    def check_inverse(label, A, used, n, kernels=None):
+        """``kernels``: the (product, reciprocal) wrappers of the field, whose
+        launches must be as ``_row_reduce_data`` documents them: two products
+        a column, then a tree of (n + 1).bit_length() - 1 and one more, and one
+        reciprocal a call."""
+        Ainv, ms, calls, peak = used
+        if not is_identity(A @ Ainv):
+            raise AssertionError(f"{label}: A @ inv(A) != I")
+        extra = ""
+        if kernels:
+            want = {kernels[0]: 2 * n + n.bit_length() + 1, kernels[1]: 1}
+            if any(calls.get(k) != v for k, v in want.items()):
+                raise AssertionError(f"{label}: launches {calls}, not {want}")
+            extra = f", launches as documented: {kernels[0]} two a column, {kernels[1]} one a call"
+        line(label, ms, calls, peak, " | A @ inv(A) == I" + extra)
+        return Ainv
+
+    # 1. row reduction to systematic form of mceliece8192128's parity-check matrix
+    m, t, n = LINALG_SIZES["mceliece"]
+    GF2 = gt.GF(2)
+    rng = np.random.default_rng(60)
+    bits = mceliece_parity_check(gt, dev, rng, m, t, n)
+    H = GF2._view(bits)
+    R, ms, used, peak = timed(lambda: H.row_reduce())
+    Rd = R._data
+    nzr = (Rd != 0).any(dim=1)
+    rank = int(nzr.sum())
+    piv = (Rd[:rank] != 0).to(torch.int32).argmax(dim=1)
+    ok = (
+        rank == t * m and bool(nzr[:rank].all()) and bool((piv[1:] > piv[:-1]).all())
+        and torch.equal(Rd[:, piv], GF2.Identity(t * m, device=dev)._data)
+        and torch.equal((GF2._view(bits[:, piv]) @ GF2._view(Rd[:rank]))._data, bits)
+        and torch.equal(H._data, bits)
+    )
+    if not ok:
+        raise AssertionError(f"GF(2) {t * m} x {n} row_reduce: not the RREF of H (rank {rank})")
+    systematic = bool(torch.equal(piv, torch.arange(t * m, device=dev)))
+    line(f"row_reduce, GF(2) {t * m} x {n} (mceliece8192128's H)", ms, used, peak,
+         f" | RREF, rank {rank}, H == H[:, pivots] @ R, systematic {systematic}, last pivot column {int(piv[-1])}")
+
+    # 2. GF(2^8), default mode (K8, K8-A)
+    F8 = gt.GF(2**8)
+    n8 = LINALG_SIZES["gf256"]
+    A8, det8 = built(F8, n8, 61)
+    check_inverse(f"inv, GF(2^8) n = {n8}", A8, timed(lambda: np.linalg.inv(A8)), n8,
+                  ("gf2m_multiply_swar", "gf2m_power"))
+    b8 = F8.Random(n8, seed=62, device=dev)
+    x, ms, used, peak = timed(lambda: np.linalg.solve(A8, b8))
+    if not torch.equal((A8 @ x)._data, b8._data):
+        raise AssertionError("GF(2^8) solve: A @ x != b")
+    line(f"solve, GF(2^8) n = {n8}", ms, used, peak, " | A @ x == b")
+    (P, L, U), ms, used, peak = timed(lambda: A8.plu_decompose())
+    lower, diag, upper = masks(n8)
+    I8 = F8.Identity(n8, device=dev)._data
+    if not (torch.equal(_where(lower, I8, L._data), I8) and not bool((U._data[lower] != 0).any())
+            and torch.equal((P @ L @ U)._data, A8._data)):
+        raise AssertionError("GF(2^8) plu_decompose: P @ L @ U != A, or L or U not triangular")
+    line(f"plu_decompose, GF(2^8) n = {n8}", ms, used, peak, " | P @ L @ U == A, L unit lower, U upper")
+    d, ms, used, peak = timed(lambda: np.linalg.det(A8))
+    if int(d) != det8:
+        raise AssertionError(f"GF(2^8) det: {int(d)}, not {det8}")
+    line(f"det, GF(2^8) n = {n8}", ms, used, peak, f" | det {int(d)} == sign(q) prod(diag U0)")
+    r, ms, used, peak = timed(lambda: np.linalg.matrix_rank(A8))
+    if r != n8:
+        raise AssertionError(f"GF(2^8) matrix_rank: {r}, not {n8}")
+    line(f"matrix_rank, GF(2^8) n = {n8}", ms, used, peak, f" | rank {r}")
+
+    # 3. GF(2^8) in lookup mode (K3, K5)
+    F8.compile("jit-lookup")
+    try:
+        check_inverse(f"inv, GF(2^8) jit-lookup n = {n8}", A8, timed(lambda: np.linalg.inv(A8)), n8,
+                      ("lookup_multiply", "lookup_reciprocal"))
+    finally:
+        F8.compile("auto")
+
+    # 4. GF(2^16) (K7, K8-A)
+    F16 = gt.GF(2**16)
+    n16 = LINALG_SIZES["gf65536"]
+    A16, _ = built(F16, n16, 63)
+    check_inverse(f"inv, GF(2^16) n = {n16}", A16, timed(lambda: np.linalg.inv(A16)), n16,
+                  ("gf2m_multiply", "gf2m_power"))
+
+    # 5. GF(2^31 - 1) (K9; the reciprocal is a Fermat ladder)
+    FM = gt.GF(M31)
+    nm = LINALG_SIZES["m31"]
+    AM, detM = built(FM, nm, 64)
+    bM = FM.Random(nm, seed=65, device=dev)
+    x, ms, used, peak = timed(lambda: np.linalg.solve(AM, bM))
+    if not torch.equal((AM @ x)._data, bM._data):
+        raise AssertionError("GF(2^31 - 1) solve: A @ x != b")
+    line(f"solve, GF(2^31-1) n = {nm}", ms, used, peak, " | A @ x == b")
+    d, ms, used, peak = timed(lambda: np.linalg.det(AM))
+    if int(d) != detM:
+        raise AssertionError(f"GF(2^31 - 1) det: {int(d)}, not {detM}")
+    line(f"det, GF(2^31-1) n = {nm}", ms, used, peak, f" | det {int(d)} == sign(q) prod(diag U0)")
+
+    # 6. Goldilocks, planar limbs (K10; the reciprocal is a Fermat ladder)
+    FG = gt.GF(GOLDILOCKS)
+    ng = LINALG_SIZES["goldilocks"]
+    AG, detG = built(FG, ng, 66)
+    check_inverse(f"inv, Goldilocks n = {ng}", AG, timed(lambda: np.linalg.inv(AG)), ng)
+    d, ms, used, peak = timed(lambda: np.linalg.det(AG))
+    if int(d) != detG:
+        raise AssertionError(f"Goldilocks det: {int(d)}, not {detG}")
+    line(f"det, Goldilocks n = {ng}", ms, used, peak, f" | det {int(d)} == sign(q) prod(diag U0)")
+
+    # 7. char and min polys: A = S C(f) S^-1 (charpoly = minpoly = f) and
+    # A = S diag(C(g), C(g)) S^-1 (charpoly g^2, minpoly g), C a companion matrix
+    npoly = LINALG_SIZES["polys"]
+
+    def companion(F, coeffs_asc):
+        k = len(coeffs_asc)
+        C = torch.zeros((k, k), dtype=torch.int64, device=dev)
+        C[torch.arange(1, k), torch.arange(k - 1)] = 1
+        C[:, k - 1] = torch.tensor([neg(F, c) for c in coeffs_asc], device=dev)
+        return C
+
+    for F, seed in ((F8, 70), (FM, 71)):
+        L, U, _ = factors(F, npoly, seed)
+        S = L @ U
+        Sinv = np.linalg.inv(S)
+        if not is_identity(S @ Sinv):
+            raise AssertionError(f"{F.name}: S @ inv(S) != I")
+        fc = rng.integers(0, F.order, npoly).tolist()
+        gc = rng.integers(0, F.order, npoly // 2).tolist()
+        Cg = companion(F, gc)
+        D = torch.zeros((npoly, npoly), dtype=torch.int64, device=dev)
+        D[: npoly // 2, : npoly // 2] = D[npoly // 2 :, npoly // 2 :] = Cg
+        g_desc = [1] + gc[::-1]
+        if F.characteristic == 2:
+            g2 = np_conv_gf2m(g_desc, g_desc, F.degree, F._meta.irreducible_poly_int).tolist()
+        else:
+            g2 = np_conv_mod(g_desc, g_desc, F.order).tolist()
+        for label, Cm, want_char, want_min in (
+            ("S C(f) S^-1", companion(F, fc), [1] + fc[::-1], [1] + fc[::-1]),
+            ("S diag(C(g), C(g)) S^-1", D, g2, g_desc),
+        ):
+            A = S @ F._view(Cm.to(F._meta.torch_dtype)) @ Sinv
+            for name, want in (("characteristic_poly", want_char), ("minimal_poly", want_min)):
+                poly, ms, used, peak = timed(getattr(A, name))
+                if ints(poly.coefficients()) != want:
+                    raise AssertionError(f"{F.name} {name} of {label}: not the polynomial it was built with")
+                line(f"{name}, {F.name} n = {npoly}, A = {label}", ms, used, peak, f" | degree {poly.degree}, as built")
+
+    # 8. the same calls at n = 128: the card's results against the port's CPU plain versions
+    ns, ngs = LINALG_SIZES["small"], LINALG_SIZES["goldilocks_small"]
+
+    def on_cpu(X):
+        return type(X)._view(X._data.cpu(), X._dtype)
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, gt.Poly):
+            return a == b
+        if hasattr(a, "_data"):
+            return a._data.device == dev and torch.equal(a._data.cpu(), b._data)
+        return a == b
+
+    Hs = GF2._view(bits[:ns, : 5 * ns].contiguous())
+    cases = [("GF(2) row_reduce", Hs, lambda X, b: X.row_reduce())]
+    A, _ = built(F8, ns, 80)
+    b = F8.Random(ns, seed=81, device=dev)
+    cases += [
+        ("GF(2^8) inv", A, lambda X, b: np.linalg.inv(X)),
+        ("GF(2^8) solve", A, lambda X, b: np.linalg.solve(X, b)),
+        ("GF(2^8) det", A, lambda X, b: np.linalg.det(X)),
+        ("GF(2^8) plu_decompose", A, lambda X, b: X.plu_decompose()),
+        ("GF(2^8) matrix_rank", A, lambda X, b: np.linalg.matrix_rank(X)),
+    ]
+    A16s, _ = built(F16, ns, 82)
+    cases.append(("GF(2^16) inv", A16s, lambda X, b: np.linalg.inv(X)))
+    AMs, _ = built(FM, ns, 83)
+    bMs = FM.Random(ns, seed=84, device=dev)
+    cases += [("GF(2^31-1) solve", AMs, lambda X, b: np.linalg.solve(X, b)), ("GF(2^31-1) det", AMs, lambda X, b: np.linalg.det(X))]
+    AGs, _ = built(FG, ngs, 85)
+    cases += [(f"Goldilocks inv (n = {ngs})", AGs, lambda X, b: np.linalg.inv(X)), (f"Goldilocks det (n = {ngs})", AGs, lambda X, b: np.linalg.det(X))]
+    for F, seed in ((F8, 86), (FM, 87)):
+        Ar = F.Random((ns, ns), seed=seed, device=dev)
+        cases += [(f"{F.name} characteristic_poly", Ar, lambda X, b: X.characteristic_poly()),
+                  (f"{F.name} minimal_poly", Ar, lambda X, b: X.minimal_poly())]
+    seconds = {"card": 0.0, "cpu": 0.0}
+    for label, X, call in cases:
+        rhs = {F8: b, FM: bMs}.get(type(X))
+        t0 = time.perf_counter()
+        got = call(X, rhs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = call(on_cpu(X), None if rhs is None else on_cpu(rhs))
+        seconds["card"] += t1 - t0
+        seconds["cpu"] += time.perf_counter() - t1
+        if not same(got, want):
+            raise AssertionError(f"n = {ns}: {label} on the card differs from the port's CPU result")
+    F8.compile("jit-lookup")
+    try:
+        got, want = np.linalg.inv(A), np.linalg.inv(on_cpu(A))
+    finally:
+        F8.compile("auto")
+    if not same(got, want):
+        raise AssertionError(f"n = {ns}: GF(2^8) jit-lookup inv on the card differs from the port's CPU result")
+    print(
+        f"[main] n = {ns} ({len(cases) + 1} calls: {', '.join(c[0] for c in cases)}, GF(2^8) jit-lookup inv): the card's "
+        f"results equal the port's CPU plain versions | card {seconds['card']:.1f} s, CPU {seconds['cpu']:.1f} s",
+        flush=True,
+    )
+    print(f"[main] main path 6 took {time.perf_counter() - t_path:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1891,6 +2204,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     read_counts(5, (plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply_swar, gf2m_multiply,
                     m31_multiply, goldilocks_multiply))
+
+    # -- 9. main path 6: linear algebra over GF(q) on the card ------------------
+    for fn in counters:
+        fn.launches = 0
+
+    def timed(call):
+        """One call: its result, ms (CUDA events around it), launches by wrapper, peak MiB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, used = deltas(call)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), used, torch.cuda.max_memory_allocated() / 2**20
+
+    linalg_path(gt, dev, timed)
+    read_counts(6, (gf2m_multiply_swar, gf2m_power, _lookup.lookup_multiply, _lookup.lookup_reciprocal,
+                    gf2m_multiply, m31_multiply, goldilocks_multiply))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),

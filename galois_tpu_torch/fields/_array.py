@@ -13,8 +13,10 @@ of the field and its ufunc mode (``ops/_kernels.py::get_ops``).
 NumPy interop matches the JAX package: ``np.asarray(x)`` gives the integer
 representation in the array's dtype (an object array of Python ints for
 orders above 2^63), ``np.multiply(x, y)`` and friends
-go through ``__array_ufunc__``, and ``np.fft.fft``/``np.fft.ifft`` through
-``__array_function__``.
+go through ``__array_ufunc__``, and the NumPy functions of
+``fields/_np_functions.py`` (``np.fft.fft``, ``np.linalg.inv``, ...) through
+``__array_function__``. ``sum`` and ``prod`` reduce with a tree of field adds
+or multiplies on the array's device.
 """
 
 from __future__ import annotations
@@ -246,8 +248,14 @@ class FieldArray(metaclass=FieldArrayMeta):
         return cls._view(zeros.to(cls._meta.torch_dtype), _validate_dtype(cls, dtype))
 
     @classmethod
+    def Ones(cls, shape, dtype=None, *, device=None) -> "FieldArray":
+        return cls._view(_filled(cls, _as_shape(shape), device, "fill_"), _validate_dtype(cls, dtype))
+
+    @classmethod
     def Identity(cls, size: int, dtype=None, *, device=None) -> "FieldArray":
-        return cls(np.eye(int(size), dtype=np.int64), dtype=dtype, device=device)
+        """The size x size identity, built on ``device``."""
+        n = int(size)
+        return cls._view(_filled(cls, (n, n), device, "fill_diagonal_"), _validate_dtype(cls, dtype))
 
     @classmethod
     def Random(
@@ -311,6 +319,21 @@ class FieldArray(metaclass=FieldArrayMeta):
             shape = tuple(shape[0])
         lead = tuple(self._data.shape[: self._storage_ndim()])
         return type(self)._view(self._data.reshape(lead + tuple(int(s) for s in shape)), self._dtype)
+
+    def flatten(self) -> "FieldArray":
+        return self.reshape(self.size)
+
+    ravel = flatten
+
+    def transpose(self, *axes) -> "FieldArray":
+        """The element axes permuted (reversed when no axes are given)."""
+        if not axes:
+            return self.T
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        lead = self._storage_ndim()
+        perm = tuple(range(lead)) + tuple(lead + int(a) % self.ndim for a in axes)
+        return type(self)._view(self._data.permute(perm), self._dtype)
 
     @property
     def T(self) -> "FieldArray":
@@ -468,6 +491,33 @@ class FieldArray(metaclass=FieldArrayMeta):
 
         return _log(self, base)
 
+    def _reduce(self, opname: str, axis=None) -> "FieldArray":
+        """Field sum or product over one element axis (all of them when
+        ``axis`` is None), as a tree of field adds or multiplies on the
+        array's device."""
+        from ..ops._linalg import _field_reduce
+
+        cls = type(self)
+        lead = self._storage_ndim()
+        data = self._data
+        if axis is None:
+            data, dim = data.reshape(tuple(data.shape[:lead]) + (-1,)), lead
+        else:
+            dim = lead + int(axis) % self.ndim
+        op = getattr(_get_ops(cls._meta, cls._mode), opname)
+        return cls._view(_field_reduce(op, data, dim), self._dtype)
+
+    def sum(self, axis=None) -> "FieldArray":
+        return self._reduce("add", axis)
+
+    def prod(self, axis=None) -> "FieldArray":
+        return self._reduce("multiply", axis)
+
+    def dot(self, other) -> "FieldArray":
+        from ..ops._linalg import matmul
+
+        return matmul(self, self._coerce(other))
+
     def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
         name = ufunc.__name__
         if method != "__call__":
@@ -609,6 +659,16 @@ def _random_limbs(L: int, low: int, high: int, shape, generator, device) -> torc
         bad[idx] = at_or_above_span(v[:, idx])
     v, _ = normalize_limbs(v + torch.tensor(int_to_limbs(low, L), device=device).reshape(L, 1))
     return v.reshape((L,) + tuple(shape))
+
+
+def _filled(cls, shape, device, fill: str) -> torch.Tensor:
+    """Storage of zeros of element ``shape`` on ``device`` whose int reprs
+    (limb 0 of planar limbs) then get ``fill`` with 1: ``fill_`` for ones,
+    ``fill_diagonal_`` for an identity."""
+    lead = cls._storage_ndim()
+    data = torch.zeros((cls._meta.storage_width,) * lead + shape, dtype=torch.int64, device=resolve_device(device))
+    getattr(data[0] if lead else data, fill)(1)
+    return data.to(cls._meta.torch_dtype)
 
 
 def _as_shape(shape) -> Tuple[int, ...]:

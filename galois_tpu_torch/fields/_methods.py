@@ -1,26 +1,35 @@
-"""Field methods that the linear codes need, attached to FieldArray.
+"""Field methods attached to FieldArray: linear algebra, orders, element
+and matrix polynomials, roots of unity.
 
 Port of the parts of ``galois_tpu/fields/_array.py`` and
-``galois_tpu/fields/_methods.py`` that ``ReedSolomon`` and ``BCH`` are built
-from:
+``galois_tpu/fields/_methods.py`` that the linear codes and the matrix
+algebra need:
 
+- the matrix methods ``row_reduce`` (``eye`` "left" or "right"),
+  ``lu_decompose``, ``plu_decompose``, ``row_space``, ``column_space``,
+  ``left_null_space`` and ``null_space`` (``ops/_linalg.py``; the rank of a
+  reduced matrix is counted on its device, with one read-back);
 - ``FieldArray.multiplicative_order``: on the device for int storage, with
   the static factorization of q - 1; host ints for limb storage;
 - ``minimal_poly`` and ``characteristic_poly`` of a 0-D element (the
-  product of (x - c) over its conjugates c, on the host);
+  product of (x - c) over its conjugates c, on the host) and of a square
+  matrix: for int storage from n = 32 (the char poly, ``ops/_charpoly.py``)
+  and above n^2 = 1024 (the min poly, ``ops/_minpoly.py``, verified by
+  m(A) == 0) on the matrix's device, else the JAX package's host loops
+  (Berkowitz; the dependence of I, A, A^2, ...);
 - ``primitive_root_of_unity`` and ``primitive_roots_of_unity`` of a field
   class.
-
-The char/min polys of a square matrix (``ops/_charpoly.py``,
-``ops/_minpoly.py``) are still to be ported.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..nt import factors, totatives
+from ..ops import _linalg
 from ._array import FieldArray, FieldArrayMeta, _get_ops, _storage_to_ints
 from ._hostfield import get_host_field
 from ._meta import STORAGE_INT
@@ -69,27 +78,116 @@ def multiplicative_order(self):
     return np.int64(out) if dtype is np.int64 else int(out)
 
 
+# ----------------------------------------------------------------------
+# Matrix methods
+# ----------------------------------------------------------------------
+
+@_attach(FieldArray, "row_reduce")
+def row_reduce(self, ncols=None, eye="left"):
+    """Reduced row echelon form; ``eye`` other than "left" puts the identity
+    at the right: the matrix is reversed along both axes, reduced, and
+    reversed back (reference semantics)."""
+    if eye != "left":
+        if self.ndim != 2:
+            raise ValueError(f"Argument 'A' must be 2-D, not {self.ndim}-D.")
+        cls = type(self)
+
+        def flip(t):  # through an int16 view: torch has no flip for uint16 limbs
+            return _linalg._i16(t).flip((-2, -1)).view(t.dtype)
+
+        R = _linalg.row_reduce(cls._view(flip(self._data), self._dtype), ncols=ncols)
+        return cls._view(flip(R._data), self._dtype)
+    return _linalg.row_reduce(self, ncols=ncols)
+
+
+@_attach(FieldArray, "lu_decompose")
+def lu_decompose(self):
+    return _linalg.lu_decompose(self)
+
+
+@_attach(FieldArray, "plu_decompose")
+def plu_decompose(self):
+    return _linalg.plu_decompose(self)
+
+
+@_attach(FieldArray, "row_space")
+def row_space(self):
+    """Basis of the row space, as rows of a matrix
+    (reference: src/galois/_fields/_array.py:1487-1547)."""
+    if self.ndim != 2:
+        raise ValueError(f"Argument 'A' must be 2-D, not {self.ndim}-D.")
+    R = _linalg.row_reduce(self)
+    return R[: _nonzero_row_count(R)]
+
+
+@_attach(FieldArray, "column_space")
+def column_space(self):
+    return row_space(self.T)
+
+
+@_attach(FieldArray, "left_null_space")
+def left_null_space(self):
+    """Basis for {x : xA = 0} (reference: src/galois/_fields/_array.py:1604):
+    the rows of RREF([A | I]) whose A part vanished, reduced again."""
+    A = self
+    if A.ndim != 2:
+        raise ValueError(f"Argument 'A' must be 2-D, not {A.ndim}-D.")
+    cls = type(A)
+    m, n = A.shape
+    I = cls.Identity(m, device=A.device)
+    AI = cls._view(torch.cat([A._data, I._data], dim=-1), A._dtype)
+    R = _linalg.row_reduce(AI, ncols=n)
+    rank = _nonzero_row_count(R[:, :n])
+    LN = R[rank:, n:] if rank < m else cls.Zeros((0, m), device=A.device)
+    if LN.shape[0] > 0:
+        LN = _linalg.row_reduce(LN)
+    return LN
+
+
+@_attach(FieldArray, "null_space")
+def null_space(self):
+    return left_null_space(self.T)
+
+
+def _nonzero_row_count(R) -> int:
+    """1 + the index of the last row of R with a nonzero, counted on R's
+    device; one read-back."""
+    if R.size == 0:
+        return 0
+    nz = torch.logical_not(_get_ops(R._meta, type(R)._mode).is_zero(R._data)).any(dim=-1)
+    return int((nz * torch.arange(1, nz.numel() + 1, device=nz.device)).max())
+
+
+# ----------------------------------------------------------------------
+# Element and matrix polynomials
+# ----------------------------------------------------------------------
+
 @_attach(FieldArray, "characteristic_poly")
 def characteristic_poly(self):
-    """Of a 0-D element: the product of (x - x^(p^i)), i < m, over GF(p)."""
-    return _element_char_poly(self, minimal=False)
+    """Of a 0-D element: prod (x - x^(p^i)) over its conjugates; of a square
+    matrix: det(xI - A) (reference: src/galois/_fields/_array.py:1845-1978)."""
+    if self.ndim == 0:
+        return _element_char_poly(self, minimal=False)
+    if self.ndim == 2 and self.shape[0] == self.shape[1]:
+        return _matrix_char_poly(self)
+    raise ValueError(f"The array must be 0-D or a square 2-D matrix, not shape {self.shape}.")
 
 
 @_attach(FieldArray, "minimal_poly")
 def minimal_poly(self):
-    """Of a 0-D element: the product of (x - c) over its distinct conjugates."""
-    return _element_char_poly(self, minimal=True)
+    """Of a 0-D element: prod (x - c) over its distinct conjugates; of a
+    square matrix: the monic annihilator of least degree."""
+    if self.ndim == 0:
+        return _element_char_poly(self, minimal=True)
+    if self.ndim == 2 and self.shape[0] == self.shape[1]:
+        return _matrix_minimal_poly(self)
+    raise ValueError(f"The array must be 0-D or a square 2-D matrix, not shape {self.shape}.")
 
 
 def _element_char_poly(x, minimal: bool):
     from ..polys import _hostpoly as hp
     from ..polys._poly import Poly
 
-    if x.ndim != 0:
-        raise NotImplementedError(
-            "The characteristic and minimal polynomials of a matrix need ops/_charpoly.py and "
-            "ops/_minpoly.py, which the torch port does not have yet."
-        )
     meta = x._meta
     hf = get_host_field(meta)
     conjugates = []
@@ -105,6 +203,113 @@ def _element_char_poly(x, minimal: bool):
     # the coefficients lie in GF(p): a Poly over the prime subfield
     return Poly(poly[::-1], field=type(x).prime_subfield)
 
+
+def _matrix_char_poly(A):
+    """Characteristic polynomial of a square matrix: on the matrix's device
+    from n = 32 for int storage (Hessenberg and the minor recurrence,
+    ops/_charpoly.py), else the division-free host Berkowitz loop, as the
+    JAX package routes it."""
+    from ..ops import _charpoly
+    from ..polys._poly import Poly
+
+    cls = type(A)
+    n = A.shape[0]
+    if _charpoly.supports(cls._meta) and n >= 32:
+        coeffs_asc = _charpoly.charpoly_data(cls._meta, cls._mode, A._data)
+        return Poly(cls._view(coeffs_asc.flip(0), A._dtype))
+
+    hf = get_host_field(cls._meta)
+    M = [[int(v) for v in row] for row in np.asarray(A, dtype=object)]
+    # Berkowitz: C starts as the char poly of the 1x1 leading principal
+    # submatrix, and each step multiplies by a Toeplitz matrix.
+    C = [1, hf.negative(M[0][0])]  # descending coeffs
+    for k in range(1, n):
+        # R = row (M[k][0..k-1]), Cc = column (M[0..k-1][k]), B = leading k x k;
+        # t_0 = 1, t_1 = -M[k][k], t_j = -(R @ B^(j-2) @ Cc) for j >= 2
+        R = M[k][:k]
+        vec = [M[i][k] for i in range(k)]
+        B = [row[:k] for row in M[:k]]
+        t = [1, hf.negative(M[k][k])]
+        for j in range(2, k + 2):
+            dot = 0
+            for i in range(k):
+                dot = hf.add(dot, hf.multiply(R[i], vec[i]))
+            t.append(hf.negative(dot))
+            if j < k + 1:
+                vec = [
+                    functools.reduce(hf.add, (hf.multiply(B[i][l], vec[l]) for l in range(k)), 0)
+                    for i in range(k)
+                ]
+        newC = [0] * (k + 2)
+        for i, tv in enumerate(t):
+            if tv == 0:
+                continue
+            for j, cv in enumerate(C):
+                if i + j < len(newC):
+                    newC[i + j] = hf.add(newC[i + j], hf.multiply(tv, cv))
+        C = newC
+    return Poly(C, field=cls)
+
+
+def _matrix_minimal_poly(A):
+    """Minimal polynomial of a square matrix. Above n^2 = 1024, for int
+    storage, on the matrix's device: the Krylov minimal polynomials of up to
+    four vectors drawn from np.random.default_rng(0x5EED) (the JAX package's
+    draws), lcm'd, until the lcm has degree n or m(A) == 0 (checked on the
+    device); otherwise, and if that fails, the dependence of I, A, A^2, ...
+    solved exactly on the host."""
+    from .._polymorphic import lcm as poly_lcm
+    from ..ops import _minpoly
+    from ..polys._poly import Poly
+
+    cls = type(A)
+    n = A.shape[0]
+    ops = _get_ops(cls._meta, cls._mode)
+    if _minpoly.supports(cls._meta) and n * n > 1024:
+        rng = np.random.default_rng(0x5EED)
+        m_poly = None
+        for _ in range(4):
+            v = cls(rng.integers(0, min(cls.order, 2**62), size=n, dtype=np.int64) % cls.order, device=A.device)
+            coeffs, d = _minpoly.krylov_minpoly_data(cls._meta, cls._mode, A._data, v._data)
+            d = int(d)
+            cand = Poly(cls._view(coeffs[: d + 1].flip(0), A._dtype))
+            m_poly = cand if m_poly is None else poly_lcm(m_poly, cand)
+            if m_poly.degree >= n or bool(ops.is_zero(m_poly(A, elementwise=False)._data).all()):
+                return m_poly
+        # the candidates did not annihilate A (a degenerate draw over a tiny field)
+
+    hf = get_host_field(cls._meta)
+    powers = [cls.Identity(n, device=A.device)]
+    for _ in range(n):
+        powers.append(_linalg.matmul(powers[-1], A))
+    flat = [np.asarray(P, dtype=object).reshape(-1) for P in powers]
+    for d in range(1, n + 1):
+        # solve sum_{i<d} c_i A^i = -A^d
+        Mat = np.stack(flat[:d], axis=1)  # (n^2, d)
+        rhs = np.array([hf.negative(int(v)) for v in flat[d]], dtype=object)
+        sol = _solve_overdetermined(cls, Mat, rhs)
+        if sol is not None:
+            return Poly([1] + [int(c) for c in sol[::-1]], field=cls)
+    raise RuntimeError("unreachable: the characteristic polynomial annihilates A")
+
+
+def _solve_overdetermined(cls, Mat, rhs):
+    """Mat @ c = rhs solved exactly on the host, the free variables 0, or None
+    if the system is inconsistent: a row of RREF([Mat | rhs]) at or below the
+    rank that is nonzero in the rhs column alone."""
+    d = Mat.shape[1]
+    R, rank, pivots = _linalg._host_row_reduce(cls, np.concatenate([Mat, rhs[:, None]], axis=1), d)
+    if any(R[rank:, d]):
+        return None
+    sol = [0] * d
+    for i, c in enumerate(pivots):
+        sol[c] = int(R[i, d])
+    return sol
+
+
+# ----------------------------------------------------------------------
+# Roots of unity
+# ----------------------------------------------------------------------
 
 @_attach(FieldArrayMeta, "primitive_root_of_unity")
 def primitive_root_of_unity(cls, n: int):

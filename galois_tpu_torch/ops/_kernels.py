@@ -538,7 +538,7 @@ class LimbPrimeOps(FieldOps):
 
     def one_like(self, a):
         one = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
-        one[0] = 1
+        one[0].fill_(1)  # no host copy of the scalar, so no wait for the card
         return one.to(self.dt)
 
     def zero_like(self, a):

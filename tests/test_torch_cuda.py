@@ -29,6 +29,7 @@ from galois_tpu_torch.ops._elementwise import (
     m31_multiply_plain,
 )
 from galois_tpu_torch.ops._kernels import get_ops
+from galois_tpu_torch.ops import _charpoly, _linalg
 from galois_tpu_torch.ops._limb_matmul import int8_matmul
 from galois_tpu_torch.ops._linalg import balanced_planes_np
 from galois_tpu_torch.ops._lookup import (
@@ -826,3 +827,89 @@ def test_poly_product_via_ntt_on_cuda_matches_cpu(cuda_device):
     with gt.default_device("cpu"):
         assert got == a * b
         assert (q, r) == divmod(a * b, d)
+
+
+# ----------------------------------------------------------------------
+# Linear algebra over GF(q) (main path 6): the card against the CPU plain path
+# ----------------------------------------------------------------------
+
+LINALG_FIELDS = [
+    (2, "jit-calculate"), (2**8, "jit-calculate"), (2**8, "jit-lookup"), (2**16, "jit-calculate"),
+    (M31, "jit-calculate"), (GOLDILOCKS, "jit-calculate"),
+]
+
+
+def _linalg_input(F, shape, seed):
+    rng = np.random.default_rng(seed)
+    if F.order <= 2**62:
+        return F(rng.integers(0, F.order, shape), device="cpu")
+    return F((rng.integers(0, 2**62, shape).astype(object) * 4) % F.order, device="cpu")
+
+
+@pytest.mark.parametrize(["q", "mode"], LINALG_FIELDS)
+def test_linalg_on_cuda_matches_cpu(cuda_device, q, mode):
+    """row_reduce, rank, inv (or its singular error), det and PLU of the
+    device loops (A.size > 4096), and for int storage the char and min polys
+    at n = 64; the card's results equal the CPU's, and the input stays as it
+    was."""
+    F = gt.GF(q, compile=mode)
+    try:
+        n = 65 if q == GOLDILOCKS else 96  # Goldilocks: the plain Fermat reciprocal is slow on the host
+        A = _linalg_input(F, (n, n + 3), 5)
+        Ac = F(A._data, device=cuda_device)
+        before = Ac._data.clone()
+        got, want = Ac.row_reduce(), A.row_reduce()
+        assert got.device.type == "cuda" and torch.equal(got._data.cpu(), want._data)
+        assert torch.equal(Ac._data, before)
+        assert np.linalg.matrix_rank(Ac) == np.linalg.matrix_rank(A)
+        B, Bc = A[:, :n], Ac[:, :n]
+        try:
+            want = np.linalg.inv(B)
+        except np.linalg.LinAlgError:
+            with pytest.raises(np.linalg.LinAlgError):
+                np.linalg.inv(Bc)
+        else:
+            assert torch.equal(np.linalg.inv(Bc)._data.cpu(), want._data)
+        assert torch.equal(np.linalg.det(Bc)._data.cpu(), np.linalg.det(B)._data)
+        for g, w in zip(Bc.plu_decompose(), B.plu_decompose()):
+            assert torch.equal(g._data.cpu(), w._data)
+        assert torch.equal(Ac._data, before)
+        if F._meta.storage == "int":
+            C, Cc = A[:64, :64], Ac[:64, :64]
+            assert Cc.characteristic_poly() == C.characteristic_poly()
+            assert Cc.minimal_poly() == C.minimal_poly()
+    finally:
+        F.compile("auto")
+
+
+@pytest.mark.parametrize(["q", "mode"], LINALG_FIELDS[1:])
+def test_linalg_column_steps_never_read_back(cuda_device, q, mode):
+    """_row_reduce_data (no more columns than rows: no early-exit check),
+    _plu_data, _det_data and charpoly_data under sync debug mode "error":
+    no step of theirs waits for the card. One warm-up call first puts the
+    field's tables and constants on the card."""
+    F = gt.GF(q, compile=mode)
+    try:
+        meta, mode = F._meta, F._mode
+        A = _linalg_input(F, (40, 40), 6)
+        a = F(A._data, device=cuda_device)._data
+        wide = torch.cat([a, a], dim=-1)
+        calls = [
+            lambda: _linalg._row_reduce_data(meta, mode, wide, 40),
+            lambda: _linalg._plu_data(meta, mode, a),
+            lambda: _linalg._det_data(meta, mode, a),
+        ]
+        if meta.storage == "int":
+            calls.append(lambda: _charpoly.charpoly_data(meta, mode, a))
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for call in calls:
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        F.compile("auto")

@@ -228,7 +228,8 @@ def test_port_sources_never_import_jax():
     # a path or resource built into the JAX package: "galois_tpu" / ..., "galois_tpu._databases"
     # or "galois_tpu/<file>"; "galois_tpu/<file>:<line>" names a kernel a port replaces
     path_into_jax = re.compile(r"""["']galois_tpu["'.]|["']galois_tpu/[^"':]*["']""")
-    scripts = [REPO / "scripts" / name for name in ("_timing.py", "lookup_timing.py", "scan_timing.py", "power_timing.py")]
+    names = ("_timing.py", "lookup_timing.py", "scan_timing.py", "power_timing.py", "limb_timing.py", "linalg_timing.py")
+    scripts = [REPO / "scripts" / name for name in names]
     for path in [*(REPO / "galois_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py", *scripts]:
         text = path.read_text()
         assert not pattern.search(text), path
