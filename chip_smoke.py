@@ -139,7 +139,27 @@ Phases, each fatal on failure:
      the call (CUDA events), its launches by wrapper and the peak device
      memory; inv's K8 (K3, K7) launches must be two a column and a few a
      call, its K8-A (K5, K8-A) launches one a call. K3, K5, K7, K8, K8-A, K9 and K10 must have been
-     launched.
+     launched;
+ 10. main path 7, the same way: the field's element functions at 2^24
+     elements: default-mode log over GF(2^8), GF(2^16) and GF(3^5) (the LOG
+     table, K6) and over GF(2^31 - 1) and GF(3*2^30+1) (the batched
+     Pohlig-Hellman), held by alpha ** log == x on the card through the
+     exponent-array power and on a 2^10 prefix against Python-int logs
+     written here; GF(2^31 - 1) also with the base alpha^5, and the base
+     alpha^3 must raise; np.sqrt of squares y * y over GF(2^8) and GF(2^16)
+     (K8-A), GF(2^31 - 1) (one ladder), GF(3*2^30+1) (Tonelli-Shanks, S =
+     30) and Goldilocks (Tonelli-Shanks on limbs, S = 32), held by r * r ==
+     x and r <= -r as integers on the card and on a 2^12 prefix in Python
+     ints; is_square of random elements against Euler's criterion on a
+     prefix; field_trace and field_norm over GF(2^8) and GF(3^5) against
+     NumPy references on a prefix; Poly.roots of degree 255 over GF(2^16)
+     (the Chien scan, K7) and of degree 32 over GF(2^8) with multiplicities
+     (K8) and over GF(2^31 - 1) (the host's factors); GF(2^16)'s
+     primitive elements (phi(q - 1) of them, each of order q - 1 on the
+     card), GF(65537)'s squares, conway_poly(2, 20) and lagrange_poly
+     through 64 points over GF(2^8). Each line prints the call's ms (CUDA
+     events), its launches by wrapper and the peak device memory; K6, K7,
+     K8, K8-A, K9 and K10 must have been launched.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -707,6 +727,224 @@ def linalg_path(gt, dev, timed):
         flush=True,
     )
     print(f"[main] main path 6 took {time.perf_counter() - t_path:.1f} s", flush=True)
+
+
+def py_factor(n):
+    """{prime: exponent} of n by trial division."""
+    out, d = {}, 2
+    while d * d <= n:
+        while n % d == 0:
+            out[d] = out.get(d, 0) + 1
+            n //= d
+        d += 1
+    if n > 1:
+        out[n] = out.get(n, 0) + 1
+    return out
+
+
+def py_dlog(xs, g, p):
+    """Discrete logs base g of the units xs of GF(p) in Python ints:
+    Pohlig-Hellman over the factors of p - 1, each digit by a table of the
+    order-q subgroup, then the CRT."""
+    n = p - 1
+    parts = []
+    for q, e in py_factor(n).items():
+        gq = pow(g, n // q**e, p)
+        table = {pow(gq, d * q ** (e - 1), p): d for d in range(q)}
+        parts.append((q, e, gq, table))
+    out = []
+    for x in xs:
+        r = 0
+        for q, e, gq, table in parts:
+            hq, xk = pow(x, n // q**e, p), 0
+            for k in range(e):
+                xk += table[pow(hq * pow(gq, -xk, p) % p, q ** (e - 1 - k), p)] * q**k
+            m = n // q**e
+            r += xk * m * pow(m, -1, q**e)
+        out.append(r % n)
+    return out
+
+
+def elements_path(gt, dev, timed):
+    """Main path 7: the field's element functions through the public API on
+    ``dev`` at 2^24 elements: default-mode logs, square roots, squares,
+    trace and norm, roots of polynomials, and the element collections and
+    helper polynomials. Every check is exact: on the card (alpha ** log ==
+    x, r * r == x, r <= -r) and on prefixes against Python-int and NumPy
+    references written in this script. ``timed(call)`` returns (result, ms,
+    launches by wrapper, peak device MiB) of one call."""
+    n = 2**24
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(70)
+
+    def line(label, ms, used, peak, extra=""):
+        print(f"[main] {label}: {ms:.1f} ms, launches {used}, peak device memory {peak:.0f} MiB{extra}", flush=True)
+
+    def field_mul(F):
+        """An independent NumPy product of F's int reprs (int64)."""
+        p, m = F.characteristic, F.degree
+        if m == 1:
+            return lambda a, b: (a.astype(object) * b.astype(object) % p).astype(np.int64)
+        f = F._meta.irreducible_poly_int
+        if p == 2:
+            return lambda a, b: np_gf2m_multiply(a, b, m, f)
+        f_asc = [(f // p**i) % p for i in range(m + 1)]
+        return lambda a, b: np_gfpm_multiply(a, b, p, f_asc)
+
+    def ref_logs(F, xs):
+        alpha = int(F.primitive_element)
+        if F.degree == 1:
+            return py_dlog(xs, alpha, F.order)
+        _, log = np_exp_log(field_mul(F), alpha, F.order)
+        return [int(v) for v in log[np.asarray(xs)]]
+
+    def field_add(F):
+        """An independent NumPy sum of F's int reprs: digit by digit mod p."""
+        p, m = F.characteristic, F.degree
+        if p == 2:
+            return lambda a, b: a ^ b
+        w = p ** np.arange(m)
+        return lambda a, b: (((a[..., None] // w) % p + (b[..., None] // w) % p) % p * w).sum(axis=-1)
+
+    def le_on_card(A, B):
+        """A <= B as integers, elementwise on the card: int storage directly,
+        planar limbs from the top limb down."""
+        a, b = A._data.to(torch.int64), B._data.to(torch.int64)
+        if a.ndim == len(A.shape):
+            return a <= b
+        le, decided = torch.ones_like(a[0], dtype=torch.bool), torch.zeros_like(a[0], dtype=torch.bool)
+        for k in reversed(range(a.shape[0])):
+            ne = a[k] != b[k]
+            le = torch.where(decided | ~ne, le, a[k] < b[k])
+            decided = decided | ne
+        return le
+
+    F8, F16, F35 = gt.GF(2**8), gt.GF(2**16), gt.GF(3**5)
+    FM, FN, FG = gt.GF(2**31 - 1), gt.GF(P), gt.GF(GOLDILOCKS)
+
+    # 1. default-mode log: the LOG table (K6) up to 2^20, the batched Pohlig-Hellman above
+    for F, route in ((F8, "K6"), (F16, "K6"), (F35, "K6"), (FM, "Pohlig-Hellman"), (FN, "Pohlig-Hellman")):
+        x = F.Random(n, low=1, seed=F.order % 1000, device=dev)
+        logs, ms, used, peak = timed(x.log)
+        back = F.primitive_element ** logs
+        if not (isinstance(logs, np.ndarray) and logs.dtype == np.int64 and logs.shape == (n,)):
+            raise AssertionError(f"{F.name} log: not an int64 ndarray of shape ({n},)")
+        if not torch.equal(back._data.to(dev), x._data):
+            raise AssertionError(f"{F.name} log: alpha ** log != x on the card")
+        if logs[: 2**10].tolist() != ref_logs(F, ints(x[: 2**10])):
+            raise AssertionError(f"{F.name} log disagrees with the Python-int discrete logs")
+        line(f"{F.name} x.log() ({route}), 2^24 elements", ms, used, peak, " | alpha ** log == x, 2^10 prefix exact")
+        if F is FM:
+            alpha = int(F.primitive_element)
+            b5 = pow(alpha, 5, F.order)
+            logs5, ms, used, peak = timed(lambda: x.log(b5))
+            if not torch.equal((F(b5, device=dev) ** logs5)._data, x._data):
+                raise AssertionError("GF(2^31-1) log base alpha^5: (alpha^5) ** log != x on the card")
+            line("GF(2^31-1) x.log(alpha^5), 2^24 elements", ms, used, peak, " | (alpha^5) ** log == x")
+            try:
+                x[:4].log(pow(alpha, 3, F.order))
+            except ArithmeticError:
+                pass
+            else:
+                raise AssertionError("GF(2^31-1) log base alpha^3 (not a generator) did not raise")
+        del x, back
+
+    # 2. square roots of squares, is_square of random elements
+    for F in (F8, F16, FM, FN, FG):
+        y = F.Random(n, seed=F.order % 997, device=dev)
+        x = y * y
+        r, ms, used, peak = timed(lambda: np.sqrt(x))
+        if not torch.equal((r * r)._data, x._data):
+            raise AssertionError(f"{F.name} sqrt: r * r != x on the card")
+        if F.characteristic != 2 and not bool(le_on_card(r, -r).all()):
+            raise AssertionError(f"{F.name} sqrt: some root is above its negation")
+        xs, rs, mul = ints(x[: 2**12]), ints(r[: 2**12]), field_mul(F)
+        if F.characteristic == 2:
+            ok = mul(np.array(rs), np.array(rs)).tolist() == xs
+        else:
+            p = F.order
+            ok = all(v * v % p == u and v <= (p - v) % p for u, v in zip(xs, rs))
+        if not ok:
+            raise AssertionError(f"{F.name} sqrt disagrees with the Python-int check")
+        line(f"{F.name} np.sqrt(y * y), 2^24 elements", ms, used, peak, " | r * r == x, r <= -r, 2^12 prefix exact")
+        z = F.Random(n, seed=F.order % 991, device=dev)
+        sq, ms, used, peak = timed(z.is_square)
+        zs = ints(z[: 2**12])
+        want = [True] * len(zs) if F.characteristic == 2 else [pow(v, (F.order - 1) // 2, F.order) in (0, 1) for v in zs]
+        if sq.shape != (n,) or sq[: 2**12].tolist() != want:
+            raise AssertionError(f"{F.name} is_square disagrees with Euler's criterion")
+        line(f"{F.name} is_square(), 2^24 elements", ms, used, peak, f" | Euler's criterion on a 2^12 prefix, {int(sq.sum())} squares")
+        del y, x, r, z
+
+    # 3. trace and norm, against products of the conjugates x^(p^i) in NumPy
+    for F in (F8, F35):
+        x = F.Random(n, seed=F.order % 983, device=dev)
+        p, m, mul, add = F.characteristic, F.degree, field_mul(F), field_add(F)
+        xs = np.array(ints(x[: 2**12]))
+        conj, tr, nm = xs.copy(), np.zeros_like(xs), np.ones_like(xs)
+        for _ in range(m):  # the sum and the product of the conjugates x^(p^i)
+            tr = add(tr, conj)
+            nm = mul(nm, conj)
+            nxt = conj
+            for _ in range(p - 1):
+                nxt = mul(nxt, conj)
+            conj = nxt
+        for name, want in (("field_trace", tr), ("field_norm", nm)):
+            out, ms, used, peak = timed(getattr(x, name))
+            if type(out).order != p or out.shape != (n,) or ints(out[: 2**12]) != want.tolist():
+                raise AssertionError(f"{F.name} {name} disagrees with the NumPy reference")
+            line(f"{F.name} {name}(), 2^24 elements", ms, used, peak, " | 2^12 prefix exact")
+        del x
+
+    # 4. roots: the Chien scan over GF(2^16) (K7) and GF(2^8) (K8), the host factors over GF(2^31 - 1)
+    roots16 = [int(v) for v in rng.choice(2**16, 255, replace=False)]
+    f16 = gt.Poly.Roots(roots16, field=F16)
+    got, ms, used, peak = timed(f16.roots)
+    if ints(got) != sorted(roots16):
+        raise AssertionError("GF(2^16) roots of a degree-255 Poly.Roots: not its roots")
+    line("GF(2^16) Poly.roots(), degree 255 (Chien scan over 2^16 elements)", ms, used, peak, " | the 255 roots")
+    mults = []
+    while sum(mults) < 32:
+        mults.append(min(int(rng.integers(1, 4)), 32 - sum(mults)))
+    roots8 = [int(v) for v in rng.choice(256, len(mults), replace=False)]
+    f8 = gt.Poly.Roots(roots8, mults, field=F8)
+    (got, mult), ms, used, peak = timed(lambda: f8.roots(multiplicity=True))
+    if list(zip(ints(got), mult.tolist())) != sorted(zip(roots8, mults)):
+        raise AssertionError("GF(2^8) roots with multiplicity of a degree-32 Poly.Roots: not its roots")
+    line(f"GF(2^8) Poly.roots(multiplicity=True), degree 32, {len(mults)} roots", ms, used, peak, " | roots and multiplicities")
+    rootsM = sorted({int(v) for v in rng.integers(1, FM.order, 32)})
+    fM = gt.Poly.Roots(rootsM, field=FM)
+    got, ms, used, peak = timed(fM.roots)
+    if ints(got) != rootsM:
+        raise AssertionError("GF(2^31-1) roots of a degree-32 Poly.Roots: not its roots")
+    line("GF(2^31-1) Poly.roots(), degree 32 (host factors)", ms, used, peak, " | the 32 roots")
+
+    # 5. the collections and the helper polynomials
+    prim, ms, used, peak = timed(lambda: F16.primitive_elements)
+    phi = 2**16 - 1
+    for q in py_factor(2**16 - 1):
+        phi = phi // q * (q - 1)
+    orders = prim.multiplicative_order()
+    pi = ints(prim)
+    if len(pi) != phi or pi != sorted(set(pi)) or not (orders == 2**16 - 1).all():
+        raise AssertionError("GF(2^16).primitive_elements: not phi(q - 1) distinct elements of order q - 1")
+    line("GF(2^16).primitive_elements", ms, used, peak, f" | {len(pi)} = phi(65535), each of order 65535 (multiplicative_order on the card)")
+    F65537 = gt.GF(65537)
+    sq, ms, used, peak = timed(lambda: F65537.squares)
+    if ints(sq) != np.unique(np.arange(65537, dtype=np.int64) ** 2 % 65537).tolist():
+        raise AssertionError("GF(65537).squares disagrees with the squares in NumPy")
+    line("GF(65537).squares", ms, used, peak, f" | {len(ints(sq))} squares, as NumPy's")
+    c20, ms, used, peak = timed(lambda: gt.conway_poly(2, 20))
+    if int(c20) != 2**20 + 2**10 + 2**9 + 2**7 + 2**6 + 2**5 + 2**4 + 2 + 1 or not c20.is_conway():
+        raise AssertionError("conway_poly(2, 20) is not x^20 + x^10 + x^9 + x^7 + x^6 + x^5 + x^4 + x + 1")
+    line("conway_poly(2, 20)", ms, used, peak, f" | {c20}")
+    xs = F8([int(v) for v in rng.choice(256, 64, replace=False)], device=dev)
+    ys = F8.Random(64, seed=71, device=dev)
+    L, ms, used, peak = timed(lambda: gt.lagrange_poly(xs, ys))
+    if L.degree >= 64 or not torch.equal(L(xs)._data, ys._data):
+        raise AssertionError("lagrange_poly through 64 points over GF(2^8) misses a point")
+    line("lagrange_poly, 64 points over GF(2^8)", ms, used, peak, f" | degree {L.degree}, L(x_i) == y_i on the card")
+    print(f"[main] main path 7 took {time.perf_counter() - t_path:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2223,6 +2461,13 @@ def main() -> int:
     linalg_path(gt, dev, timed)
     read_counts(6, (gf2m_multiply_swar, gf2m_power, _lookup.lookup_multiply, _lookup.lookup_reciprocal,
                     gf2m_multiply, m31_multiply, goldilocks_multiply))
+
+    # -- 10. main path 7: the field's element functions at 2^24 ----------------
+    for fn in counters:
+        fn.launches = 0
+    elements_path(gt, dev, timed)
+    read_counts(7, (_lookup.lookup_log, gf2m_multiply, gf2m_multiply_swar, gf2m_power, m31_multiply,
+                    goldilocks_multiply))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),

@@ -2,11 +2,12 @@
 
 Finite-field arrays over torch tensors (GF(p) of any size, GF(2^m) with
 m <= 32 and GF(p^m) with p^m <= 2^31, in 'jit-calculate' and, for orders
-<= 2^20, 'jit-lookup' mode) with the field matmul, polynomials over them
-(``Poly``, with batched and matrix evaluation, irreducible and primitive
-polynomial tests and searches, factorization, and ``gcd`` and its kin for
-ints or Polys), Reed-Solomon and BCH codes with batched decoding, and the
-number-theoretic transform over prime fields up to 2^32.
+<= 2^20, 'jit-lookup' mode) with the field matmul, discrete logs, square
+roots, trace and norm, and primitive and normal elements; polynomials over
+them (``Poly``, with batched and matrix evaluation, roots, irreducible and
+primitive polynomial tests and searches, factorization, Conway and Lagrange
+polynomials, and ``gcd`` and its kin for ints or Polys), Reed-Solomon and
+BCH codes with batched decoding, and the number-theoretic transform.
 New data goes to CUDA unless the caller asks for the CPU
 (``set_default_device``, ``default_device``, or ``device=``). The public
 names and results match the JAX package ``galois_tpu``; this package imports
@@ -26,11 +27,26 @@ from ._options import (
     set_printoptions,
 )
 from . import typing
-from .fields import GF, GF2, Field, FieldArray, FieldArrayMeta
+from .fields import (
+    GF,
+    GF2,
+    Array,
+    Field,
+    FieldArray,
+    FieldArrayMeta,
+    is_normal_element,
+    is_primitive_element,
+    normal_element,
+    normal_elements,
+    primitive_element,
+    primitive_elements,
+)
 from .polys import (
     Poly,
+    conway_poly,
     irreducible_poly,
     irreducible_polys,
+    lagrange_poly,
     matlab_primitive_poly,
     primitive_poly,
     primitive_polys,

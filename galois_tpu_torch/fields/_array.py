@@ -8,7 +8,11 @@ broadcasting act on the element axes only. Host input goes to the
 ``device=`` argument or, when it is None, to the package's default device
 (``_options.py``, CUDA unless the caller asks for the CPU); every result
 stays on its inputs' device. Arithmetic runs eagerly through the ops object
-of the field and its ufunc mode (``ops/_kernels.py::get_ops``).
+of the field and its ufunc mode (``ops/_kernels.py::get_ops``). The element
+functions (``log``, ``sqrt``, ``is_square``, ``additive_order``, ``vector``)
+and the metaclass collections (``elements``, ``squares``,
+``primitive_elements``, ...) compute on the device where the JAX package
+does, and read back one mask or result.
 
 NumPy interop matches the JAX package: ``np.asarray(x)`` gives the integer
 representation in the array's dtype (an object array of Python ints for
@@ -31,7 +35,7 @@ from .._options import resolve_device
 from ..ops._limbs import align_planar, normalize_limbs
 from ._meta import STORAGE_INT, FieldMeta, int_to_limbs
 
-__all__ = ["FieldArray", "FieldArrayMeta"]
+__all__ = ["Array", "FieldArray", "FieldArrayMeta"]
 
 
 def _get_ops(meta: FieldMeta, mode: str):
@@ -153,6 +157,89 @@ class FieldArrayMeta(type):
         return GF(cls._meta.characteristic)
 
     @property
+    def is_primitive_poly(cls) -> bool:
+        """Whether the irreducible polynomial is primitive: x (the element
+        p) generates the multiplicative group; always for GF(p)."""
+        if cls._meta.degree == 1:
+            return True
+        from ._hostfield import get_host_field
+
+        return get_host_field(cls._meta).is_primitive_element(cls._meta.characteristic)
+
+    # -- element collections, on the default device --
+    @property
+    def elements(cls) -> "FieldArray":
+        return cls.Range(0, cls.order)
+
+    @property
+    def units(cls) -> "FieldArray":
+        return cls.Range(1, cls.order)
+
+    @property
+    def primitive_elements(cls) -> "FieldArray":
+        """alpha^k for every k coprime to q - 1, ascending: for int storage
+        one exponent-array power and a sort on the device, else host ints."""
+        from ..nt import totatives
+
+        ks = totatives(cls.order - 1)
+        if cls._meta.storage == STORAGE_INT:
+            pw = cls.primitive_element ** np.asarray(ks, dtype=np.int64)
+            return cls._view(torch.sort(pw._data.to(torch.int64)).values.to(cls._meta.torch_dtype))
+        from ._hostfield import get_host_field
+
+        hf = get_host_field(cls._meta)
+        alpha = cls._meta.primitive_element_int
+        return cls(np.array(sorted(hf.power(alpha, k) for k in ks), dtype=object))
+
+    @property
+    def normal_element(cls) -> "FieldArray":
+        """The smallest normal element of GF(p^m) over GF(p) (a rank test of
+        its conjugates' digits, on the host)."""
+        from ._normal_element import _conjugate_matrix_rank
+
+        m = cls._meta.degree
+        for e in range(1, cls.order):
+            if _conjugate_matrix_rank(cls, e) == m:
+                return cls(e)
+        return None
+
+    @property
+    def normal_elements(cls) -> "FieldArray":
+        from ._normal_element import _conjugate_matrix_rank
+
+        m = cls._meta.degree
+        return cls(np.array([e for e in range(1, cls.order) if _conjugate_matrix_rank(cls, e) == m], dtype=object))
+
+    @property
+    def squares(cls) -> "FieldArray":
+        x = cls.elements
+        return x._masked(x._is_square_data())
+
+    @property
+    def non_squares(cls) -> "FieldArray":
+        x = cls.elements
+        return x._masked(~x._is_square_data())
+
+    @property
+    def properties(cls) -> str:
+        from ..polys._conversions import integer_to_poly, poly_to_str
+
+        p, meta = cls.characteristic, cls._meta
+        alpha = str(meta.primitive_element_int) if meta.degree == 1 else poly_to_str(integer_to_poly(meta.primitive_element_int, p))
+        return "\n".join([
+            "Galois Field:",
+            f"  name: {cls.name}",
+            f"  characteristic: {p}",
+            f"  degree: {cls.degree}",
+            f"  order: {cls.order}",
+            f"  irreducible_poly: {poly_to_str(integer_to_poly(meta.irreducible_poly_int, p))}",
+            f"  is_primitive_poly: {cls.is_primitive_poly}",
+            # the primitive element as a polynomial string for extension
+            # fields, as the reference renders it
+            f"  primitive_element: {alpha}",
+        ])
+
+    @property
     def ufunc_mode(cls) -> str:
         return cls._mode
 
@@ -185,7 +272,18 @@ class FieldArrayMeta(type):
 # FieldArray
 # ----------------------------------------------------------------------
 
-class FieldArray(metaclass=FieldArrayMeta):
+class Array(metaclass=FieldArrayMeta):
+    """Abstract base class of the package's arrays (the reference's
+    ``galois.Array``), so that ``isinstance(x, Array)`` and
+    ``issubclass(GF, Array)`` behave as in the JAX package."""
+
+    _meta: FieldMeta = None
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("Array is abstract; create a concrete field with GF(p**m).")
+
+
+class FieldArray(Array):
     """An array over GF(p^m). Instances wrap a torch.Tensor in the field's
     storage; the class (manufactured by ``GF()``) carries the static field
     descriptor. ``device`` places host input (None: the package's default
@@ -256,6 +354,45 @@ class FieldArray(metaclass=FieldArrayMeta):
         """The size x size identity, built on ``device``."""
         n = int(size)
         return cls._view(_filled(cls, (n, n), device, "fill_diagonal_"), _validate_dtype(cls, dtype))
+
+    @classmethod
+    def Range(cls, start, stop, step=1, dtype=None, *, device=None) -> "FieldArray":
+        """The elements with int reprs start, start + step, ... below stop,
+        made on ``device`` (int storage by ``torch.arange``)."""
+        start, stop, step = int(start), int(stop), int(step)
+        if not 0 <= start <= cls.order:
+            raise ValueError(f"Argument 'start' must be within the field's order {cls.order}.")
+        if stop > cls.order:
+            raise ValueError(f"Argument 'stop' must be <= the field order {cls.order}.")
+        dtype = _validate_dtype(cls, dtype)
+        if cls._meta.storage == STORAGE_INT:
+            data = torch.arange(start, stop, step, dtype=torch.int64, device=resolve_device(device))
+            return cls._view(data.to(cls._meta.torch_dtype), dtype)
+        vals = np.array(list(range(start, stop, step)), dtype=object)
+        return cls._view(_ints_to_storage(cls._meta, vals, device), dtype)
+
+    @classmethod
+    def Vandermonde(cls, element, rows: int, cols: int, dtype=None, *, device=None) -> "FieldArray":
+        """V[i, j] = element^(i j), on ``device`` (by default the element's,
+        or the default device)."""
+        a = cls(element, device=device)
+        if a.ndim != 0:
+            raise ValueError("Argument 'element' must be 0-D.")
+        e = np.arange(int(rows)).reshape(-1, 1) * np.arange(int(cols)).reshape(1, -1)
+        return _power_array(cls._view(a._data), e).astype(_validate_dtype(cls, dtype))
+
+    @classmethod
+    def Vector(cls, array, dtype=None, *, device=None) -> "FieldArray":
+        """Elements from length-m vectors over GF(p), degrees descending."""
+        digits = np.asarray(cls.prime_subfield(array, device="cpu"))
+        m = cls._meta.degree
+        if digits.shape[-1] != m:
+            raise ValueError(f"The last dimension of 'array' must be {m}, not {digits.shape[-1]}.")
+        p = cls._meta.characteristic
+        ints = np.zeros(digits.shape[:-1], dtype=object)
+        for k, col in enumerate(np.moveaxis(digits[..., ::-1].astype(object), -1, 0)):
+            ints = ints + col * p**k
+        return cls(ints if ints.ndim else int(ints), dtype=dtype, device=device)
 
     @classmethod
     def Random(
@@ -486,10 +623,69 @@ class FieldArray(metaclass=FieldArrayMeta):
 
     def log(self, base=None) -> np.ndarray:
         """Discrete logarithm, as an int64 ndarray (base: the primitive
-        element unless given). Lookup mode reads the LOG table (kernel K6)."""
+        element unless given): the LOG table through kernel K6 for orders
+        <= 2^20, the batched Pohlig-Hellman on the device for larger int
+        storage with a smooth q - 1, else the host (``ops/_dlog.py``)."""
         from ..ops._dlog import log as _log
 
         return _log(self, base)
+
+    def additive_order(self):
+        """1 for zero, else the characteristic (an object array of Python
+        ints above int64)."""
+        p = self._meta.characteristic
+        zero = _get_ops(self._meta, self._mode).is_zero(self._data)
+        if p <= np.iinfo(np.int64).max:
+            out = torch.where(zero, 1, p).cpu().numpy()
+            return out if out.ndim else np.int64(out)
+        out = np.full(self.shape, p, dtype=object)
+        out[zero.cpu().numpy()] = 1
+        return out if out.ndim else int(out)
+
+    def _is_square_data(self) -> torch.Tensor:
+        """Euler's criterion on the device: a bool tensor of the element
+        shape (every element is a square in characteristic 2)."""
+        ops = _get_ops(self._meta, self._mode)
+        zero = ops.is_zero(self._data)
+        if self._meta.characteristic == 2:
+            return torch.ones_like(zero)
+        return zero | ops.is_one(ops.power_static(self._data, (self._meta.order - 1) // 2))
+
+    def is_square(self):
+        """Whether each element is a square, as a bool ndarray (np.bool_ for
+        a 0-D array)."""
+        out = self._is_square_data().cpu().numpy()
+        return out if out.ndim else np.bool_(out)
+
+    def sqrt(self) -> "FieldArray":
+        """The canonical square roots (int repr <= that of the negation);
+        raises ArithmeticError if any element is a non-square."""
+        if not bool(self._is_square_data().all()):
+            raise ArithmeticError("Input array has elements that are non-squares.")
+        out = _get_ops(self._meta, self._mode).sqrt(self._data)
+        return type(self)._view(out, self._dtype)
+
+    def vector(self, dtype=None) -> "FieldArray":
+        """The length-m GF(p) vectors of the elements, degrees descending,
+        split on the array's device."""
+        sub = type(self).prime_subfield
+        meta = self._meta
+        m, p = meta.degree, meta.characteristic
+        if meta.storage != STORAGE_INT:  # limb-storage prime field: the vector is the element
+            return sub._view(self._data.unsqueeze(-1), _validate_dtype(sub, dtype))
+        x = self._data.to(torch.int64)
+        digs = []
+        for _ in range(m):
+            digs.append(x % p)
+            x = x // p
+        out = torch.stack(digs[::-1], dim=-1).to(sub._meta.torch_dtype)
+        return sub._view(out, _validate_dtype(sub, dtype))
+
+    def _masked(self, mask: torch.Tensor) -> "FieldArray":
+        """The elements where the element mask holds, as a 1-D array."""
+        if self._storage_ndim():
+            return type(self)._view(self._data[:, mask], self._dtype)
+        return type(self)._view(self._data[mask], self._dtype)
 
     def _reduce(self, opname: str, axis=None) -> "FieldArray":
         """Field sum or product over one element axis (all of them when
@@ -547,6 +743,8 @@ class FieldArray(metaclass=FieldArrayMeta):
             "positive": lambda a: +a,
             "reciprocal": lambda a: a.multiplicative_inverse(),
             "square": lambda a: a * a,
+            "sqrt": lambda a: a.sqrt(),
+            "log": lambda a: a.log(),
         }
         if name in binary:
             a, b = inputs

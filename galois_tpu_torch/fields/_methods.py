@@ -79,6 +79,57 @@ def multiplicative_order(self):
 
 
 # ----------------------------------------------------------------------
+# Trace and norm
+# ----------------------------------------------------------------------
+
+@_attach(FieldArray, "field_trace")
+def field_trace(self):
+    """Tr(x) = sum_i x^(p^i), in the prime subfield. The trace is GF(p)-linear,
+    so it is one dot product of the base-p digits, split on the array's
+    device, with the traces of the basis elements x^i (host ints)."""
+    meta = self._meta
+    sub = type(self).prime_subfield
+    if meta.degree == 1:
+        return sub._view(self._data, self._dtype)
+    p = meta.characteristic
+    x = self._data.to(torch.int64)
+    acc = torch.zeros_like(x)
+    for c in _trace_vector(meta):
+        if c:
+            acc = acc + (x % p) * c
+        x = x // p
+    return sub._view((acc % p).to(sub._meta.torch_dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _trace_vector(meta):
+    """Tr(x^i) for i < m: the trace of the basis element with int repr p^i,
+    each in [0, p)."""
+    hf = get_host_field(meta)
+    p, m = meta.characteristic, meta.degree
+    traces = []
+    for i in range(m):
+        y, tr = p**i, 0
+        for _ in range(m):
+            tr = hf.add(tr, y)
+            y = hf.power(y, p)
+        traces.append(tr)
+    return tuple(traces)
+
+
+@_attach(FieldArray, "field_norm")
+def field_norm(self):
+    """N(x) = x^((q - 1) / (p - 1)), in the prime subfield: the field's power
+    (kernel K8-A for GF(2^m), m <= 16), whose int repr is already below p."""
+    meta = self._meta
+    sub = type(self).prime_subfield
+    if meta.degree == 1:
+        return sub._view(self._data, self._dtype)
+    norm = self ** ((meta.order - 1) // (meta.characteristic - 1))
+    return sub._view(norm._data.to(sub._meta.torch_dtype))
+
+
+# ----------------------------------------------------------------------
 # Matrix methods
 # ----------------------------------------------------------------------
 

@@ -26,6 +26,12 @@ Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
 - ``GoldilocksOps`` p = 2^64 - 2^32 + 1: the multiply and square are kernel
                     K10 (``ops/_elementwise.py::goldilocks_multiply``)
 
+Every family has ``sqrt``, the canonical square root (the one whose int
+repr is <= that of its negation, as the JAX package): one ``power_static``
+for q = 3 mod 4 and for characteristic 2 (K8-A for GF(2^m <= 16)), Atkin
+for q = 5 mod 8, else Tonelli-Shanks as fixed trip counts of masked
+selects; lookup mode reads LOG by K6.
+
 Every op takes and returns tensors in the field's storage dtype and keeps
 its inputs' device. Arithmetic is widened to int64 inside each op: torch
 has no unsigned 16/32-bit arithmetic, and uint8 sums wrap. Dispatch
@@ -46,7 +52,8 @@ import functools
 import numpy as np
 import torch
 
-from ..fields._meta import STORAGE_LIMBS, FieldMeta
+from ..fields._hostfield import get_host_field
+from ..fields._meta import STORAGE_LIMBS, FieldMeta, int_to_limbs
 from ..fields._tables import build_exp_log
 from ._elementwise import (
     GOLDILOCKS_P,
@@ -61,7 +68,7 @@ from ._elementwise import (
     m31_multiply,
     power_ladder,
 )
-from ._limbs import align_planar, mul_limbs, normalize_limbs
+from ._limbs import _where, align_planar, mul_limbs, normalize_limbs
 from ._lookup import (
     field_tables,
     gf2m_packed_tables,
@@ -140,6 +147,78 @@ class FieldOps:
     def zero_where(self, mask, a):
         """a with the elements where ``mask`` holds set to 0."""
         return torch.where(mask, torch.zeros_like(a), a)
+
+    def is_one(self, a):
+        return a == 1
+
+    def const_like(self, a, value: int):
+        """The element with int repr ``value`` in a's storage, shape and
+        device (filled on the device: no copy from the host)."""
+        return torch.full_like(a, value)
+
+    def select(self, mask, x, y):
+        """x where the element mask holds, else y (uint16 limbs included)."""
+        return _where(mask, x, y)
+
+    def repr_le(self, a, b):
+        """Mask: the int repr of a is <= that of b."""
+        return a <= b
+
+    def sqrt(self, a):
+        """A square root of each element: the canonical one, whose int repr
+        is <= that of its negation (the JAX package's choice). For
+        non-squares the result is unspecified; callers check ``is_square``
+        first. Characteristic 2: a^(2^(m-1)), one ``power_static``."""
+        q, p = self.meta.order, self.meta.characteristic
+        if p == 2:
+            return self.power_static(a, q // 2)
+        if q % 4 == 3:
+            root = self.power_static(a, (q + 1) // 4)
+        elif q % 8 == 5:
+            # Atkin: t = (2a)^((q-5)/8), i = 2a t^2, root = a t (i - 1)
+            a2 = self.add(a, a)
+            t = self.power_static(a2, (q - 5) // 8)
+            i_val = self.multiply(a2, self.square(t))
+            root = self.multiply(self.multiply(a, t), self.subtract(i_val, self.one_like(a)))
+        else:
+            root = self._tonelli_shanks(a)
+        neg = self.negative(root)
+        return self.select(self.repr_le(root, neg), root, neg)
+
+    def _tonelli_shanks(self, a):
+        """Tonelli-Shanks with the JAX package's fixed trip counts (q - 1 =
+        Q 2^S): S rounds, each S masked squarings to find the least i with
+        t^(2^i) = 1 and S masked squarings for b = c^(2^(m - i - 1)). Every
+        step is a select on the device: nothing is read back. The
+        non-square z is the primitive element (its log, 1, is odd)."""
+        q = self.meta.order
+        Q, S = q - 1, 0
+        while Q % 2 == 0:
+            Q //= 2
+            S += 1
+        z = self.meta.primitive_element_int
+        t = self.power_static(a, Q)
+        r = self.power_static(a, (Q + 1) // 2)
+        c = self.const_like(a, get_host_field(self.meta).power(z, Q))
+        m_cur = torch.full(self.is_zero(a).shape, S, dtype=torch.int64, device=a.device)
+        for _ in range(S):
+            tt, i_found, done = t, torch.zeros_like(m_cur), self.is_one(t)
+            for i in range(1, S + 1):
+                tt = self.square(tt)
+                hit = ~done & self.is_one(tt)
+                i_found = torch.where(hit, i, i_found)
+                done = done | hit
+            shift = m_cur - i_found - 1
+            b = c
+            for j in range(S):
+                b = self.select(shift > j, self.square(b), b)
+            finished = i_found == 0
+            r = self.select(finished, r, self.multiply(r, b))
+            c_new = self.square(b)
+            t = self.select(finished, t, self.multiply(t, c_new))
+            c = self.select(finished, c, c_new)
+            m_cur = torch.where(finished, m_cur, i_found)
+        return r
 
 
 # ======================================================================
@@ -260,7 +339,8 @@ class BinaryExtOps(FieldOps):
             return super().power_static(a, e)  # e < 0 inverts first
         # a^e = a^e' with e' = e mod (2^m - 1) in [1, 2^m - 1], for every a
         e_red = (e - 1) % (2**self.m - 1) + 1
-        return gf2m_power(a, torch.tensor(e_red, device=a.device), self.m, self.f, self.m)
+        e_t = torch.full((), e_red, dtype=torch.int64, device=a.device)  # no copy from the host
+        return gf2m_power(a, e_t, self.m, self.f, self.m)
 
 
 # ======================================================================
@@ -387,7 +467,8 @@ class OddExtOps(FieldOps):
 
 class LookupOps:
     """The 'jit-lookup' ops of a field: EXP/LOG table kernels K3-K6 for
-    multiply, divide, reciprocal and log, plain torch gathers for powers;
+    multiply, divide, reciprocal and log (and LOG for sqrt), plain torch
+    gathers for powers;
     everything else delegates to the field's calculate ops.
 
     Every order <= 2^20 takes the kernels, whatever the array size: the
@@ -443,6 +524,22 @@ class LookupOps:
         """Discrete log base the field's primitive element (int64)."""
         _, log_t = self._tables.on(a.device)
         return lookup_log(a, log_t, self.meta.order, self._tables.packed(a.device))
+
+    def sqrt(self, a):
+        """The canonical square root through the tables, LOG read by K6:
+        alpha^(LOG a * q/2 mod (q - 1)) for even q (q/2 inverts 2 mod the
+        odd q - 1); for odd q alpha^(LOG a / 2) or its negation, whichever
+        int repr is smaller; 0 for 0."""
+        q = self.meta.order
+        exp_t, _ = self._tables.on(a.device)
+        la = self.log_alpha(a)
+        if q % 2 == 0:
+            r = exp_t[la * (q // 2) % (q - 1)].to(self.dt)
+        else:
+            r1 = exp_t[la // 2].to(self.dt)
+            r2 = self._calc.negative(r1)
+            r = torch.where(r1 <= r2, r1, r2)
+        return torch.where(a == 0, torch.zeros_like(r), r)
 
     def power(self, a, e, nbits: int = None):
         """a**e for an int64 exponent tensor: alpha^(LOG[a] * e mod (q-1)),
@@ -549,6 +646,20 @@ class LimbPrimeOps(FieldOps):
 
     def zero_where(self, mask, a):
         return (a.to(torch.int64) * (~mask).to(torch.int64)).to(self.dt)
+
+    def is_one(self, a):
+        w = a.to(torch.int32)
+        return (w[0] == 1) & (w[1:] == 0).all(dim=0)
+
+    def const_like(self, a, value: int):
+        out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
+        for k, limb in enumerate(int_to_limbs(value, self.L)):
+            out[k].fill_(int(limb))  # a kernel argument, not a copy from the host
+        return out.to(self.dt)
+
+    def repr_le(self, a, b):
+        # b - a over the limbs borrows out exactly when a > b
+        return normalize_limbs(b.to(torch.int64) - a.to(torch.int64))[1] == 0
 
     def power(self, a, e, nbits: int):
         return self.power_words(a, [e], nbits)

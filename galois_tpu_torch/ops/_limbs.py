@@ -4,8 +4,9 @@ The limb storage of GF(p), p > 2^32 (``fields/_meta.py``), keeps L
 little-endian base-2^16 limbs per element with the limb axis leading,
 shape (L, *shape). The helpers below work on that layout once the limbs
 are widened to int64, and serve the field arrays (``fields/_array.py``),
-``LimbPrimeOps`` (``ops/_kernels.py``) and K10's plain version
-(``ops/_elementwise.py``). They import only torch.
+``LimbPrimeOps`` (``ops/_kernels.py``), K10's plain version
+(``ops/_elementwise.py``) and the selects and index ops of every field op
+on storage (``_where``, ``_i16``). They import only torch.
 """
 
 from __future__ import annotations
@@ -13,6 +14,18 @@ from __future__ import annotations
 import torch
 
 __all__ = ["align_planar", "normalize_limbs", "mul_limbs"]
+
+
+def _i16(t):
+    """uint16 limb storage as an int16 view, for the index ops and selects
+    that torch lacks for uint16 (``index_copy_`` on the CPU, gathers on
+    CUDA); other storage as it is."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def _where(mask, x, y):
+    """torch.where for storage tensors of one dtype, uint16 included."""
+    return torch.where(mask, _i16(x), _i16(y)).view(x.dtype)
 
 
 def align_planar(a: torch.Tensor, b: torch.Tensor):

@@ -38,6 +38,7 @@ import torch
 
 from ..fields._meta import STORAGE_INT
 from ._kernels import get_ops, mulmod
+from ._limbs import _i16, _where
 
 __all__ = ["matmul", "row_reduce", "inv", "det", "solve", "matrix_rank", "lu_decompose", "plu_decompose"]
 
@@ -213,18 +214,6 @@ _EXIT_CHECK_EVERY = 16
 
 def _rows_axis(meta) -> int:
     return 1 if meta.storage_first else 0
-
-
-def _i16(t):
-    """uint16 limb storage as an int16 view, for the index ops and selects
-    that torch lacks for uint16 (``index_copy_`` on the CPU, gathers on
-    CUDA); other storage as it is."""
-    return t.view(torch.int16) if t.dtype == torch.uint16 else t
-
-
-def _where(mask, x, y):
-    """torch.where for storage tensors of one dtype, uint16 included."""
-    return torch.where(mask, _i16(x), _i16(y)).view(x.dtype)
 
 
 def _row(a, i, meta):

@@ -16,9 +16,8 @@ divisions, remainders and both power ladders move to the device, as in the
 JAX package: the product to ``ops/_convolve.py`` (the NTT where the field
 admits one) and the division to ``ops/_poly_div.py``'s synthetic division.
 
-Not ported yet: roots and the Conway tests (``polys/_roots.py`` and
-``polys/_conway.py`` of the JAX package). Those methods raise
-``NotImplementedError``.
+``roots`` is ``polys/_roots.py`` (the Chien scan on the device for orders
+<= 2^20), ``is_conway`` and ``is_conway_consistent`` ``polys/_conway.py``.
 """
 
 from __future__ import annotations
@@ -719,11 +718,13 @@ class Poly:
                 coefs.append(cur)
         return Poly._from_sparse(degs, coefs, self._field)
 
-    # Roots and the Conway predicates of polys/_roots.py and _conway.py of
-    # the JAX package are still to be ported.
-
     def roots(self, multiplicity: bool = False):
-        _not_ported("roots")
+        """The distinct roots, ascending (with their multiplicities when
+        asked): the Chien scan on the device for orders <= 2^20, the
+        host's linear factors above (``polys/_roots.py``)."""
+        from ._roots import poly_roots
+
+        return poly_roots(self, multiplicity=multiplicity)
 
     def square_free_factors(self):
         from ._factor import square_free_factors
@@ -760,18 +761,15 @@ class Poly:
 
         return is_primitive(self)
 
-    def is_conway(self) -> bool:
-        _not_ported("is_conway")
+    def is_conway(self, search: bool = False) -> bool:
+        from ._conway import is_conway
 
-    def is_conway_consistent(self) -> bool:
-        _not_ported("is_conway_consistent")
+        return is_conway(self, search=search)
 
+    def is_conway_consistent(self, search: bool = False) -> bool:
+        from ._conway import is_conway_consistent
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"Poly.{name}() is not ported to the torch port yet (it needs "
-        f"{'polys/_roots.py' if name == 'roots' else 'polys/_conway.py'})."
-    )
+        return is_conway_consistent(self, search=search)
 
 
 def _int_array(values: list, field) -> np.ndarray:

@@ -913,3 +913,89 @@ def test_linalg_column_steps_never_read_back(cuda_device, q, mode):
         torch.cuda.synchronize()
     finally:
         F.compile("auto")
+
+
+# (order, mode): the element functions' device routes. K6 reads the LOG
+# table for orders <= 2^20; GF(2^31 - 1) (K9) and GF(3 * 2^30 + 1) run the
+# batched Pohlig-Hellman; the square roots are K8-A for GF(2^m), one ladder
+# for q = 3 mod 4, Atkin for q = 5 mod 8 (GF(5^3)), Tonelli-Shanks for
+# GF(65537), GF(3 * 2^30 + 1) and Goldilocks (K10, limbs), and the tables
+# (K6) in lookup mode.
+ELEMENT_FIELDS = [
+    (2**8, "jit-calculate"), (2**8, "jit-lookup"), (2**16, "jit-calculate"), (3**5, "jit-calculate"),
+    (3**5, "jit-lookup"), (5**3, "jit-calculate"), (65537, "jit-calculate"), (M31, "jit-calculate"),
+    (P, "jit-calculate"), (GOLDILOCKS, "jit-calculate"),
+]
+
+
+@pytest.mark.parametrize(["q", "mode"], ELEMENT_FIELDS)
+def test_element_functions_on_cuda_match_cpu(cuda_device, q, mode):
+    """log, sqrt of squares, is_square, field_trace and field_norm of 4096
+    elements: the card's results equal the CPU plain versions'; the log of
+    orders <= 2^20 launches K6."""
+    F = gt.GF(q, compile=mode)
+    try:
+        x = _linalg_input(F, 256 if q == GOLDILOCKS else 4096, 7)  # Goldilocks' log is the host's
+        x = F(np.where(np.asarray(x) == 0, 1, np.asarray(x)).astype(np.asarray(x).dtype), device="cpu")
+        xc = F(x._data, device=cuda_device)
+        k6 = lookup_log.launches
+        assert np.array_equal(xc.log(), x.log())
+        if q <= 2**20:
+            assert lookup_log.launches > k6
+        sq, sqc = x * x, xc * xc
+        r = np.sqrt(sqc)
+        assert r.device.type == "cuda" and torch.equal(r._data.cpu(), np.sqrt(sq)._data)
+        assert np.array_equal(xc.is_square(), x.is_square())
+        for name in ("field_trace", "field_norm"):
+            assert torch.equal(getattr(xc, name)()._data.cpu(), getattr(x, name)()._data)
+    finally:
+        F.compile("auto")
+
+
+@pytest.mark.parametrize("q", [65537, M31, P, GOLDILOCKS])
+def test_log_and_sqrt_loops_never_read_back(cuda_device, q):
+    """The batched Pohlig-Hellman (int storage) and the square root forms
+    (Tonelli-Shanks for GF(65537), GF(3 * 2^30 + 1) and Goldilocks) under
+    sync debug mode "error": no step of theirs waits for the card. One
+    warm-up call first puts the constants and baby tables on the card."""
+    from galois_tpu_torch.ops import _dlog
+
+    F = gt.GF(q)
+    ops = get_ops(F._meta, F._mode)
+    x = _linalg_input(F, 2048, 8)
+    a = F(x._data, device=cuda_device)._data
+    sq = ops.multiply(a, a)
+    calls = [lambda: ops.sqrt(sq)]
+    if F._meta.storage == "int" and q > 2**20:
+        a1 = torch.where(a == 0, torch.ones_like(a), a)
+        calls.append(lambda: _dlog._device_log(F._meta, ops, a1))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("q", [2**8, 2**16, 3**5])
+def test_chien_scan_on_cuda_matches_cpu(cuda_device, q):
+    """Poly.roots with multiplicities over fields of orders <= 2^20 scan every
+    element on the card (K8 for GF(2^8), K7 for GF(2^16)); the roots equal
+    those of the CPU's scan."""
+    F = gt.GF(q)
+    rng = np.random.default_rng(q % 1000)
+    roots = [int(v) for v in rng.choice(q, 40, replace=False)]
+    f = gt.Poly.Roots(roots, [1 + i % 3 for i in range(40)], field=F)
+    launches = gf2m_multiply.launches + gf2m_multiply_swar.launches
+    with gt.default_device(cuda_device):
+        got = f.roots(multiplicity=True)
+    if q in (2**8, 2**16):
+        assert gf2m_multiply.launches + gf2m_multiply_swar.launches > launches
+    with gt.default_device("cpu"):
+        want = f.roots(multiplicity=True)
+    assert np.array_equal(np.asarray(got[0]), np.asarray(want[0])) and np.array_equal(got[1], want[1])
+    assert sorted(np.asarray(got[0]).tolist()) == sorted(roots)

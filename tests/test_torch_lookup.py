@@ -20,6 +20,7 @@ import galois_tpu_torch as gt
 from galois_tpu.fields import _factory as jax_factory
 from galois_tpu.fields._hostfield import get_host_field
 from galois_tpu.fields._tables import build_exp_log as jax_build_exp_log
+from galois_tpu.ops._dlog import host_log as jax_host_log
 from galois_tpu.ops._kernels import get_ops as jax_get_ops
 from galois_tpu.ops._pallas._elementwise import (
     _pad128,
@@ -561,8 +562,10 @@ def test_lookup_mode_contract():
         gt.GF(2**21, compile="jit-lookup")
     with pytest.raises(NotImplementedError):
         F.compile("python-calculate")
-    with pytest.raises(NotImplementedError):
-        gt.GF(3**5)([1, 2]).log()  # log() in 'jit-calculate' mode is not ported
+    # log() in 'jit-calculate' mode reads the same LOG table (kernel K6's map)
+    G = gj.GF(3**5)
+    want = [jax_host_log(G._meta, v) for v in (1, 2, 3)]
+    assert gt.GF(3**5)([1, 2, 3]).log().tolist() == want
 
 
 # ----------------------------------------------------------------------
