@@ -160,6 +160,34 @@ Phases, each fatal on failure:
      through 64 points over GF(2^8). Each line prints the call's ms (CUDA
      events), its launches by wrapper and the peak device memory; K6, K7,
      K8, K8-A, K9 and K10 must have been launched.
+ 11. main path 8, the same way: GF(2^128) with GCM's modulus at 2^24
+     elements (x * y, x * x, np.reciprocal, x / y, x ** e for an int64
+     exponent array, np.sqrt; 4096 samples against Python-int carry-less
+     products, y * y^-1 == 1, (x / y) * y == x and sqrt(x)^2 == x on the
+     card), GF(2^233) with B-233's at 2^22 (x * y, np.reciprocal), GF(3^30)
+     on planar digits at 2^20 (*, +, -, / against NumPy digit products on
+     samples), an FLFSR over GF(2) of a primitive degree-20 polynomial
+     (step(2^20): 2^19 ones a period, the state back after 2^20 - 1 ticks
+     and after step(-(2^20 - 1))), a GLFSR over GF(2^8) whose
+     characteristic polynomial is RS(255,223)'s generator (step(2^20), 4096
+     outputs against the plain tick loop, to_fibonacci_lfsr's next 4096),
+     an FLFSR over GF(2^31 - 1) of degree 16 (step(2^18), 256 outputs in
+     Python ints), and berlekamp_massey over 2^14 random GF(2) elements,
+     8192 GLFSR and 4096 FLFSR outputs (the FLFSR it returns regenerates
+     each register's outputs and its c(x) divides the register's; for the
+     random elements, whose connection polynomial may have degree below
+     the linear complexity L, as in the JAX package, its recurrence holds
+     from L on and the FLFSR regenerates the rest). Each line starts
+     with nvidia-smi's card and power limit, then ms, launches and peak
+     memory; K12, K13 and the two K14 entries must have been launched.
+     Before the counted runs, phase 3 holds K12 (at the three registers,
+     forward and backward; at the order of the 2^14-element
+     Berlekamp-Massey result, 8192, in shared memory, and at 20000 taps in
+     global memory), K13 (at path 8's sequences: the 2^14 GF(2) elements,
+     8192 GF(2^8) and 4096 GF(2^31 - 1) register outputs; and 1024 random
+     elements) and K14 (GF(2^128) and GF(2^233) products, squares,
+     reciprocals, square roots and exponent words on 2^10-2^16 slices)
+     against their plain versions on the card, and times each.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -947,6 +975,416 @@ def elements_path(gt, dev, timed):
     print(f"[main] main path 7 took {time.perf_counter() - t_path:.1f} s", flush=True)
 
 
+def py_clmul_mod(a, b, m, f):
+    """Independent Python-int reference for GF(2^m) products, any m."""
+    c = 0
+    while b:
+        if b & 1:
+            c ^= a
+        b >>= 1
+        a <<= 1
+    for i in range(2 * m - 2, m - 1, -1):
+        if (c >> i) & 1:
+            c ^= f << (i - m)
+    return c
+
+
+def py_inv_mod(a, m, f):
+    """a^(2^m - 2) over GF(2)[x]/f by square-and-multiply in Python ints."""
+    r = 1
+    for bit in bin(2**m - 2)[2:]:
+        r = py_clmul_mod(r, r, m, f)
+        if bit == "1":
+            r = py_clmul_mod(r, a, m, f)
+    return r
+
+
+def scan_limb_kernels(gt, dev, record, smi):
+    """Phase 3 for K12, K13 and K14: each kernel against its plain torch
+    version on the card at the shapes main path 8 gives it (exact), timed
+    beside its plain version where that finishes in seconds. ``record``
+    stores the kernel's line of the report."""
+    from scripts._timing import eager_ms, graph_ms
+
+    from galois_tpu_torch.fields._hostfield import get_host_field
+    from galois_tpu_torch.ops._kernels import get_ops
+    from galois_tpu_torch.ops._lfsr_scan import (
+        berlekamp_massey_long,
+        berlekamp_massey_long_plain,
+        lfsr_step,
+        lfsr_step_plain,
+    )
+    from galois_tpu_torch.ops._limb_binary import (
+        gf2_limb_multiply,
+        gf2_limb_multiply_plain,
+        gf2_limb_power,
+        gf2_limb_power_plain,
+        gf2_limb_square,
+        gf2_limb_square_plain,
+    )
+
+    def check(tag, got, want):
+        err = max_abs_err(got.to(torch.int64), want.to(torch.int64))
+        print(f"[kernel] {smi} | {tag}: max_abs_err {err}", flush=True)
+        if err:
+            raise AssertionError(f"{tag} disagrees with its plain version")
+        return err
+
+    # K14: GF(2^128) (GCM's f) at the main path's 2^24, held on a 2^16 slice; GF(2^233) (B-233's f)
+    for q, f, n in ((2**128, "x^128 + x^7 + x^2 + x + 1", 2**24), (2**233, "x^233 + x^74 + 1", 2**22)):
+        F = gt.GF(q, irreducible_poly=f)
+        m, fi, L = F._meta.degree, F._meta.irreducible_poly_int, F._meta.storage_width
+        x = F.Random(n, seed=m, device=dev)._data
+        y = F.Random(n, seed=m + 1, device=dev)._data
+        s = slice(0, 2**16)
+        err = check(f"K14 gf2_limb_multiply GF(2^{m}) 2^16 of {n}", gf2_limb_multiply(x, y, m, fi)[:, s], gf2_limb_multiply_plain(x[:, s], y[:, s], m, fi))
+        err = max(err, check(f"K14 square GF(2^{m}) 2^16", gf2_limb_square(x[:, s], m, fi), gf2_limb_square_plain(x[:, s], m, fi)))
+        one = y[:, :1].reshape(-1)
+        err = max(err, check(f"K14 gf2_limb_multiply GF(2^{m}) one-element operand", gf2_limb_multiply(x[:, s], one, m, fi), gf2_limb_multiply_plain(x[:, s], one, m, fi)))
+        t = slice(0, 2**12)
+        perr = check(f"K14 gf2_limb_power GF(2^{m}) reciprocal 2^12", gf2_limb_power(x[:, t], 2**m - 2, m, fi), gf2_limb_power_plain(x[:, t], 2**m - 2, m, fi))
+        perr = max(perr, check(f"K14 gf2_limb_power GF(2^{m}) sqrt 2^12", gf2_limb_power(x[:, t], 2 ** (m - 1), m, fi), gf2_limb_power_plain(x[:, t], 2 ** (m - 1), m, fi)))
+        ew = [torch.randint(0, 2**62, (2**10,), device=dev), torch.randint(0, 2, (2**10,), device=dev)]
+        perr = max(perr, check(f"K14 gf2_limb_power GF(2^{m}) exponent words 2^10", gf2_limb_power(x[:, :2**10], ew, m, fi, 63), gf2_limb_power_plain(x[:, :2**10], ew, m, fi, 63)))
+        if q == 2**128:
+            # timed at 2^24: the product by graph replay, its plain form once; bound: 3 x 2^24 x 16 bytes
+            ms = graph_ms(lambda: gf2_limb_multiply(x, y, m, fi), 10)
+            pms = eager_ms(lambda: gf2_limb_multiply_plain(x, y, m, fi), 1)
+            nbytes = 3 * n * 2 * L
+            form_ops = n * m * (2 * (6 * 2 + 4))  # m steps of about 6W + 4 64-bit operations, two 32-bit each
+            record("gf2_limb_multiply", err, ms, pms, bound(nbytes))
+            print(f"[kernel] {smi} | K14 gf2_limb_multiply GF(2^128) n=2^24: {ms:.3f} ms (graph replay) | plain {pms:.1f} ms | "
+                  + bounds_text(nbytes, form_ops, ms), flush=True)
+            u = x[:, : 2**22]
+            ms = graph_ms(lambda: gf2_limb_power(u, 2**m - 2, m, fi), 2)
+            pms = eager_ms(lambda: gf2_limb_power_plain(u, 2**m - 2, m, fi), 1)
+            nbytes = 2 * 2**22 * 2 * L
+            record("gf2_limb_power", perr, ms, pms, bound(nbytes))
+            print(f"[kernel] {smi} | K14 gf2_limb_power GF(2^128) reciprocal n=2^22: {ms:.3f} ms (graph replay) | plain "
+                  f"(Itoh-Tsujii) {pms:.1f} ms | " + bounds_text(nbytes, 2**22 * 254 * m * 32, ms), flush=True)
+        else:
+            record("gf2_limb_multiply", err)
+            record("gf2_limb_power", perr)
+        del x, y
+        torch.cuda.empty_cache()
+
+    def once_ms(fn):
+        """fn()'s result and its CUDA-event time, one call."""
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return out, t0.elapsed_time(t1)
+
+    def k12_check(tag, ops, st, tp, kind, direction, n, inv):
+        s, y = lfsr_step(ops, st, tp, n, kind, direction, inv)
+        inv_t = torch.full((1,), inv, dtype=st.dtype, device=dev)
+        s_p, y_p = lfsr_step_plain(ops, st, tp, n, kind, direction, inv_t)
+        return check(f"K12 lfsr_step {tag} {kind} {direction} {n} ticks", torch.cat([s, y]), torch.cat([s_p, y_p])), y
+
+    def k13_check(tag, ops, seq):
+        c, Lc = berlekamp_massey_long(ops, seq)
+        (c_p, L_p), pms = once_ms(lambda: berlekamp_massey_long_plain(ops, seq))
+        err = check(f"K13 berlekamp_massey_long {tag} N={seq.shape[0]} (L = {int(Lc)})",
+                    torch.cat([c.to(torch.int64), Lc.reshape(1)]), torch.cat([c_p.to(torch.int64), L_p.reshape(1)]))
+        return err, c, int(Lc), pms
+
+    # K12: the main path's registers, against the plain tick loop on the card
+    rng = np.random.default_rng(110)
+    F2, F8, FM = gt.GF(2), gt.GF(2**8), gt.GF(2**31 - 1)
+    gen = gt.ReedSolomon(255, 223).generator_poly
+    regs = [
+        ("GF(2) degree-20", F2, gt.primitive_poly(2, 20).coefficients(), "fibonacci"),
+        ("GF(2^8) RS(255,223) generator", F8, gen.coefficients(), "galois"),
+        ("GF(2^31-1) degree-16", FM, [1] + [int(v) for v in rng.integers(1, 2**31 - 1, 16)], "fibonacci"),
+    ]
+    err, outputs = 0, {}
+    for tag, F, c, kind in regs:
+        ops = get_ops(F._meta, F._mode)
+        c = [int(v) for v in np.asarray(c, dtype=object)]
+        hf = get_host_field(F._meta)
+        taps = [hf.negative(v) for v in c[1:]]
+        taps = taps[::-1] if kind == "galois" else taps
+        k = len(taps)
+        st = F(rng.integers(1, F.order, k), device=dev)._data
+        tp = F(taps, device=dev)._data
+        inv = hf.reciprocal(taps[k - 1 if kind == "fibonacci" else 0])
+        for direction, n in (("forward", 8192), ("backward", 1024)):
+            e, y = k12_check(tag, ops, st, tp, kind, direction, n, inv)
+            err = max(err, e)
+            outputs[F.name, direction] = y
+        if F is F2:
+            n = 2**14
+            ms = eager_ms(lambda: lfsr_step(ops, st, tp, n, kind, "forward"), 3)
+            pms = eager_ms(lambda: lfsr_step_plain(ops, st, tp, n, kind, "forward"), 1)
+            nbytes = 2 * k + n  # state and taps in, the state and n outputs out (uint8)
+            k12_line = (err, ms, pms, bound(nbytes))
+            print(f"[kernel] {smi} | K12 lfsr_step {tag} Fibonacci {n} ticks: {ms:.3f} ms ({ms / n * 1e3:.3f} us a tick) | "
+                  f"plain {pms:.1f} ms | bound {bound(nbytes)[0]:.6f} ms (bytes; a chain of {n} dependent ticks)", flush=True)
+
+    # K13 at the main path's shapes: its 2^14 random GF(2) elements, 8192 outputs of the GF(2^8) register,
+    # 4096 of the GF(2^31-1) one; timed at 2^14 (the plain scan once, as it is checked)
+    ops2 = get_ops(F2._meta, F2._mode)
+    seq = F2(bm_sequence(), device=dev)._data
+    err13, c, L, pms = k13_check("GF(2) random", ops2, seq)
+    for tag, F, y in (("GF(2^8) GLFSR outputs", F8, outputs[F8.name, "forward"]),
+                      ("GF(2^31-1) FLFSR outputs", FM, outputs[FM.name, "forward"][:4096])):
+        err13 = max(err13, k13_check(tag, get_ops(F._meta, F._mode), y)[0])
+    for F in (F8, FM):  # random sequences, complexity near N / 2
+        y = F(rng.integers(0, F.order, 1024), device=dev)._data
+        err13 = max(err13, k13_check(f"{F.name} random", get_ops(F._meta, F._mode), y)[0])
+    n = seq.shape[0]
+    ms = eager_ms(lambda: berlekamp_massey_long(ops2, seq), 3)
+    nbytes = n + (n + 1) + 8
+    record("berlekamp_massey_long", err13, ms, pms, bound(nbytes))
+    print(f"[kernel] {smi} | K13 berlekamp_massey_long GF(2) N={n} (L = {L}): {ms:.3f} ms ({ms / n * 1e3:.2f} us a step) | "
+          f"plain {pms:.1f} ms | bound {bound(nbytes)[0]:.6f} ms (bytes; a chain of {n} dependent steps, about "
+          f"{n * L // 2} products in the dots)", flush=True)
+
+    # K12's shared-memory form at the order of that sequence's minimal LFSR: the FLFSR that
+    # berlekamp_massey returns (state: the first L elements reversed, taps: c_1..c_L) regenerates it
+    # as main path 8 does; backward, and the Galois form, with the end taps set to 1
+    st = seq[:L].flip(0).contiguous()
+    tp = c[1 : L + 1].contiguous()
+    e, y = k12_check(f"GF(2) order {L}", ops2, st, tp, "fibonacci", "forward", n, 0)
+    err = max(err, e)
+    if not torch.equal(y, seq):
+        raise AssertionError("K12 at the order of the Berlekamp-Massey result does not regenerate the sequence")
+    ms = eager_ms(lambda: lfsr_step(ops2, st, tp, n, "fibonacci", "forward"), 3)
+    print(f"[kernel] {smi} | K12 lfsr_step GF(2) order {L} (shared memory), {n} ticks: {ms:.3f} ms "
+          f"({ms / n * 1e3:.3f} us a tick)", flush=True)
+    tp1 = tp.clone()
+    tp1[-1].fill_(1)
+    err = max(err, k12_check(f"GF(2) order {L}", ops2, st, tp1, "fibonacci", "backward", n, 1)[0])
+    for direction in ("forward", "backward"):
+        err = max(err, k12_check(f"GF(2) order {L}", ops2, st, tp1.flip(0), "galois", direction, 4096, 1)[0])
+    # above the shared memory: the state in the wrapper's global scratch
+    k = 20000
+    ops8, hf8 = get_ops(F8._meta, F8._mode), get_host_field(F8._meta)
+    st = F8(rng.integers(0, 256, k), device=dev)._data
+    tp = F8(rng.integers(1, 256, k), device=dev)._data
+    for kind, end in (("fibonacci", k - 1), ("galois", 0)):
+        for direction in ("forward", "backward"):
+            err = max(err, k12_check(f"GF(2^8) order {k} (global memory)", ops8, st, tp, kind, direction, 512, hf8.reciprocal(int(tp[end])))[0])
+    record("lfsr_step", err, *k12_line[1:])
+
+
+def bm_sequence():
+    """Main path 8's 2^14 random GF(2) elements for berlekamp_massey, which
+    phase 3 also holds K13 and K12 against their plain versions on."""
+    return np.random.default_rng(14).integers(0, 2, 2**14)
+
+
+def lfsr_path(gt, dev, timed, smi):
+    """Main path 8: GF(2^128) (GCM's field) at 2^24 elements, GF(2^233)
+    (B-233's) at 2^22, GF(3^30) on digits at 2^20, LFSRs over GF(2),
+    GF(2^8) and GF(2^31 - 1) at 2^18-2^20 ticks, and berlekamp_massey over
+    up to 2^14 elements, through the public API on ``dev``. Every check is
+    exact. ``timed(call)`` returns (result, ms, launches by wrapper, peak
+    device MiB) of one call."""
+    from galois_tpu_torch.ops._kernels import get_ops
+    from galois_tpu_torch.ops._lfsr_scan import lfsr_step_plain
+
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(80)
+
+    def line(label, ms, used, peak, extra=""):
+        print(f"[main] {smi} | {label}: {ms:.1f} ms, launches {used}, peak device memory {peak:.0f} MiB{extra}", flush=True)
+
+    def sample(X, idx):
+        return ints(X[torch.as_tensor(idx, device=dev)])
+
+    def same(A, B):
+        """Equal storage, uint16 limbs compared through int16 views."""
+        a, b = A._data, B._data
+        if a.dtype == torch.uint16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        return torch.equal(a, b)
+
+    # 1. GF(2^128), GCM's field, at 2^24 elements
+    F = gt.GF(2**128, irreducible_poly="x^128 + x^7 + x^2 + x + 1")
+    m, f = 128, F._meta.irreducible_poly_int
+    n = 2**24
+    x = F.Random(n, seed=1, device=dev)
+    y = F.Random(n, low=1, seed=2, device=dev)
+    idx = np.sort(rng.choice(n, 4096, replace=False))
+    xs, ys = sample(x, idx), sample(y, idx)
+    z, ms, used, peak = timed(lambda: x * y)
+    if sample(z, idx) != [py_clmul_mod(a, b, m, f) for a, b in zip(xs, ys)]:
+        raise AssertionError("GF(2^128) x * y disagrees with the Python-int carry-less product")
+    line("GF(2^128) x * y, 2^24 elements", ms, used, peak, " | 4096 sampled elements exact")
+    z, ms, used, peak = timed(lambda: x * x)
+    if sample(z, idx) != [py_clmul_mod(a, a, m, f) for a in xs]:
+        raise AssertionError("GF(2^128) x * x disagrees with the Python-int square")
+    line("GF(2^128) x * x, 2^24 elements", ms, used, peak, " | 4096 sampled elements exact")
+    r, ms, used, peak = timed(lambda: np.reciprocal(y))
+    ones = (r * y)._data
+    if not (bool((ones[0] == 1).all()) and bool((ones[1:].to(torch.int32) == 0).all())):
+        raise AssertionError("GF(2^128) y * y^-1 != 1 somewhere on the card")
+    if sample(r, idx[:256]) != [py_inv_mod(b, m, f) for b in ys[:256]]:
+        raise AssertionError("GF(2^128) reciprocal disagrees with the Python-int ladder")
+    line("GF(2^128) np.reciprocal(y), 2^24 elements", ms, used, peak, " | y * y^-1 == 1 everywhere, 256 samples exact")
+    q_, ms, used, peak = timed(lambda: x / y)
+    if not same(q_ * y, x):
+        raise AssertionError("GF(2^128) (x / y) * y != x on the card")
+    line("GF(2^128) x / y, 2^24 elements", ms, used, peak, " | (x / y) * y == x everywhere")
+    e = rng.integers(0, 2**63 - 1, n, dtype=np.int64)
+    p_, ms, used, peak = timed(lambda: x ** e)
+    want = []
+    for a, k in zip(xs[:64], e[idx[:64]].tolist()):
+        w, b = 1, a
+        while k:
+            if k & 1:
+                w = py_clmul_mod(w, b, m, f)
+            b = py_clmul_mod(b, b, m, f)
+            k >>= 1
+        want.append(w)
+    if sample(p_, idx[:64]) != want:
+        raise AssertionError("GF(2^128) x ** e disagrees with the Python-int ladder")
+    line("GF(2^128) x ** e, int64 exponent array, 2^24 elements", ms, used, peak, " | 64 samples exact")
+    s_, ms, used, peak = timed(lambda: np.sqrt(x))
+    if not same(s_ * s_, x):
+        raise AssertionError("GF(2^128) sqrt(x)^2 != x on the card")
+    line("GF(2^128) np.sqrt(x), 2^24 elements", ms, used, peak, " | sqrt(x)^2 == x everywhere")
+    del x, y, z, r, ones, q_, p_, s_
+    torch.cuda.empty_cache()
+
+    # 2. GF(2^233), NIST B-233's field, at 2^22 (building it factors 2^233 - 1 through the table)
+    t0 = time.perf_counter()
+    F = gt.GF(2**233, irreducible_poly="x^233 + x^74 + 1")
+    print(f"[main] GF(2^233, x^233 + x^74 + 1) built in {time.perf_counter() - t0:.2f} s (host)", flush=True)
+    m, f = 233, F._meta.irreducible_poly_int
+    n = 2**22
+    x = F.Random(n, seed=3, device=dev)
+    y = F.Random(n, low=1, seed=4, device=dev)
+    idx = np.sort(rng.choice(n, 1024, replace=False))
+    xs, ys = sample(x, idx), sample(y, idx)
+    z, ms, used, peak = timed(lambda: x * y)
+    if sample(z, idx) != [py_clmul_mod(a, b, m, f) for a, b in zip(xs, ys)]:
+        raise AssertionError("GF(2^233) x * y disagrees with the Python-int carry-less product")
+    line("GF(2^233) x * y, 2^22 elements", ms, used, peak, " | 1024 sampled elements exact")
+    r, ms, used, peak = timed(lambda: np.reciprocal(y))
+    if sample(r * y, idx) != [1] * len(idx) or sample(r, idx[:64]) != [py_inv_mod(b, m, f) for b in ys[:64]]:
+        raise AssertionError("GF(2^233) reciprocal disagrees with the Python-int ladder")
+    line("GF(2^233) np.reciprocal(y), 2^22 elements", ms, used, peak, " | y * y^-1 == 1 on 1024 samples, 64 exact")
+    del x, y, z, r
+    torch.cuda.empty_cache()
+
+    # 3. GF(3^30) on planar digits at 2^20
+    F = gt.GF(3**30)
+    p, m = 3, 30
+    f_asc = [(F._meta.irreducible_poly_int // p**i) % p for i in range(m + 1)]
+    n = 2**20
+    x = F.Random(n, seed=5, device=dev)
+    y = F.Random(n, low=1, seed=6, device=dev)
+    idx = np.sort(rng.choice(n, 4096, replace=False))
+    xs, ys = np.array(sample(x, idx), dtype=np.int64), np.array(sample(y, idx), dtype=np.int64)
+    w = p ** np.arange(m)
+    dig_add = lambda a, b, s: ((((a[:, None] // w) % p) + s * ((b[:, None] // w) % p)) % p * w).sum(axis=1)
+    for label, call, want in (
+        ("x * y", lambda: x * y, lambda: np_gfpm_multiply(xs, ys, p, f_asc)),
+        ("x + y", lambda: x + y, lambda: dig_add(xs, ys, 1)),
+        ("x - y", lambda: x - y, lambda: dig_add(xs, ys, -1)),
+    ):
+        z, ms, used, peak = timed(call)
+        if sample(z, idx) != want().tolist():
+            raise AssertionError(f"GF(3^30) {label} disagrees with the NumPy digit reference")
+        line(f"GF(3^30) {label}, 2^20 elements (digits)", ms, used, peak, " | 4096 samples exact")
+    z, ms, used, peak = timed(lambda: x / y)
+    if sample(z * y, idx) != xs.tolist() or sample(z, idx[:16]) != np_gfpm_multiply(xs[:16], np.array([int(F(int(v)) ** -1) for v in ys[:16]]), p, f_asc).tolist():
+        raise AssertionError("GF(3^30) x / y disagrees with the NumPy digit reference")
+    line("GF(3^30) x / y, 2^20 elements (digits)", ms, used, peak, " | (x / y) * y == x on 4096 samples")
+    del x, y, z
+    torch.cuda.empty_cache()
+
+    # 4. FLFSR over GF(2), a primitive feedback polynomial of degree 20
+    c = gt.primitive_poly(2, 20)
+    state = [int(v) for v in rng.integers(0, 2, 20)]
+    state[0] = 1
+    L = gt.FLFSR(c.reverse(), state=gt.GF(2)(state, device=dev))
+    y, ms, used, peak = timed(lambda: L.step(2**20))
+    yd = y._data
+    one = gt.FLFSR(c.reverse(), state=gt.GF(2)(state, device=dev))
+    one.step(1)
+    if int(yd[: 2**20 - 1].sum()) != 2**19 or int(yd[-1]) != int(yd[0]) or not torch.equal(L.state._data, one.state._data):
+        raise AssertionError("GF(2) FLFSR of degree 20: not an m-sequence of period 2^20 - 1")
+    line("GF(2) FLFSR degree 20, step(2^20)", ms, used, peak, f" | {ms / 2**20 * 1e3:.3f} us a tick, 2^19 ones in a period")
+    L.reset()
+    L.step(2**20 - 1)
+    if not torch.equal(L.state._data, L.initial_state._data):
+        raise AssertionError("GF(2) FLFSR: the state after 2^20 - 1 ticks is not the initial state")
+    back, ms, used, peak = timed(lambda: L.step(-(2**20 - 1)))
+    if not torch.equal(L.state._data, L.initial_state._data):
+        raise AssertionError("GF(2) FLFSR: step(-(2^20 - 1)) did not return to the initial state")
+    line("GF(2) FLFSR degree 20, step(-(2^20 - 1))", ms, used, peak, " | back to the initial state")
+    m_seq = yd
+
+    # 5. GLFSR over GF(2^8) with RS(255,223)'s generator as its characteristic polynomial
+    F8 = gt.GF(2**8)
+    gen = gt.ReedSolomon(255, 223).generator_poly
+    G = gt.GLFSR(gen.reverse(), state=F8(rng.integers(0, 256, 32), device=dev))
+    G0 = gt.GLFSR(gen.reverse(), state=G.state)
+    y8, ms, used, peak = timed(lambda: G.step(2**20))
+    ops = get_ops(F8._meta, F8._mode)
+    _, y_plain = lfsr_step_plain(ops, G0.state._data, G0.taps._data, 4096, "galois", "forward")
+    if not torch.equal(y8._data[:4096], y_plain):
+        raise AssertionError("GF(2^8) GLFSR: the first 4096 outputs differ from the plain tick loop")
+    line("GF(2^8) GLFSR (RS(255,223) generator, degree 32), step(2^20)", ms, used, peak, f" | {ms / 2**20 * 1e3:.3f} us a tick, 4096 outputs as the plain loop's")
+    Fib = G.to_fibonacci_lfsr()
+    if not torch.equal(Fib.step(4096)._data, G.step(4096)._data):
+        raise AssertionError("GF(2^8) GLFSR.to_fibonacci_lfsr() does not give the same outputs")
+    line("GF(2^8) to_fibonacci_lfsr(), next 4096 outputs", 0.0, {}, 0.0, " | equal")
+
+    # 6. FLFSR over GF(2^31 - 1) of degree 16
+    FM = gt.GF(2**31 - 1)
+    cm = [1] + [int(v) for v in rng.integers(1, 2**31 - 1, 16)]
+    LM = gt.FLFSR(gt.Poly(cm, field=FM).reverse(), state=FM(rng.integers(0, 2**31 - 1, 16), device=dev))
+    st0 = ints(LM.state)
+    yM, ms, used, peak = timed(lambda: LM.step(2**18))
+    pm = 2**31 - 1
+    taps = [(-v) % pm for v in cm[1:]]
+    s, want = list(st0), []
+    for _ in range(256):
+        want.append(s[-1])
+        s = [sum(a * b for a, b in zip(s, taps)) % pm] + s[:-1]
+    if ints(yM[:256]) != want:
+        raise AssertionError("GF(2^31-1) FLFSR: the first 256 outputs differ from the Python-int ticks")
+    line("GF(2^31-1) FLFSR degree 16, step(2^18)", ms, used, peak, f" | {ms / 2**18 * 1e3:.3f} us a tick, 256 outputs exact")
+
+    # 7. berlekamp_massey (K13): random GF(2) elements, the GLFSR's and the FLFSR's outputs
+    F2 = gt.GF(2)
+    seq = F2(bm_sequence(), device=dev)
+    N = seq.size
+    fib, ms, used, peak = timed(lambda: gt.berlekamp_massey(seq, output="fibonacci"))
+    # The minimal LFSR has length L and a connection polynomial C of degree d = fib.order <= L: d < L
+    # where its coefficient c_L is 0, and then the FLFSR seeded with the first d elements, as the JAX
+    # package returns it, does not regenerate them. C's recurrence holds for every t >= L and fails
+    # at t = L - 1 (else L - 1 cells would do): its residuals over GF(2) give L, and the FLFSR seeded
+    # with the d elements before L (it puts out its seed first) regenerates the rest through K12.
+    d = fib.order
+    conn = torch.tensor([1] + ints(fib.taps), dtype=torch.float32, device=dev)  # GF(2): taps = c_1..c_d
+    win = seq._data.to(torch.float32).unfold(0, d + 1, 1)  # rows s[t - d], ..., s[t] for t = d..N-1
+    nz = torch.nonzero((win @ conn.flip(0)).to(torch.int64) & 1).flatten()
+    Lc = d + (int(nz[-1]) + 1 if nz.numel() else 0)
+    fib.reset(F2(np.asarray(ints(seq[Lc - d : Lc]))[::-1].copy(), device=dev))
+    if abs(Lc - 2**13) > 256 or not torch.equal(fib.step(N - Lc + d)._data, seq._data[Lc - d :]):
+        raise AssertionError("GF(2) berlekamp_massey over 2^14 random elements: its FLFSR does not regenerate them")
+    line(f"GF(2) berlekamp_massey, 2^14 random elements (L = {Lc}, deg C = {d})", ms, used, peak,
+         f" | C's recurrence holds from t = L on, fails at L - 1; its FLFSR regenerates the last {N - Lc}")
+    for label, F, s_, charp in (
+        ("GF(2^8) 8192 GLFSR outputs", F8, y8[:8192], G.characteristic_poly),
+        ("GF(2^31-1) 4096 FLFSR outputs", FM, yM[:4096], LM.characteristic_poly),
+    ):
+        fib, ms, used, peak = timed(lambda: gt.berlekamp_massey(s_, output="fibonacci"))
+        if not (charp % fib.characteristic_poly).is_zero or not torch.equal(fib.step(s_.size)._data, s_._data):
+            raise AssertionError(f"{label}: berlekamp_massey's LFSR does not divide c(x) or regenerate the outputs")
+        line(f"berlekamp_massey, {label} (L = {fib.order})", ms, used, peak, " | divides c(x), regenerates every output")
+    del m_seq, y8, yM
+    print(f"[main] {smi} | main path 8 took {time.perf_counter() - t_path:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available.", file=sys.stderr)
@@ -974,6 +1412,8 @@ def main() -> int:
         m31_multiply_plain,
     )
     from galois_tpu_torch.ops._kernels import get_ops
+    from galois_tpu_torch.ops._lfsr_scan import berlekamp_massey_long, lfsr_step
+    from galois_tpu_torch.ops._limb_binary import gf2_limb_multiply, gf2_limb_power
     from galois_tpu_torch.ops._linalg import balanced_plane_count, balanced_planes_np
     from galois_tpu_torch.ops._plane_matmul import (
         KMajorPlanes,
@@ -1009,7 +1449,7 @@ def main() -> int:
         _build.load(name)
         return time.perf_counter() - t0
 
-    sources = ("plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar", "gf2m_chain")
+    sources = ("plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar", "gf2m_chain", "gf2_limb", "lfsr")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         secs = dict(zip(sources, pool.map(build, sources)))
@@ -1744,11 +2184,15 @@ def main() -> int:
         del a, b, A, B
         torch.cuda.empty_cache()
 
+    # K12, K13 and K14 against their plain versions at main path 8's shapes
+    scan_limb_kernels(gt, dev, record, smi)
+
     counters = (
         plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply, gf2m_multiply_swar,
         gf2m_power, berlekamp_massey_scan,
         _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
         m31_multiply, goldilocks_multiply, device_probe,
+        lfsr_step, berlekamp_massey_long, gf2_limb_multiply, gf2_limb_power,
     )
 
     def read_counts(phase, needed):
@@ -2469,6 +2913,12 @@ def main() -> int:
     read_counts(7, (_lookup.lookup_log, gf2m_multiply, gf2m_multiply_swar, gf2m_power, m31_multiply,
                     goldilocks_multiply))
 
+    # -- 11. main path 8: GF(2^m > 32), digit fields, LFSRs and Berlekamp-Massey
+    for fn in counters:
+        fn.launches = 0
+    lfsr_path(gt, dev, timed, smi)
+    read_counts(8, (lfsr_step, berlekamp_massey_long, gf2_limb_multiply, gf2_limb_power))
+
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),
         "plane_matmul_data_left": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:261"),
@@ -2484,6 +2934,11 @@ def main() -> int:
         "m31_multiply": ("cuda", "galois_tpu_torch/csrc/prime_mul.cu", "galois_tpu/ops/_pallas/_elementwise.py:89"),
         "goldilocks_multiply": ("cuda", "galois_tpu_torch/csrc/prime_mul.cu", "galois_tpu/ops/_pallas/_elementwise.py:186"),
         "device_probe": ("cuda", "galois_tpu_torch/csrc/probe.cu", "galois_tpu/ops/_pallas/_elementwise.py:73"),
+        # K12-K14: no Pallas kernel behind them; each replaces a JAX lax.scan
+        "lfsr_step": ("cuda", "galois_tpu_torch/csrc/lfsr.cu", "galois_tpu/lfsr.py:63"),
+        "berlekamp_massey_long": ("cuda", "galois_tpu_torch/csrc/lfsr.cu", "galois_tpu/lfsr.py:281"),
+        "gf2_limb_multiply": ("cuda", "galois_tpu_torch/csrc/gf2_limb.cu", "galois_tpu/ops/_kernels.py:1345"),
+        "gf2_limb_power": ("cuda", "galois_tpu_torch/csrc/gf2_limb.cu", "galois_tpu/ops/_kernels.py:1345"),
     }
     kernels = [
         {"name": name, "route": route, "source": src, "replaces": rep, "launches": launches[name], **report[name]}

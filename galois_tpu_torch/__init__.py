@@ -1,21 +1,23 @@
 """galois_tpu_torch: the PyTorch and CUDA port of galois_tpu.
 
-Finite-field arrays over torch tensors (GF(p) of any size, GF(2^m) with
-m <= 32 and GF(p^m) with p^m <= 2^31, in 'jit-calculate' and, for orders
-<= 2^20, 'jit-lookup' mode) with the field matmul, discrete logs, square
+Finite-field arrays over torch tensors (every field the JAX package
+builds: GF(p) of any size, GF(2^m) of any degree and GF(p^m), in
+'jit-calculate' and, for orders <= 2^20, 'jit-lookup' mode) with the field matmul, discrete logs, square
 roots, trace and norm, and primitive and normal elements; polynomials over
 them (``Poly``, with batched and matrix evaluation, roots, irreducible and
 primitive polynomial tests and searches, factorization, Conway and Lagrange
 polynomials, and ``gcd`` and its kin for ints or Polys), Reed-Solomon and
-BCH codes with batched decoding, and the number-theoretic transform.
+BCH codes with batched decoding, linear-feedback shift registers and
+Berlekamp-Massey, and the number-theoretic transform.
 New data goes to CUDA unless the caller asks for the CPU
 (``set_default_device``, ``default_device``, or ``device=``). The public
 names and results match the JAX package ``galois_tpu``; this package imports
 neither jax nor galois_tpu. On CUDA tensors the NTT's two matmul sides, the
 lookup tables' gathers, the GF(2^m) multiply for m <= 8 and GF(2^m)
 reciprocals and powers for m <= 16 (by the field's tables), the RS/BCH decoder's
-Berlekamp-Massey scan and the GF(2^31 - 1) and Goldilocks multiplies run
-hand-written CUDA C++ kernels, and the GF(2^m) multiply for 9 <= m <= 16 a
+Berlekamp-Massey scan, the GF(2^31 - 1) and Goldilocks multiplies, the
+GF(2^m > 32) products and powers, and the LFSR and long Berlekamp-Massey
+scans run hand-written CUDA C++ kernels, and the GF(2^m) multiply for 9 <= m <= 16 a
 Triton kernel; CPU tensors take the kernels' plain torch versions.
 """
 
@@ -95,6 +97,8 @@ from .nt import (
     trial_division,
 )
 from .transforms import intt, ntt
+from . import lfsr
+from .lfsr import FLFSR, GLFSR, berlekamp_massey
 
 # the int-or-Poly functions shadow the int-only nt versions, as in galois_tpu
 from ._polymorphic import are_coprime, crt, egcd, factors, gcd, is_square_free, lcm, prod

@@ -2,9 +2,10 @@
 
 Port of ``galois_tpu/fields/_array.py``. An instance wraps one tensor in the
 field's storage (``FieldMeta.torch_dtype``): one integer per element, or
-for GF(p) with p > 2^32 planar uint16 limbs of shape (L, *shape), the limb
-axis leading as in the JAX package; ``shape``, indexing, reshapes and
-broadcasting act on the element axes only. Host input goes to the
+planar words of shape (w, *shape), the storage axis leading: uint16 limbs
+for GF(p) with p > 2^32 and GF(2^m) with m > 32 (as in the JAX package),
+int64 base-p digits for odd p^m > 2^31 (``fields/_meta.py``); ``shape``,
+indexing, reshapes and broadcasting act on the element axes only. Host input goes to the
 ``device=`` argument or, when it is None, to the package's default device
 (``_options.py``, CUDA unless the caller asks for the CPU); every result
 stays on its inputs' device. Arithmetic runs eagerly through the ops object
@@ -32,8 +33,8 @@ import numpy as np
 import torch
 
 from .._options import resolve_device
-from ..ops._limbs import align_planar, normalize_limbs
-from ._meta import STORAGE_INT, FieldMeta, int_to_limbs
+from ..ops._limbs import _i16, align_planar, normalize_limbs
+from ._meta import STORAGE_DIGITS, STORAGE_INT, FieldMeta, int_to_limbs
 
 __all__ = ["Array", "FieldArray", "FieldArrayMeta"]
 
@@ -56,9 +57,22 @@ def _ints_to_storage(meta: FieldMeta, arr: np.ndarray, device=None) -> torch.Ten
     if meta.storage == STORAGE_INT:
         np_dt = np.uint8 if meta.torch_dtype == torch.uint8 else np.int64
         host = arr.astype(np.int64).astype(np_dt, order="C")
+    elif meta.storage == STORAGE_DIGITS:
+        host = _ints_to_digits(meta.characteristic, meta.degree, arr)
     else:
         host = _ints_to_limbs(meta.storage_width, arr)
     return torch.from_numpy(host).to(device)
+
+
+def _ints_to_digits(p: int, m: int, arr: np.ndarray) -> np.ndarray:
+    """Int reprs -> planar (m, *shape) int64 base-p digits, ascending: in
+    int64 below 2^63, else in object-array ops, one vectorized pass a digit."""
+    out = np.empty((m,) + arr.shape, dtype=np.int64)
+    v = arr.astype(np.int64) if arr.dtype != object and p**m <= 2**63 else arr.astype(object)
+    for k in range(m):
+        out[k] = v % p
+        v = v // p
+    return out
 
 
 def _ints_to_limbs(L: int, arr: np.ndarray) -> np.ndarray:
@@ -84,6 +98,12 @@ def _storage_to_ints(meta: FieldMeta, data: torch.Tensor) -> np.ndarray:
     host = data.cpu().numpy()
     if meta.storage == STORAGE_INT:
         return host.astype(np.int64)
+    if meta.storage == STORAGE_DIGITS:
+        p = meta.characteristic
+        acc = np.zeros(host.shape[1:], dtype=np.int64 if meta.order <= 2**63 else object)
+        for k in reversed(range(host.shape[0])):
+            acc = acc * p + host[k].astype(acc.dtype)
+        return np.asarray(acc, dtype=acc.dtype)
     if host.shape[0] <= 4:
         x = np.zeros(host.shape[1:], dtype=np.uint64)
         for k in range(host.shape[0]):
@@ -318,7 +338,7 @@ class FieldArray(Array):
 
     @classmethod
     def _storage_ndim(cls) -> int:
-        """1 for planar limb storage (the leading limb axis), else 0."""
+        """1 for planar storage (the leading limb or digit axis), else 0."""
         return 0 if cls._meta.storage == STORAGE_INT else 1
 
     # ------------------------------------------------------------------
@@ -409,9 +429,13 @@ class FieldArray(Array):
         if generator is None and seed is not None:
             generator = torch.Generator(device=device)
             generator.manual_seed(int(seed))
+        meta = cls._meta
+        if meta.storage == STORAGE_DIGITS:
+            data = _random_digits(meta, int(low), high, _as_shape(shape), generator, device)
+            return cls._view(data, _validate_dtype(cls, dtype))
         if cls._storage_ndim():
-            data = _random_limbs(cls._meta.storage_width, int(low), high, _as_shape(shape), generator, device)
-            return cls._view(data.to(cls._meta.torch_dtype), _validate_dtype(cls, dtype))
+            data = _random_limbs(meta.storage_width, int(low), high, _as_shape(shape), generator, device)
+            return cls._view(data.to(meta.torch_dtype), _validate_dtype(cls, dtype))
         data = torch.randint(
             int(low), high, _as_shape(shape), generator=generator, device=device, dtype=torch.int64
         )
@@ -449,7 +473,8 @@ class FieldArray(Array):
     def __getitem__(self, index) -> "FieldArray":
         if self._storage_ndim():
             index = _expand_index(index, self.ndim)
-        return type(self)._view(self._data[index], self._dtype)
+        # through an int16 view: CUDA has no uint16 gather for tensor and mask indices
+        return type(self)._view(_i16(self._data)[index].view(self._data.dtype), self._dtype)
 
     def reshape(self, *shape) -> "FieldArray":
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
@@ -671,8 +696,15 @@ class FieldArray(Array):
         sub = type(self).prime_subfield
         meta = self._meta
         m, p = meta.degree, meta.characteristic
-        if meta.storage != STORAGE_INT:  # limb-storage prime field: the vector is the element
+        if m == 1:  # a prime field: the vector is the element
             return sub._view(self._data.unsqueeze(-1), _validate_dtype(sub, dtype))
+        if meta.storage == STORAGE_DIGITS:  # the planar digits, descending, to the last axis
+            out = self._data.flip(0).movedim(0, -1).contiguous()
+            return sub._view(out.to(sub._meta.torch_dtype), _validate_dtype(sub, dtype))
+        if meta.storage != STORAGE_INT:  # GF(2^m) on limbs: the bits, descending
+            w = self._data.to(torch.int64)
+            bits = [(w[k // 16] >> (k % 16)) & 1 for k in reversed(range(m))]
+            return sub._view(torch.stack(bits, dim=-1).to(torch.uint8), _validate_dtype(sub, dtype))
         x = self._data.to(torch.int64)
         digs = []
         for _ in range(m):
@@ -684,7 +716,7 @@ class FieldArray(Array):
     def _masked(self, mask: torch.Tensor) -> "FieldArray":
         """The elements where the element mask holds, as a 1-D array."""
         if self._storage_ndim():
-            return type(self)._view(self._data[:, mask], self._dtype)
+            return type(self)._view(_i16(self._data)[:, mask].view(self._data.dtype), self._dtype)
         return type(self)._view(self._data[mask], self._dtype)
 
     def _reduce(self, opname: str, axis=None) -> "FieldArray":
@@ -785,9 +817,10 @@ class FieldArray(Array):
 
 def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
     """x ** e for an integer ndarray exponent of any magnitude and sign:
-    e is reduced mod q-1 on the host, with NumPy's non-negative remainder
-    for integer dtypes (q - 1 < 2^32 for int storage) and Python ints
-    otherwise. Limb fields pass the reduced exponent as 62-bit words."""
+    e is reduced mod q-1 on the host, in NumPy for integer dtypes (a
+    non-negative int64 exponent of a field with q - 1 >= 2^63 is its own
+    residue) and in Python ints otherwise. Int storage passes the reduced
+    exponent as one int64 tensor, planar storage as 62-bit words."""
     cls = type(x)
     meta = cls._meta
     q1 = meta.order - 1
@@ -795,19 +828,28 @@ def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
     ops = _get_ops(meta, cls._mode)
     if (e < 0).any():
         _check_div_by_zero(x)
-    if e.dtype == object or meta.storage != STORAGE_INT:
+    red = None
+    if e.dtype != object:
+        if np.issubdtype(e.dtype, np.unsignedinteger):
+            red = e.astype(np.uint64) % np.uint64(q1) if q1 < 2**64 else e.astype(np.uint64)
+        elif q1 < 2**63:
+            red = e.astype(np.int64) % q1
+        elif not (e < 0).any():
+            red = e.astype(np.int64)
+    if red is not None and meta.storage == STORAGE_INT:
+        out = ops.power(x._data, torch.as_tensor(red.astype(np.int64, copy=False), device=x.device), nbits=nbits)
+    elif red is not None:
+        nbits = min(nbits, 64)
+        t = red.dtype.type
+        words = [((red >> t(s)) & t(2**62 - 1)).astype(np.int64) for s in range(0, nbits, 62)]
+        out = ops.power_words(x._data, [torch.as_tensor(w, device=x.device) for w in words], nbits)
+    else:
         red = np.frompyfunc(lambda v: int(v) % q1, 1, 1)(e.astype(object))
         words = []
         for s in range(0, nbits, 62):
             w = np.frompyfunc(lambda v: (v >> s) & (2**62 - 1), 1, 1)(red)
             words.append(torch.as_tensor(np.asarray(w).astype(np.int64), device=x.device))
         out = ops.power_words(x._data, words, nbits) if len(words) > 1 else ops.power(x._data, words[0], nbits)
-    else:
-        if np.issubdtype(e.dtype, np.unsignedinteger):
-            red = (e.astype(np.uint64) % np.uint64(q1)).astype(np.int64)
-        else:
-            red = e.astype(np.int64) % q1
-        out = ops.power(x._data, torch.as_tensor(red, device=x.device), nbits=nbits)
     # 0^e = 0 for e != 0 (the reduction mod q-1 may have zeroed e).
     zero_fix = ops.is_zero(x._data) & torch.as_tensor(e != 0, device=x.device)
     return cls._view(ops.zero_where(zero_fix, out), x._dtype)
@@ -839,13 +881,15 @@ def _random_limbs(L: int, low: int, high: int, shape, generator, device) -> torc
         raise ValueError(f"Argument 'high' must be larger than 'low', not {high} <= {low}.")
     bits = (span - 1).bit_length()
     masks = torch.tensor([(1 << min(max(bits - 16 * k, 0), 16)) - 1 for k in range(L)], device=device)
-    span_limbs = torch.tensor(int_to_limbs(span, L), device=device).reshape(L, 1)
+    # one limb more than the values: the span of GF(2^16k) is 2^16k
+    span_limbs = torch.tensor(int_to_limbs(span, L + 1), device=device).reshape(L + 1, 1)
 
     def draw(n):
         r = torch.randint(0, 2**16, (L, n), generator=generator, device=device, dtype=torch.int64)
         return r & masks.reshape(L, 1)
 
     def at_or_above_span(v):
+        v = torch.cat([v, torch.zeros_like(v[:1])])
         return normalize_limbs(v - span_limbs)[1] == 0  # no borrow out of v - span
 
     v = draw(math.prod(shape))
@@ -857,6 +901,29 @@ def _random_limbs(L: int, low: int, high: int, shape, generator, device) -> torc
         bad[idx] = at_or_above_span(v[:, idx])
     v, _ = normalize_limbs(v + torch.tensor(int_to_limbs(low, L), device=device).reshape(L, 1))
     return v.reshape((L,) + tuple(shape))
+
+
+def _random_digits(meta: FieldMeta, low: int, high: int, shape, generator, device) -> torch.Tensor:
+    """Uniform int reprs in [low, high) as planar digits (m, *shape): the
+    whole field draws each digit on ``device``; a narrower range draws its
+    limbs there and splits them into digits there too below 2^63, on the
+    host above."""
+    p, m = meta.characteristic, meta.degree
+    if (low, high) == (0, meta.order):
+        return torch.randint(0, p, (m,) + tuple(shape), generator=generator, device=device, dtype=torch.int64)
+    L = -(-(high - 1).bit_length() // 16)
+    limbs = _random_limbs(L, low, high, shape, generator, device)
+    if meta.order <= 2**63:
+        v = sum(limbs[k] << (16 * k) for k in range(L))
+        digits = []
+        for _ in range(m):
+            digits.append(v % p)
+            v = v // p
+        return torch.stack(digits)
+    ints = np.zeros(tuple(shape), dtype=object)
+    for k in reversed(range(L)):
+        ints = ints * 65536 + limbs[k].cpu().numpy().astype(object)
+    return torch.from_numpy(_ints_to_digits(p, m, np.asarray(ints, dtype=object))).to(device)
 
 
 def _filled(cls, shape, device, fill: str) -> torch.Tensor:

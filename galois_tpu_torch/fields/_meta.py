@@ -2,7 +2,7 @@
 
 The port's counterpart of ``galois_tpu/fields/_meta.py``. It keeps the field
 parameters, the device storage format and the host constants built from
-them. Two storage kinds are ported:
+them. Three storage kinds, as in the JAX package:
 
 - int storage, one integer per element: GF(p) with p <= 2^32, GF(2^m) with
   m <= 32 and GF(p^m), p odd, with p^m <= 2^31. Its dtypes follow torch's
@@ -13,12 +13,26 @@ them. Two storage kinds are ported:
   element in ``torch.uint16``, PLANAR, with the limb axis leading, shape
   (L, *shape), exactly the JAX package's layout. The arithmetic widens the
   limbs to int64 (``ops/_kernels.py``); the Goldilocks multiply kernel K10
-  reads the planes as they are, 8 bytes per element.
+  reads the planes as they are, 8 bytes per element;
+- digit storage, GF(p^m) with p odd, m > 1 and p^m > 2^31: the m base-p
+  digits of each element, ascending, in ``torch.int64`` (the JAX package's
+  u32, so p < 2^32; int64 is the port's storage above 2^8, and a digit
+  product of p < 2^31.5 fits it, larger p split it in
+  ``ops/_kernels.py::mulmod``).
+  The digit axis LEADS, shape (m, *shape), like the limbs' (the JAX package
+  keeps it trailing, for the TPU's MXU contractions). One convention for
+  every multi-word kind gives each digit a contiguous plane on the card, and
+  every composite written for planar storage (linear algebra, Poly, the
+  LFSR scans) takes digit fields unchanged;
+- limb storage of GF(2^m) with m > 32: the m coefficient bits in L =
+  ceil(m / 16) little-endian uint16 limbs, planar like the prime limbs. Its
+  product, square and powers are kernel K14 on the card
+  (``ops/_limb_binary.py``).
 
-The digit storage of odd extension fields above 2^31 and the limb storage
-of GF(2^m), m > 32, are still to be ported. ``internal_dtype`` stays the
-JAX package's NumPy dtype: with ``dtypes`` it decides what ``np.asarray``
-of an array returns (object arrays of Python ints above 2^63).
+``storage_first`` is True for all three planar kinds. ``internal_dtype``
+stays the JAX package's NumPy dtype: with ``dtypes`` it decides what
+``np.asarray`` of an array returns (object arrays of Python ints above
+2^63).
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ DTYPES = [np.uint8, np.uint16, np.uint32, np.int8, np.int16, np.int32, np.int64]
 LOOKUP_TABLE_MAX_ORDER = 2**20
 
 STORAGE_INT = "int"  # one integer per element
+STORAGE_DIGITS = "digits"  # (m, ...) planar base-p digits, digit axis leading
 STORAGE_LIMBS = "limbs"  # (L, ...) planar base-2^16 limbs, limb axis leading
 
 LIMB_BITS = 16
@@ -71,28 +86,23 @@ class FieldMeta:
         self.is_extension_field = m > 1
 
         q = self.order
-        if p == 2 and m > 32:
-            raise NotImplementedError(
-                f"GF(2^{m}) needs the limb storage of binary fields (LimbBinaryOps), which the "
-                "torch port does not have yet."
-            )
-        if m > 1 and p > 2 and q > 2**31:
-            raise NotImplementedError(
-                f"GF({p}^{m}) needs digit storage (OddExtOps on base-p digits), which the torch "
-                "port does not have yet."
-            )
-        if m == 1 and q > 2**32:
+        if (m == 1 and q > 2**32) or (p == 2 and m > 32):
             self.storage = STORAGE_LIMBS
             self.internal_dtype = np.uint16
             self.torch_dtype = torch.uint16
             self.storage_width = -(-(q - 1).bit_length() // LIMB_BITS)
+        elif m > 1 and p > 2 and q > 2**31:
+            self.storage = STORAGE_DIGITS
+            self.internal_dtype = np.uint32
+            self.torch_dtype = torch.int64
+            self.storage_width = m
         else:
             self.storage = STORAGE_INT
             self.internal_dtype = np.uint32 if q > 2**16 else (np.uint16 if q > 2**8 else np.uint8)
             self.torch_dtype = torch.uint8 if q <= 2**8 else torch.int64
-            self.storage_width = 0  # scalar storage, no limb axis
-        # True when the storage axis leads (planar limbs).
-        self.storage_first = self.storage == STORAGE_LIMBS
+            self.storage_width = 0  # scalar storage, no storage axis
+        # True when the storage axis leads: limbs and digits.
+        self.storage_first = self.storage != STORAGE_INT
 
         # Valid external dtypes are those that can hold order-1.
         self.dtypes = [d for d in DTYPES if np.iinfo(d).max >= q - 1] or [np.object_]

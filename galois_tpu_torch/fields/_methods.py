@@ -30,9 +30,10 @@ import torch
 
 from ..nt import factors, totatives
 from ..ops import _linalg
+from ..ops._kernels import mulmod
 from ._array import FieldArray, FieldArrayMeta, _get_ops, _storage_to_ints
 from ._hostfield import get_host_field
-from ._meta import STORAGE_INT
+from ._meta import STORAGE_DIGITS, STORAGE_INT
 
 __all__ = []
 
@@ -91,30 +92,38 @@ def field_trace(self):
     sub = type(self).prime_subfield
     if meta.degree == 1:
         return sub._view(self._data, self._dtype)
-    p = meta.characteristic
+    p, m = meta.characteristic, meta.degree
     x = self._data.to(torch.int64)
-    acc = torch.zeros_like(x)
-    for c in _trace_vector(meta):
+    if meta.storage == STORAGE_INT:
+        digs = []
+        for _ in range(m):
+            digs.append(x % p)
+            x = x // p
+    elif meta.storage == STORAGE_DIGITS:
+        digs = list(x)
+    else:  # GF(2^m) on planar limbs: the bits
+        digs = [(x[i // 16] >> (i % 16)) & 1 for i in range(m)]
+    acc = torch.zeros_like(digs[0])
+    for d, c in zip(digs, _trace_vector(meta)):
         if c:
-            acc = acc + (x % p) * c
-        x = x // p
+            acc = acc + mulmod(d, c, p)
     return sub._view((acc % p).to(sub._meta.torch_dtype))
 
 
 @functools.lru_cache(maxsize=None)
 def _trace_vector(meta):
-    """Tr(x^i) for i < m: the trace of the basis element with int repr p^i,
-    each in [0, p)."""
-    hf = get_host_field(meta)
+    """Tr(x^i) for i < m, each in [0, p): the power sums of the roots of the
+    irreducible polynomial f, by Newton's identities over GF(p) (Tr(1) = m),
+    O(m^2) operations on small ints."""
     p, m = meta.characteristic, meta.degree
-    traces = []
-    for i in range(m):
-        y, tr = p**i, 0
-        for _ in range(m):
-            tr = hf.add(tr, y)
-            y = hf.power(y, p)
-        traces.append(tr)
-    return tuple(traces)
+    f = list(meta.irreducible_coeffs)  # descending, monic: f[k] is the coefficient of x^(m - k)
+    sums = [m % p]
+    for k in range(1, m):
+        acc = k * f[k]
+        for j in range(1, k):
+            acc += f[j] * sums[k - j]
+        sums.append(-acc % p)
+    return tuple(sums)
 
 
 @_attach(FieldArray, "field_norm")
@@ -126,7 +135,12 @@ def field_norm(self):
     if meta.degree == 1:
         return sub._view(self._data, self._dtype)
     norm = self ** ((meta.order - 1) // (meta.characteristic - 1))
-    return sub._view(norm._data.to(sub._meta.torch_dtype))
+    d = norm._data
+    if meta.storage == STORAGE_DIGITS:
+        d = d[0]  # the value lies in GF(p): digit 0
+    elif meta.storage != STORAGE_INT:
+        d = d[0].to(torch.int64) & 1  # GF(2): bit 0 of limb 0
+    return sub._view(d.to(sub._meta.torch_dtype))
 
 
 # ----------------------------------------------------------------------

@@ -92,7 +92,7 @@ def dispatch(self, func, args, kwargs):
 
         def unwrap(x):
             if isinstance(x, FieldArray):
-                return np.asarray(x, dtype=np.int64)
+                return np.asarray(x, dtype=np.int64 if cls._meta.order <= 2**63 else object)
             if isinstance(x, (tuple, list)):
                 return type(x)(unwrap(v) for v in x)
             return x

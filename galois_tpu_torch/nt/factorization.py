@@ -181,9 +181,22 @@ def _factor_recursive(n: int, out: list[int], rng: random.Random) -> None:
 
 @functools.lru_cache(maxsize=4096)
 def _factors_cached(n: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    # The JAX package consults a Cunningham-style database of b^k +- 1
-    # factorizations first; it only saves time on huge group orders, so the
-    # port factors every n directly (the factorization is unique either way).
+    # The Cunningham-style table of b^k +- 1 first, as the JAX package does:
+    # many of its entries hold two primes above 10^15 (2^122 - 1, 2^128 + 1)
+    # that Pollard rho cannot split in any reasonable time, and the group
+    # orders 2^m - 1 of large binary fields are such numbers. An entry's
+    # residual composite goes on through trial division and rho.
+    from .._databases import PrimeFactorsDatabase
+
+    db = PrimeFactorsDatabase()
+    db_p: list[int] = []
+    db_e: list[int] = []
+    if n in db:
+        db_p, db_e, n = db.fetch(n)
+        if n == 1:
+            order = sorted(range(len(db_p)), key=lambda i: db_p[i])
+            return tuple(db_p[i] for i in order), tuple(db_e[i] for i in order)
+
     p_list, e_list, cofactor = trial_division(n, B=min(100_000, isqrt(n) + 1))
     if cofactor > 1:
         rest: list[int] = []
@@ -195,6 +208,12 @@ def _factors_cached(n: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
             else:
                 p_list.append(p)
                 e_list.append(1)
+    if db_p:
+        merged: dict[int, int] = {}
+        for p, e in [*zip(db_p, db_e), *zip(p_list, e_list)]:
+            merged[p] = merged.get(p, 0) + e
+        ps = sorted(merged)
+        return tuple(ps), tuple(merged[p] for p in ps)
     return tuple(p_list), tuple(e_list)
 
 

@@ -25,6 +25,16 @@ Port of the int-storage families of ``galois_tpu/ops/_kernels.py``:
                     planes of 16-bit limbs
 - ``GoldilocksOps`` p = 2^64 - 2^32 + 1: the multiply and square are kernel
                     K10 (``ops/_elementwise.py::goldilocks_multiply``)
+- ``LimbBinaryOps`` GF(2^m), m > 32, planar (L, ...) uint16 limbs of the
+                    coefficient bits: XOR adds; multiply, square and every
+                    power are kernel K14 (``ops/_limb_binary.py``)
+- ``DigitExtOps``   GF(p^m), p odd, p^m > 2^31, planar (m, ...) int64
+                    base-p digits: digitwise adds, the digit convolution
+                    and reduction-matrix fold (plain torch, as jnp in the
+                    JAX package)
+
+The three planar kinds share ``PlanarOps``: masks over the leading storage
+axis, constants filled word by word, the exponent ladders.
 
 Every family has ``sqrt``, the canonical square root (the one whose int
 repr is <= that of its negation, as the JAX package): one ``power_static``
@@ -36,7 +46,7 @@ Every op takes and returns tensors in the field's storage dtype and keeps
 its inputs' device. Arithmetic is widened to int64 inside each op: torch
 has no unsigned 16/32-bit arithmetic, and uint8 sums wrap. Dispatch
 depends on the field and mode only; the kernel wrappers alone look at the
-device. ``LimbBinaryOps`` (GF(2^m), m > 32) is still to be ported.
+device.
 
 The JAX package's limb-tuple protocol (``split_limbs``/``*_t``), its MXU
 diagonal fold for L > 4 and its compact fori_loop powers exist for the TPU's
@@ -53,7 +63,7 @@ import numpy as np
 import torch
 
 from ..fields._hostfield import get_host_field
-from ..fields._meta import STORAGE_LIMBS, FieldMeta, int_to_limbs
+from ..fields._meta import STORAGE_DIGITS, STORAGE_LIMBS, FieldMeta, int_to_limbs
 from ..fields._tables import build_exp_log
 from ._elementwise import (
     GOLDILOCKS_P,
@@ -68,7 +78,8 @@ from ._elementwise import (
     m31_multiply,
     power_ladder,
 )
-from ._limbs import _where, align_planar, mul_limbs, normalize_limbs
+from ._limb_binary import gf2_limb_multiply, gf2_limb_power, gf2_limb_square
+from ._limbs import _i16, _where, align_planar, mul_limbs, normalize_limbs, planar_power_words
 from ._lookup import (
     field_tables,
     gf2m_packed_tables,
@@ -389,8 +400,43 @@ class _Tables:
         return self._on[device]
 
 
+@functools.lru_cache(maxsize=None)
+def _reduction_rows(meta: FieldMeta, device: torch.device) -> torch.Tensor:
+    """The field's (m - 1, m) reduction matrix (x^(m + k) mod f) on ``device``."""
+    return torch.from_numpy(np.asarray(meta.reduction_matrix)).to(device)
+
+
+def digit_product(A, B, meta: FieldMeta):
+    """GF(p^m) product of planar int64 base-p digits A (m, *sa) and B
+    (m, *sb) with aligned element axes: the digit convolution, then the
+    fold of the m - 1 high digits by the reduction matrix, as the JAX
+    package's ``_mul_digits``. Where m (p - 1)^2 < 2^62 the sums need one
+    ``% p`` after each stage; larger p take ``mulmod`` and a ``% p`` a term."""
+    p, m = meta.characteristic, meta.degree
+    wide = m * (p - 1) ** 2 < 2**62
+
+    def mul(x, y):
+        return x * y if wide else mulmod(x, y, p)
+
+    shape = torch.broadcast_shapes(A.shape[1:], B.shape[1:])
+    full = torch.zeros((2 * m - 1,) + tuple(shape), dtype=torch.int64, device=A.device)
+    for i in range(m):
+        full[i : i + m] += mul(A[i : i + 1], B)
+        if not wide:
+            full[i : i + m] %= p
+    full %= p
+    R = _reduction_rows(meta, A.device).reshape((m - 1, m) + (1,) * len(shape))
+    low = full[:m]
+    for k in range(m - 1):
+        low = low + mul(full[m + k : m + k + 1], R[k])
+        if not wide:
+            low = low % p
+    return low % p
+
+
 class OddExtOps(FieldOps):
-    """Base-p digit arithmetic on int storage, digits split on the fly.
+    """Base-p digit arithmetic on int storage, digits split on the fly into
+    planar (m, *shape) tensors, as ``DigitExtOps`` stores them.
 
     p^m <= 2^31 with m >= 2 gives p < 2^16, so in int64 a digit product is
     below 2^32 and a sum of m of them below 2^37: one ``% p`` after the
@@ -405,9 +451,7 @@ class OddExtOps(FieldOps):
         super().__init__(meta)
         self.p = meta.characteristic
         self.m = meta.degree
-        self.R = np.asarray(meta.reduction_matrix)  # (m-1, m) int64
         self._weights = [self.p**i for i in range(self.m)]
-        self._R_on = {}
 
     def _digits(self, a):
         x = a.to(torch.int64)
@@ -415,37 +459,30 @@ class OddExtOps(FieldOps):
         for _ in range(self.m):
             digs.append(x % self.p)
             x = x // self.p
-        return torch.stack(digs, dim=-1)
+        return torch.stack(digs)
 
     def _undigits(self, d):
-        out = d[..., 0].clone()
+        out = d[0].clone()
         for i in range(1, self.m):
-            out += d[..., i] * self._weights[i]
+            out += d[i] * self._weights[i]
         return out.to(self.dt)
 
+    def _digits2(self, a, b):
+        return align_planar(self._digits(a), self._digits(b))
+
     def add(self, a, b):
-        return self._undigits((self._digits(a) + self._digits(b)) % self.p)
+        A, B = self._digits2(a, b)
+        return self._undigits((A + B) % self.p)
 
     def negative(self, a):
         return self._undigits((-self._digits(a)) % self.p)
 
     def subtract(self, a, b):
-        return self._undigits((self._digits(a) - self._digits(b)) % self.p)
+        A, B = self._digits2(a, b)
+        return self._undigits((A - B) % self.p)
 
     def multiply(self, a, b):
-        p, m = self.p, self.m
-        A, B = torch.broadcast_tensors(self._digits(a), self._digits(b))
-        full = torch.zeros(A.shape[:-1] + (2 * m - 1,), dtype=torch.int64, device=A.device)
-        for i in range(m):
-            full[..., i : i + m] += A[..., i : i + 1] * B
-        full %= p
-        if A.device not in self._R_on:
-            self._R_on[A.device] = torch.from_numpy(self.R).to(A.device)
-        R = self._R_on[A.device]
-        low = full[..., :m]
-        for k in range(m - 1):
-            low = low + full[..., m + k : m + k + 1] * R[k]
-        return self._undigits(low % p)
+        return self._undigits(digit_product(*self._digits2(a, b), self.meta))
 
     @functools.cached_property
     def _tables(self) -> _Tables:
@@ -564,10 +601,64 @@ class LookupOps:
 
 
 # ======================================================================
+# Planar storage: (w, *shape), the limb or digit axis leading
+# ======================================================================
+
+class PlanarOps(FieldOps):
+    """What the three planar kinds share (limbs of GF(p), p > 2^32, limbs of
+    GF(2^m), m > 32, digits of odd p^m > 2^31): element masks reduce over the
+    leading storage axis, constants fill word by word on the device, and
+    the exponent ladders broadcast the element axes behind it."""
+
+    def __init__(self, meta: FieldMeta):
+        super().__init__(meta)
+        self.L = meta.storage_width
+
+    def _const_words(self, value: int):
+        return int_to_limbs(value, self.L)
+
+    def one_like(self, a):
+        one = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+        one[0].fill_(1)  # no host copy of the scalar, so no wait for the card
+        return one.to(self.dt)
+
+    def zero_like(self, a):
+        return torch.zeros(a.shape, dtype=torch.int64, device=a.device).to(self.dt)
+
+    def is_zero(self, a):
+        return (_i16(a) == 0).all(dim=0)
+
+    def zero_where(self, mask, a):
+        return (_i16(a) * torch.logical_not(mask)).view(a.dtype)
+
+    def is_one(self, a):
+        w = _i16(a)
+        return (w[0] == 1) & (w[1:] == 0).all(dim=0)
+
+    def const_like(self, a, value: int):
+        out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
+        for k, word in enumerate(self._const_words(value)):
+            out[k].fill_(int(word))  # a kernel argument, not a copy from the host
+        return out.to(self.dt)
+
+    def repr_le(self, a, b):
+        # b - a over the limbs borrows out exactly when a > b
+        return normalize_limbs(b.to(torch.int64) - a.to(torch.int64))[1] == 0
+
+    def power(self, a, e, nbits: int):
+        return self.power_words(a, [e], nbits)
+
+    def power_words(self, a, words, nbits: int):
+        """a**e for e = sum_i words[i] * 2^(62 i), non-negative int64 word
+        tensors, below 2^nbits: a binary ladder over the bits (0**0 = 1)."""
+        return planar_power_words(a, words, nbits, self.multiply, self.square, self.one_like)
+
+
+# ======================================================================
 # GF(p), p > 2^32: planar base-2^16 limbs
 # ======================================================================
 
-class LimbPrimeOps(FieldOps):
+class LimbPrimeOps(PlanarOps):
     """GF(p) for p > 2^32 on planar (L, *shape) uint16 storage: each op
     widens the limbs to int64, computes on whole limb planes, and stores
     uint16 again. Multiply: the schoolbook product of 16-bit limbs and
@@ -577,7 +668,6 @@ class LimbPrimeOps(FieldOps):
 
     def __init__(self, meta: FieldMeta):
         super().__init__(meta)
-        self.L = meta.storage_width
         self.p = meta.characteristic
         self._consts = {}
 
@@ -633,51 +723,104 @@ class LimbPrimeOps(FieldOps):
     def reciprocal(self, a):
         return self.power_static(a, self.p - 2)
 
-    def one_like(self, a):
-        one = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
-        one[0].fill_(1)  # no host copy of the scalar, so no wait for the card
-        return one.to(self.dt)
 
-    def zero_like(self, a):
-        return torch.zeros(a.shape, dtype=torch.int64, device=a.device).to(self.dt)
+# ======================================================================
+# GF(2^m), m > 32: planar uint16 limbs of the coefficient bits
+# ======================================================================
 
-    def is_zero(self, a):
-        return (a.to(torch.int32) == 0).all(dim=0)
+class LimbBinaryOps(PlanarOps):
+    """GF(2^m), m > 32, on planar (L, *shape) uint16 limbs, L = ceil(m / 16):
+    add and subtract are XORs of the limb planes, negative is the identity;
+    multiply, square and the powers (``power_static``, ``power``,
+    ``reciprocal`` as a^(2^m - 2), ``sqrt`` as a^(2^(m - 1))) are kernel
+    K14 (``ops/_limb_binary.py``), one launch a call, its plain version on
+    CPU tensors. No lookup mode, as in the JAX package."""
 
-    def zero_where(self, mask, a):
-        return (a.to(torch.int64) * (~mask).to(torch.int64)).to(self.dt)
+    def __init__(self, meta: FieldMeta):
+        super().__init__(meta)
+        self.m = meta.degree
+        self.f = meta.irreducible_poly_int
 
-    def is_one(self, a):
-        w = a.to(torch.int32)
-        return (w[0] == 1) & (w[1:] == 0).all(dim=0)
+    def add(self, a, b):
+        a, b = align_planar(a, b)
+        return (_i16(a) ^ _i16(b)).view(torch.uint16)
 
-    def const_like(self, a, value: int):
-        out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
-        for k, limb in enumerate(int_to_limbs(value, self.L)):
-            out[k].fill_(int(limb))  # a kernel argument, not a copy from the host
-        return out.to(self.dt)
+    subtract = add
 
-    def repr_le(self, a, b):
-        # b - a over the limbs borrows out exactly when a > b
-        return normalize_limbs(b.to(torch.int64) - a.to(torch.int64))[1] == 0
+    def negative(self, a):
+        return a
 
-    def power(self, a, e, nbits: int):
-        return self.power_words(a, [e], nbits)
+    def multiply(self, a, b):
+        return gf2_limb_multiply(a, b, self.m, self.f)
+
+    def square(self, a):
+        return gf2_limb_square(a, self.m, self.f)
+
+    def power_static(self, a, e: int):
+        if e < 0:
+            return self.power_static(self.reciprocal(a), -e)
+        if e == 0:
+            return self.one_like(a)
+        # a^e = a^e' with e' = e mod (2^m - 1) in [1, 2^m - 1], for every a
+        return gf2_limb_power(a, (e - 1) % (2**self.m - 1) + 1, self.m, self.f)
+
+    def reciprocal(self, a):
+        return gf2_limb_power(a, 2**self.m - 2, self.m, self.f)
 
     def power_words(self, a, words, nbits: int):
-        """a**e for e = sum_i words[i] * 2^(62 i), non-negative int64 word
-        tensors, below 2^nbits: a binary ladder over the bits (0**0 = 1)."""
-        eshape = torch.broadcast_shapes(a.shape[1:], *(w.shape for w in words))
-        a = a.reshape(a.shape[:1] + (1,) * (len(eshape) - (a.ndim - 1)) + a.shape[1:])
-        base = a.expand((self.L,) + tuple(eshape))
-        result = self.one_like(base)
-        for i in range(nbits):
-            bit = ((words[i // 62] >> (i % 62)) & 1).bool().expand(eshape)
-            prod = self.multiply(result, base).to(torch.int64)
-            result = torch.where(bit, prod, result.to(torch.int64)).to(self.dt)
-            if i + 1 < nbits:
-                base = self.square(base)
-        return result
+        return gf2_limb_power(a, list(words), self.m, self.f, nbits)
+
+    def sqrt(self, a):
+        return gf2_limb_power(a, 2 ** (self.m - 1), self.m, self.f)
+
+
+# ======================================================================
+# GF(p^m), p odd, p^m > 2^31: planar base-p digits
+# ======================================================================
+
+class DigitExtOps(PlanarOps):
+    """GF(p^m), p odd, p^m > 2^31, on planar (m, *shape) int64 digits,
+    ascending: digitwise add, subtract and negate mod p; the product is
+    ``digit_product``; the reciprocal is the ladder for q - 2. Plain torch
+    on every device: no TPU kernel stands behind these (the digit product's
+    own kernel is queued, ``ROADMAP.md``)."""
+
+    def __init__(self, meta: FieldMeta):
+        super().__init__(meta)
+        self.p = meta.characteristic
+        self.m = meta.degree
+
+    def _const_words(self, value: int):
+        return self.meta.int_to_digits(value)
+
+    def add(self, a, b):
+        a, b = align_planar(a, b)
+        return (a + b) % self.p
+
+    def subtract(self, a, b):
+        a, b = align_planar(a, b)
+        return (a - b) % self.p
+
+    def negative(self, a):
+        return (-a) % self.p
+
+    def multiply(self, a, b):
+        return digit_product(*align_planar(a, b), self.meta)
+
+    def reciprocal(self, a):
+        return self.power_static(a, self.meta.order - 2)
+
+    def repr_le(self, a, b):
+        # lexicographic, the most significant digit first
+        a, b = align_planar(a, b)
+        shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+        le = torch.ones(shape, dtype=torch.bool, device=a.device)
+        decided = torch.zeros_like(le)
+        for i in range(self.m - 1, -1, -1):
+            differ = a[i] != b[i]
+            le = torch.where(decided | ~differ, le, a[i] < b[i])
+            decided = decided | differ
+        return le
 
 
 class GoldilocksOps(LimbPrimeOps):
@@ -698,7 +841,12 @@ def get_ops(meta: FieldMeta, mode: str):
     'jit-lookup' (orders <= 2^20, not GF(2))."""
     p, m = meta.characteristic, meta.degree
     if meta.storage == STORAGE_LIMBS:
-        calc = GoldilocksOps(meta) if p == GOLDILOCKS_P else LimbPrimeOps(meta)
+        if p == 2:
+            calc = LimbBinaryOps(meta)
+        else:
+            calc = GoldilocksOps(meta) if p == GOLDILOCKS_P else LimbPrimeOps(meta)
+    elif meta.storage == STORAGE_DIGITS:
+        calc = DigitExtOps(meta)
     elif m == 1:
         calc = GF2Ops(meta) if p == 2 else PrimeOps(meta)
     elif p == 2:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["align_planar", "normalize_limbs", "mul_limbs"]
+__all__ = ["align_planar", "normalize_limbs", "mul_limbs", "planar_power_words"]
 
 
 def _i16(t):
@@ -36,6 +36,24 @@ def align_planar(a: torch.Tensor, b: torch.Tensor):
     a = a.reshape(a.shape[:1] + (1,) * (nd - a.ndim) + a.shape[1:])
     b = b.reshape(b.shape[:1] + (1,) * (nd - b.ndim) + b.shape[1:])
     return a, b
+
+
+def planar_power_words(a: torch.Tensor, words, nbits: int, multiply, square, one_like):
+    """a**e on planar (L, *shape) storage for e = sum_i words[i] * 2^(62 i),
+    non-negative int64 word tensors broadcast against a's elements, over
+    the low ``nbits`` bits: a binary ladder of the field's ``multiply`` and
+    ``square`` (0**0 = 1). ``_elementwise.power_ladder`` is its form for
+    one-word storage."""
+    eshape = torch.broadcast_shapes(a.shape[1:], *(w.shape for w in words))
+    a = a.reshape(a.shape[:1] + (1,) * (len(eshape) - (a.ndim - 1)) + a.shape[1:])
+    base = _i16(a).expand((a.shape[0],) + tuple(eshape)).view(a.dtype)
+    result = one_like(base)
+    for i in range(nbits):
+        bit = ((words[i // 62] >> (i % 62)) & 1).bool().expand(eshape)
+        result = _where(bit, multiply(result, base), result)
+        if i + 1 < nbits:
+            base = square(base)
+    return result
 
 
 def normalize_limbs(c: torch.Tensor):

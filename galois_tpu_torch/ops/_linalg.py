@@ -7,8 +7,9 @@ helpers of ``galois_tpu/ops/_linalg.py``. ``matmul`` follows NumPy's rules
 product mod 2, GF(p) to ``_prime_matmul``, GF(2^m) to the bit planes of
 ``ops/_binary_matmul.py``, GF(p^m) to the digit planes of
 ``ops/_digit_matmul.py`` where their sums stay exact, and anything else to
-a loop of field multiply-adds over the contraction axis. Limb fields
-(p > 2^32) go to the digit planes of ``ops/_limb_matmul.py``.
+a loop of field multiply-adds over the contraction axis, which also takes
+GF(2^m), m > 32, and the digit fields. Limb prime fields (p > 2^32) go to
+the digit planes of ``ops/_limb_matmul.py``.
 
 The Gaussian elimination family (``row_reduce``, ``matrix_rank``, ``inv``,
 ``det``, ``plu_decompose``, ``lu_decompose``, ``solve``) keeps the JAX
@@ -145,10 +146,10 @@ def _matmul_data(meta, mode: str, a, b, a_vec: bool, b_vec: bool):
         raise ValueError(f"matmul: contraction lengths differ, {a.shape[-1]} and {b.shape[-2]}.")
     p, K = meta.characteristic, a.shape[-1]
     if meta.storage != STORAGE_INT:
-        # planar limbs (L, ..., M, K): the limb axis leads and rides as a batch axis
-        from ._limb_matmul import limb_matmul
+        # planar storage (w, ..., M, K): the limb or digit axis leads and rides as a batch axis
+        from ._limb_matmul import limb_matmul, supports_generic
 
-        out = limb_matmul(meta, a, b)
+        out = limb_matmul(meta, a, b) if supports_generic(meta) else _generic_matmul(get_ops(meta, mode), a, b)
     elif meta.degree == 1:
         if p == 2:
             out = _gf2_matmul(a, b, K)
@@ -180,7 +181,9 @@ def _gf2_matmul(a, b, K: int):
 
 
 def _generic_matmul(ops, a, b):
-    """Any int-storage field: field multiply-adds over the contraction axis."""
+    """Field multiply-adds over the contraction axis: the int-storage fields
+    the plane products do not take, and the planar GF(2^m), m > 32, and
+    digit fields (the storage axis rides as a batch axis)."""
     shape = torch.broadcast_shapes(a.shape[:-1] + (1,), b.shape[:-2] + (1, b.shape[-1]))
     out = torch.zeros(shape, dtype=a.dtype, device=a.device)
     for k in range(a.shape[-1]):
@@ -192,12 +195,12 @@ def _generic_matmul(ops, a, b):
 # Gaussian elimination family
 # ----------------------------------------------------------------------
 #
-# Storage layouts of an (M, N) matrix: int (M, N); planar limbs (w, M, N).
+# Storage layouts of an (M, N) matrix: int (M, N); planar limbs or digits (w, M, N).
 # Column j is a[..., j] in both; a column broadcasts against the matrix as
 # col.unsqueeze(-1), a row as row.unsqueeze(-2), and element masks of shape
 # (M, N) or (M,) right-align under the limb axis. So of the JAX package's
 # layout helpers only the row access, which depends on the row axis, is
-# needed here (the port has no digit storage).
+# needed here (the port keeps its digits planar too).
 
 # Matrices of at most this many elements are reduced exactly on the host,
 # as in the JAX package (its literal 4096 in row_reduce, matrix_rank and inv).

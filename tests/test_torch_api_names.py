@@ -16,13 +16,8 @@ import sys
 
 import pytest
 
-# ROADMAP.md, queue 1: what is still to be ported (lfsr.py)
-MISSING_FROM_PORT = {
-    "FLFSR",
-    "GLFSR",
-    "berlekamp_massey",
-    "lfsr",
-}
+# ROADMAP.md, queue 1: what is still to be ported (nothing at the top level)
+MISSING_FROM_PORT = set()
 ONLY_IN_PORT = {"default_device", "set_default_device"}
 
 _LIST = "import json, {pkg} as p; print(json.dumps(sorted(n for n in dir(p) if not n.startswith('_'))))"

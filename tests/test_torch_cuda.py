@@ -8,6 +8,8 @@ where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -999,3 +1001,177 @@ def test_chien_scan_on_cuda_matches_cpu(cuda_device, q):
         want = f.roots(multiplicity=True)
     assert np.array_equal(np.asarray(got[0]), np.asarray(want[0])) and np.array_equal(got[1], want[1])
     assert sorted(np.asarray(got[0]).tolist()) == sorted(roots)
+
+
+# ----------------------------------------------------------------------
+# K12 (the LFSR scan), K13 (the long Berlekamp-Massey scan), K14 (GF(2^m),
+# m > 32, products and powers on limbs)
+# ----------------------------------------------------------------------
+
+# (order, modulus): fields whose public arithmetic runs K14
+LIMB_BINARY_FIELDS = [(2**100, None), (2**128, "x^128 + x^7 + x^2 + x + 1")]
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_binary_field(q, f):
+    """Built once: a given modulus is tested for irreducibility at every construction."""
+    return gt.GF(q) if f is None else gt.GF(q, irreducible_poly=f)
+
+
+# (m, modulus f as an int): W = 1, 2, 3, 4, 5, 7 and 9 64-bit words, NIST's B-163 ... B-571 and
+# GCM's moduli. The kernel and its plain version compute the same map for any f of degree m, so no
+# field is built (a given modulus's irreducibility test takes minutes of host time at m = 571).
+K14_MODULI = [
+    (64, 2**64 + 2**4 + 2**3 + 2 + 1), (128, 2**128 + 2**7 + 2**2 + 2 + 1), (163, 2**163 + 2**7 + 2**6 + 2**3 + 1),
+    (233, 2**233 + 2**74 + 1), (283, 2**283 + 2**12 + 2**7 + 2**5 + 1), (409, 2**409 + 2**87 + 1),
+    (571, 2**571 + 2**10 + 2**5 + 2**2 + 1),
+]
+
+
+def _random_limbs(m, shape, gen):
+    """Uniform elements of GF(2)[x]/f, deg f = m, as planar uint16 limbs on gen's device."""
+    L = -(-m // 16)
+    top = m - 16 * (L - 1)
+    masks = torch.tensor([0xFFFF] * (L - 1) + [(1 << top) - 1], device=gen.device).reshape((L,) + (1,) * len(shape))
+    r = torch.randint(0, 2**16, (L,) + tuple(shape), generator=gen, device=gen.device) & masks
+    return r.to(torch.int32).to(torch.int16).view(torch.uint16)
+
+
+@pytest.mark.parametrize(["m", "fi"], K14_MODULI)
+def test_gf2_limb_kernels_match_plain(cuda_device, m, fi):
+    """K14's product, square and power entries against their plain versions
+    on the card: whole operands, a one-element operand (stride 0), an
+    element-axis broadcast (materialized), public exponents (the reciprocal
+    and the square root among them) and 62-bit exponent words."""
+    from galois_tpu_torch.ops._limb_binary import (
+        gf2_limb_multiply,
+        gf2_limb_multiply_plain,
+        gf2_limb_power,
+        gf2_limb_power_plain,
+        gf2_limb_square,
+        gf2_limb_square_plain,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    a, b = _random_limbs(m, (1000,), gen), _random_limbs(m, (1000,), gen)
+    c, d = _random_limbs(m, (7, 1), gen), _random_limbs(m, (1, 9), gen)
+    one = b[:, :1].reshape(-1)
+    cases = [
+        (gf2_limb_multiply(a, b, m, fi), gf2_limb_multiply_plain(a, b, m, fi)),
+        (gf2_limb_multiply(a, one, m, fi), gf2_limb_multiply_plain(a, one, m, fi)),
+        (gf2_limb_multiply(one, a, m, fi), gf2_limb_multiply_plain(one, a, m, fi)),
+        (gf2_limb_multiply(c, d, m, fi), gf2_limb_multiply_plain(c, d, m, fi)),
+        (gf2_limb_square(a, m, fi), gf2_limb_square_plain(a, m, fi)),
+    ]
+    u = a[:, :16]  # the plain ladders run a product a bit
+    for e in (0, 1, 3, 2**m - 2, 2 ** (m - 1), 2**70 + 5):
+        cases.append((gf2_limb_power(u, e, m, fi), gf2_limb_power_plain(u, e, m, fi)))
+    words = [torch.randint(0, 2**62, (16,), generator=gen, device=cuda_device) for _ in range(2)]
+    cases.append((gf2_limb_power(u, words, m, fi, 124), gf2_limb_power_plain(u, words, m, fi, 124)))
+    cases.append((gf2_limb_power(one, words, m, fi, 100), gf2_limb_power_plain(one, words, m, fi, 100)))
+    for got, want in cases:
+        assert got.device.type == "cuda" and torch.equal(got.cpu().view(torch.int16), want.cpu().view(torch.int16))
+
+
+@pytest.mark.parametrize(["q", "f"], LIMB_BINARY_FIELDS)
+def test_limb_binary_fields_on_cuda_match_cpu(cuda_device, q, f):
+    """The public arithmetic of GF(2^100) and GF(2^128) on the card equals
+    the CPU plain versions'; K14 is launched."""
+    from galois_tpu_torch.ops._limb_binary import gf2_limb_multiply, gf2_limb_power
+
+    F = _limb_binary_field(q, f)
+    x = F.Random(512, seed=1, device="cpu")
+    y = F.Random(512, low=1, seed=2, device="cpu")
+    xc, yc = F(x._data, device=cuda_device), F(y._data, device=cuda_device)
+    k14 = gf2_limb_multiply.launches + gf2_limb_power.launches
+    e = np.arange(512, dtype=np.int64) * 977
+    for got, want in ((xc * yc, x * y), (xc / yc, x / y), (xc**e, x**e), (np.sqrt(xc), np.sqrt(x)), (xc + yc, x + y)):
+        assert got.device.type == "cuda" and torch.equal(got._data.cpu().view(torch.int16), want._data.view(torch.int16))
+    assert gf2_limb_multiply.launches + gf2_limb_power.launches > k14
+
+
+def test_digit_fields_on_cuda_match_cpu(cuda_device):
+    F = gt.GF(3**30)
+    x = F.Random(4096, seed=1, device="cpu")
+    y = F.Random(4096, low=1, seed=2, device="cpu")
+    xc, yc = F(x._data, device=cuda_device), F(y._data, device=cuda_device)
+    for got, want in ((xc * yc, x * y), (xc / yc, x / y), (xc - yc, x - y), (xc + yc, x + y)):
+        assert got.device.type == "cuda" and torch.equal(got._data.cpu(), want._data)
+
+
+# (order, taps): GF(2), GF(2^8) with a warp and with several warps, GF(2^31 - 1), GF(3^5) by its tables,
+# and above 1024 taps (the state in shared memory, and above 19,008 taps in global memory)
+LFSR_CASES = [
+    (2, 20), (2**8, 32), (2**8, 100), (2**8, 1024), (2**31 - 1, 16), (3**5, 7), (2**16, 40), (65537, 5), (2, 5000),
+    (2**8, 1500), (2**8, 20000), (2**31 - 1, 19009),
+]
+
+
+@pytest.mark.parametrize(["q", "k"], LFSR_CASES)
+@pytest.mark.parametrize("kind", ["fibonacci", "galois"])
+def test_lfsr_step_kernel_matches_plain(cuda_device, q, k, kind):
+    """K12 against its plain tick loop on the card, forwards and backwards."""
+    from galois_tpu_torch.fields._hostfield import get_host_field
+    from galois_tpu_torch.ops._lfsr_scan import lfsr_step, lfsr_step_plain
+
+    F = gt.GF(q)
+    ops = get_ops(F._meta, F._mode)
+    rng = np.random.default_rng(k)
+    state = F(rng.integers(0, q, k), device=cuda_device)._data
+    taps = F(rng.integers(1, q, k), device=cuda_device)._data
+    end = k - 1 if kind == "fibonacci" else 0
+    inv = get_host_field(F._meta).reciprocal(int(taps[end]))
+    for direction in ("forward", "backward"):
+        n = 300
+        s, y = lfsr_step(ops, state, taps, n, kind, direction, inv)
+        inv_t = torch.full((1,), inv, dtype=state.dtype, device=cuda_device)
+        s_p, y_p = lfsr_step_plain(ops, state, taps, n, kind, direction, inv_t)
+        assert torch.equal(s, s_p) and torch.equal(y, y_p)
+
+
+@pytest.mark.parametrize("q", [2, 2**8, 2**31 - 1, 3**5, 2**16])
+def test_berlekamp_massey_long_kernel_matches_plain(cuda_device, q):
+    """K13 against its plain scan on the card: a random sequence (complexity
+    near N / 2), an LFSR's output, the high-complexity impulse; and one
+    sequence past the shared-memory capacity (global scratch)."""
+    from galois_tpu_torch.ops._lfsr_scan import berlekamp_massey_long, berlekamp_massey_long_plain
+
+    F = gt.GF(q)
+    ops = get_ops(F._meta, F._mode)
+    rng = np.random.default_rng(q % 1000)
+    lf = gt.FLFSR(gt.Poly([1] + [int(v) for v in rng.integers(0, q, 11)] + [1], field=F), state=F(rng.integers(1, q, 12), device=cuda_device))
+    seqs = [F(rng.integers(0, q, 600), device=cuda_device)._data, lf.step(600)._data, F([0] * 599 + [1], device=cuda_device)._data]
+    for seq in seqs:
+        c, L = berlekamp_massey_long(ops, seq)
+        c_p, L_p = berlekamp_massey_long_plain(ops, seq)
+        assert int(L) == int(L_p) and torch.equal(c, c_p)
+    if q == 2:
+        seq = F(rng.integers(0, 2, 20000), device=cuda_device)._data
+        c, L = berlekamp_massey_long(ops, seq)
+        assert 9800 < int(L) < 10200
+        # the connection polynomial regenerates the sequence: sum_i c[i] s[t - i] = 0 for t >= L
+        cc, s = c[: int(L) + 1].to(torch.float32), seq.to(torch.float32)
+        win = s.unfold(0, int(L) + 1, 1).flip(-1)  # rows s[t], s[t - 1], ..., s[t - L]
+        assert not bool(((win @ cc).to(torch.int64) & 1).any())
+
+
+def test_lfsr_and_berlekamp_massey_never_read_back(cuda_device):
+    """One K12 step and one long K13 scan under sync debug mode "error"."""
+    from galois_tpu_torch.ops._lfsr_scan import berlekamp_massey_long, lfsr_step
+
+    F = gt.GF(2**8)
+    ops = get_ops(F._meta, F._mode)
+    state = F(np.arange(1, 33), device=cuda_device)._data
+    taps = F(np.arange(2, 34), device=cuda_device)._data
+    seq = F(np.arange(4096) % 256, device=cuda_device)._data
+    calls = [lambda: lfsr_step(ops, state, taps, 5000, "galois", "forward"), lambda: berlekamp_massey_long(ops, seq)]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

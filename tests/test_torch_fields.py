@@ -135,8 +135,8 @@ def test_field_errors_match_jax_contract():
         F([0, 2]) ** -1
     with pytest.raises(TypeError):
         F([1]) + gt.GF(7)([1])
-    with pytest.raises(NotImplementedError):
-        gt.GF(3**20)  # digit storage (order > 2^31) is not ported
+    with pytest.raises(LookupError):
+        gt.GF(2**128)  # no Conway polynomial for it, as in the JAX package
 
 
 def test_from_numpy_and_devices():

@@ -119,10 +119,12 @@ def test_bls12_381_factorization_is_fast():
 
 
 def test_other_limb_kinds_still_raise():
-    with pytest.raises(NotImplementedError, match="LimbBinaryOps"):
-        gt.GF(2**40)
-    with pytest.raises(NotImplementedError, match="digit storage"):
-        gt.GF(3**21)
+    # GF(2^m), m > 32, and odd p^m > 2^31, once raises, now the JAX package's fields
+    for q, storage, width in ((2**40, "limbs", 3), (3**21, "digits", 21)):
+        Ft, Fj = gt.GF(q), gj.GF(q)
+        assert (Ft._meta.storage, Ft._meta.storage_width) == (Fj._meta.storage, Fj._meta.storage_width) == (storage, width)
+        vals = [1, 2, q - 1, q // 3]
+        _same(Ft(vals) * Ft(vals[::-1]), Fj(vals) * Fj(vals[::-1]))
     # the NTT over a limb field, once a raise, now the JAX package's transform
     _same(np.fft.fft(gt.GF(GOLDILOCKS)([1, 2, 3, 4])), np.fft.fft(gj.GF(GOLDILOCKS)([1, 2, 3, 4])))
 
