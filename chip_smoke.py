@@ -180,14 +180,21 @@ Phases, each fatal on failure:
      from L on and the FLFSR regenerates the rest). Each line starts
      with nvidia-smi's card and power limit, then ms, launches and peak
      memory; K12, K13 and the two K14 entries must have been launched.
-     Before the counted runs, phase 3 holds K12 (at the three registers,
-     forward and backward; at the order of the 2^14-element
-     Berlekamp-Massey result, 8192, in shared memory, and at 20000 taps in
-     global memory), K13 (at path 8's sequences: the 2^14 GF(2) elements,
-     8192 GF(2^8) and 4096 GF(2^31 - 1) register outputs; and 1024 random
-     elements) and K14 (GF(2^128) and GF(2^233) products, squares,
-     reciprocals, square roots and exponent words on 2^10-2^16 slices)
-     against their plain versions on the card, and times each.
+     Before the counted runs, phase 3 holds K12 (the block form's matrices
+     as the wrapper builds them, at the three registers; then forward and
+     backward, at 1, 31, 33, 64, 65, 1024, 8192 and 10007 ticks around its
+     32-tick blocks; over GF(2^8) at 1, 31, 32, 33 and 1024 taps in every
+     mode; at the order of the 2^14-element Berlekamp-Massey result, 8192,
+     in shared memory, and at 20000 taps in global memory), K13 (at path
+     8's sequences: the 2^14 GF(2) elements, 8192 GF(2^8) and 4096
+     GF(2^31 - 1) register outputs; and 1024 random elements) and K14
+     (GF(2^128) and GF(2^233) products and squares on 2^16 elements, powers
+     by 0, 1, 2^m - 2, 2^m - 1, 2^(m - 1) and exponent words with zeros on
+     2^12, and the GF(2^128) reciprocal on the 2^22 elements it is timed
+     at; the same at m = 33, 65 and 576 and at dense irreducible f of
+     degree 64, 128 and 129) against their plain versions on the card, and
+     times each, K14 beside its form's own operation and shared-memory
+     counts.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -999,6 +1006,41 @@ def py_inv_mod(a, m, f):
     return r
 
 
+def k14_costs(m, f):
+    """32-bit integer operations and shared-memory words of K14's forms
+    (csrc/gf2_limb.cu) per element, counted as ``scan_ops`` counts: N = 2
+    ceil(m / 64) words, T terms of f - x^m. Product: a into the frame and
+    its shifts by 1, 2, 3 (4 (N + 1) SHF), the 16 multiples (12 (N + 1)
+    LOP3), the comb (8 positions of N nibbles at 2 operations and N (N + 1)
+    XORs at two a LOP3, 7 shifts of 2N words), the reduction, the shift out
+    of the frame (N) and the limb packing (2N); 16 (N + 1) table writes and
+    8 N (N + 1) reads. Square: 2N spread words at 7, the shift into the
+    frame (2N), the reduction, N and 2N. Reduction: sparse f two passes of
+    T (N + 1) SHF and (N + 1) / 2 LOP3; dense f 4N bytes of 2 + 1.5 (N + 1)
+    and N table reads each. The reciprocal is ``chain_costs``' squares and
+    products."""
+    from galois_tpu_torch.ops._limb_binary import fold_inputs
+
+    N = 2 * -(-m // 64)
+    terms = fold_inputs(m, f)[1]
+    sparse, T = terms is not None, len(terms or ())
+    red = 2 * T * 1.5 * (N + 1) if sparse else 4 * N * (2 + 1.5 * (N + 1))
+    red_smem = 0 if sparse else 4 * N * N
+    mul = 16 * (N + 1) + 16 * N + 4 * N * (N + 1) + 14 * N + red + N + 2 * N
+    mul_smem = 16 * (N + 1) + 8 * N * (N + 1) + red_smem
+    sqr = 14 * N + 2 * N + red + N + 2 * N
+    c = chain_costs(m, f)
+    return {"mul": mul, "mul_smem": mul_smem, "sqr": sqr, "inv_sq": c["inv_sq"], "inv_mul": c["inv_mul"],
+            "inv": c["inv_sq"] * sqr + c["inv_mul"] * mul, "inv_smem": c["inv_sq"] * red_smem + c["inv_mul"] * mul_smem}
+
+
+def smem_text(words, ms):
+    """The shared-memory words of a form at one conflict-free wavefront (32
+    words) a clock per SM: a count of the form, not a bound on the map."""
+    t = words / 32 / SMEM_WAVEFRONTS_PER_S * 1e3
+    return f"its shared-memory words {t:.4f} ms at one wavefront a clock per SM, the kernel at {t / ms:.0%} of them"
+
+
 def scan_limb_kernels(gt, dev, record, smi):
     """Phase 3 for K12, K13 and K14: each kernel against its plain torch
     version on the card at the shapes main path 8 gives it (exact), timed
@@ -1009,12 +1051,20 @@ def scan_limb_kernels(gt, dev, record, smi):
     from galois_tpu_torch.fields._hostfield import get_host_field
     from galois_tpu_torch.ops._kernels import get_ops
     from galois_tpu_torch.ops._lfsr_scan import (
+        BLOCK_TICKS,
+        _blocks,
+        _field,
         berlekamp_massey_long,
         berlekamp_massey_long_plain,
+        block_inputs,
+        block_matrices,
         lfsr_step,
         lfsr_step_plain,
     )
     from galois_tpu_torch.ops._limb_binary import (
+        DENSE_MODULI,
+        EDGE_MODULI,
+        fold_inputs,
         gf2_limb_multiply,
         gf2_limb_multiply_plain,
         gf2_limb_power,
@@ -1030,44 +1080,6 @@ def scan_limb_kernels(gt, dev, record, smi):
             raise AssertionError(f"{tag} disagrees with its plain version")
         return err
 
-    # K14: GF(2^128) (GCM's f) at the main path's 2^24, held on a 2^16 slice; GF(2^233) (B-233's f)
-    for q, f, n in ((2**128, "x^128 + x^7 + x^2 + x + 1", 2**24), (2**233, "x^233 + x^74 + 1", 2**22)):
-        F = gt.GF(q, irreducible_poly=f)
-        m, fi, L = F._meta.degree, F._meta.irreducible_poly_int, F._meta.storage_width
-        x = F.Random(n, seed=m, device=dev)._data
-        y = F.Random(n, seed=m + 1, device=dev)._data
-        s = slice(0, 2**16)
-        err = check(f"K14 gf2_limb_multiply GF(2^{m}) 2^16 of {n}", gf2_limb_multiply(x, y, m, fi)[:, s], gf2_limb_multiply_plain(x[:, s], y[:, s], m, fi))
-        err = max(err, check(f"K14 square GF(2^{m}) 2^16", gf2_limb_square(x[:, s], m, fi), gf2_limb_square_plain(x[:, s], m, fi)))
-        one = y[:, :1].reshape(-1)
-        err = max(err, check(f"K14 gf2_limb_multiply GF(2^{m}) one-element operand", gf2_limb_multiply(x[:, s], one, m, fi), gf2_limb_multiply_plain(x[:, s], one, m, fi)))
-        t = slice(0, 2**12)
-        perr = check(f"K14 gf2_limb_power GF(2^{m}) reciprocal 2^12", gf2_limb_power(x[:, t], 2**m - 2, m, fi), gf2_limb_power_plain(x[:, t], 2**m - 2, m, fi))
-        perr = max(perr, check(f"K14 gf2_limb_power GF(2^{m}) sqrt 2^12", gf2_limb_power(x[:, t], 2 ** (m - 1), m, fi), gf2_limb_power_plain(x[:, t], 2 ** (m - 1), m, fi)))
-        ew = [torch.randint(0, 2**62, (2**10,), device=dev), torch.randint(0, 2, (2**10,), device=dev)]
-        perr = max(perr, check(f"K14 gf2_limb_power GF(2^{m}) exponent words 2^10", gf2_limb_power(x[:, :2**10], ew, m, fi, 63), gf2_limb_power_plain(x[:, :2**10], ew, m, fi, 63)))
-        if q == 2**128:
-            # timed at 2^24: the product by graph replay, its plain form once; bound: 3 x 2^24 x 16 bytes
-            ms = graph_ms(lambda: gf2_limb_multiply(x, y, m, fi), 10)
-            pms = eager_ms(lambda: gf2_limb_multiply_plain(x, y, m, fi), 1)
-            nbytes = 3 * n * 2 * L
-            form_ops = n * m * (2 * (6 * 2 + 4))  # m steps of about 6W + 4 64-bit operations, two 32-bit each
-            record("gf2_limb_multiply", err, ms, pms, bound(nbytes))
-            print(f"[kernel] {smi} | K14 gf2_limb_multiply GF(2^128) n=2^24: {ms:.3f} ms (graph replay) | plain {pms:.1f} ms | "
-                  + bounds_text(nbytes, form_ops, ms), flush=True)
-            u = x[:, : 2**22]
-            ms = graph_ms(lambda: gf2_limb_power(u, 2**m - 2, m, fi), 2)
-            pms = eager_ms(lambda: gf2_limb_power_plain(u, 2**m - 2, m, fi), 1)
-            nbytes = 2 * 2**22 * 2 * L
-            record("gf2_limb_power", perr, ms, pms, bound(nbytes))
-            print(f"[kernel] {smi} | K14 gf2_limb_power GF(2^128) reciprocal n=2^22: {ms:.3f} ms (graph replay) | plain "
-                  f"(Itoh-Tsujii) {pms:.1f} ms | " + bounds_text(nbytes, 2**22 * 254 * m * 32, ms), flush=True)
-        else:
-            record("gf2_limb_multiply", err)
-            record("gf2_limb_power", perr)
-        del x, y
-        torch.cuda.empty_cache()
-
     def once_ms(fn):
         """fn()'s result and its CUDA-event time, one call."""
         torch.cuda.synchronize()
@@ -1078,8 +1090,79 @@ def scan_limb_kernels(gt, dev, record, smi):
         torch.cuda.synchronize()
         return out, t0.elapsed_time(t1)
 
-    def k12_check(tag, ops, st, tp, kind, direction, n, inv):
-        s, y = lfsr_step(ops, st, tp, n, kind, direction, inv)
+    # K14: GF(2^128) (GCM's f) at the main path's 2^24, held on a 2^16 slice; GF(2^233) (B-233's f)
+    def k14_case(tag, x, y, m, fi, n_pow):
+        """Product, square, a one-element operand, the power entries (0, 1,
+        the reciprocal, 2^m - 1, the square root, exponent words with zeros)
+        against the plain versions on the card; (product error, power error)."""
+        err = check(f"K14 gf2_limb_multiply {tag}", gf2_limb_multiply(x, y, m, fi), gf2_limb_multiply_plain(x, y, m, fi))
+        err = max(err, check(f"K14 square {tag}", gf2_limb_square(x, m, fi), gf2_limb_square_plain(x, m, fi)))
+        one = y[:, :1].reshape(-1)
+        err = max(err, check(f"K14 gf2_limb_multiply {tag} one-element operand", gf2_limb_multiply(x, one, m, fi),
+                             gf2_limb_multiply_plain(x, one, m, fi)))
+        u, perr = x[:, :n_pow], 0
+        for e, name in ((0, "0"), (1, "1"), (2**m - 2, "reciprocal"), (2**m - 1, "2^m - 1"), (2 ** (m - 1), "sqrt")):
+            perr = max(perr, check(f"K14 gf2_limb_power {tag} e = {name}, {n_pow} elements", gf2_limb_power(u, e, m, fi),
+                                   gf2_limb_power_plain(u, e, m, fi)))
+        ew = [torch.randint(0, 2**62, (n_pow,), device=dev), torch.randint(0, 2, (n_pow,), device=dev)]
+        ew[0][::4] = 0
+        ew[1][::2] = 0
+        perr = max(perr, check(f"K14 gf2_limb_power {tag} exponent words with zeros, {n_pow} elements",
+                               gf2_limb_power(u, ew, m, fi, 63), gf2_limb_power_plain(u, ew, m, fi, 63)))
+        return err, perr
+
+    for q, f, n in ((2**128, "x^128 + x^7 + x^2 + x + 1", 2**24), (2**233, "x^233 + x^74 + 1", 2**22)):
+        F = gt.GF(q, irreducible_poly=f)
+        m, fi, L = F._meta.degree, F._meta.irreducible_poly_int, F._meta.storage_width
+        x = F.Random(n, seed=m, device=dev)._data
+        y = F.Random(n, seed=m + 1, device=dev)._data
+        s = slice(0, 2**16)
+        err = check(f"K14 gf2_limb_multiply GF(2^{m}) 2^16 of {n}", gf2_limb_multiply(x, y, m, fi)[:, s],
+                    gf2_limb_multiply_plain(x[:, s], y[:, s], m, fi))
+        e2, perr = k14_case(f"GF(2^{m}) 2^16", x[:, s], y[:, s], m, fi, 2**12)
+        err = max(err, e2)
+        if q == 2**128:
+            # timed at 2^24: the product by graph replay, its plain form once; bound: 3 x 2^24 x 16 bytes
+            costs = k14_costs(m, fi)
+            ms = graph_ms(lambda: gf2_limb_multiply(x, y, m, fi), 10)
+            pms = eager_ms(lambda: gf2_limb_multiply_plain(x, y, m, fi), 1)
+            nbytes = 3 * n * 2 * L
+            record("gf2_limb_multiply", err, ms, pms, bound(nbytes))
+            print(f"[kernel] {smi} | K14 gf2_limb_multiply GF(2^128) n=2^24: {ms:.3f} ms (graph replay) | plain {pms:.1f} ms | "
+                  + bounds_text(nbytes, n * costs["mul"], ms) + " | " + smem_text(n * costs["mul_smem"], ms), flush=True)
+            # the reciprocal at 2^22, held whole against the plain version's result from its timed call
+            u = x[:, : 2**22]
+            ms = graph_ms(lambda: gf2_limb_power(u, 2**m - 2, m, fi), 2)
+            want, pms = once_ms(lambda: gf2_limb_power_plain(u, 2**m - 2, m, fi))
+            perr = max(perr, check("K14 gf2_limb_power GF(2^128) reciprocal, 2^22 elements", gf2_limb_power(u, 2**m - 2, m, fi),
+                                   want))
+            del want
+            nbytes = 2 * 2**22 * 2 * L
+            record("gf2_limb_power", perr, ms, pms, bound(nbytes))
+            print(f"[kernel] {smi} | K14 gf2_limb_power GF(2^128) reciprocal n=2^22 (Itoh-Tsujii: {costs['inv_sq']} squares, "
+                  f"{costs['inv_mul']} products): {ms:.3f} ms (graph replay) | plain (Itoh-Tsujii) {pms:.1f} ms | "
+                  + bounds_text(nbytes, 2**22 * costs["inv"], ms) + " | " + smem_text(2**22 * costs["inv_smem"], ms), flush=True)
+        else:
+            record("gf2_limb_multiply", err)
+            record("gf2_limb_power", perr)
+        del x, y
+        torch.cuda.empty_cache()
+    # K14 at the word edges (m = 33, 65, 576; sparse f) and at dense irreducible moduli (the byte
+    # table): raw moduli on random limbs, no field built
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for m, fi in EDGE_MODULI + DENSE_MODULI:
+        L = -(-m // 16)
+        top = m - 16 * (L - 1)
+        masks = torch.tensor([0xFFFF] * (L - 1) + [(1 << top) - 1], device=dev).reshape(L, 1)
+        x, y = ((torch.randint(0, 2**16, (L, 4096), generator=gen, device=dev) & masks).to(torch.int32).to(torch.int16)
+                .view(torch.uint16) for _ in range(2))
+        kind = "sparse" if fold_inputs(m, fi)[1] else "dense"
+        err, perr = k14_case(f"m = {m} ({kind} f) 4096", x, y, m, fi, 16)
+        record("gf2_limb_multiply", err)
+        record("gf2_limb_power", perr)
+
+    def k12_check(tag, ops, st, tp, kind, direction, n, inv, blocks=None):
+        s, y = lfsr_step(ops, st, tp, n, kind, direction, inv, blocks)
         inv_t = torch.full((1,), inv, dtype=st.dtype, device=dev)
         s_p, y_p = lfsr_step_plain(ops, st, tp, n, kind, direction, inv_t)
         return check(f"K12 lfsr_step {tag} {kind} {direction} {n} ticks", torch.cat([s, y]), torch.cat([s_p, y_p])), y
@@ -1111,18 +1194,43 @@ def scan_limb_kernels(gt, dev, record, smi):
         st = F(rng.integers(1, F.order, k), device=dev)._data
         tp = F(taps, device=dev)._data
         inv = hf.reciprocal(taps[k - 1 if kind == "fibonacci" else 0])
+        blocks = {}  # the block form's matrices, kept as a register keeps them
         for direction, n in (("forward", 8192), ("backward", 1024)):
-            e, y = k12_check(tag, ops, st, tp, kind, direction, n, inv)
+            # the matrices as the wrapper builds them (one launch on the k basis states) and as the
+            # plain tick loop does on the identity, in the kernel's layout
+            inv_t = torch.full((1,), inv, dtype=st.dtype, device=dev)
+            got = _blocks(ops, tp, kind, direction, inv, _field(ops, dev))
+            want = block_inputs(ops, *block_matrices(ops, tp, kind, direction, inv_t)[:2], k)
+            err = max(err, check(f"K12 block form's matrices {tag} {kind} {direction}",
+                                 torch.cat([x.reshape(-1) for x in got if x is not None]),
+                                 torch.cat([x.reshape(-1) for x in want if x is not None])))
+            e, y = k12_check(tag, ops, st, tp, kind, direction, n, inv, blocks)
             err = max(err, e)
             outputs[F.name, direction] = y
+        # the block form's edges: fewer than two blocks (tick by tick), whole blocks, a tail
+        for direction in ("forward", "backward"):
+            for n in (1, BLOCK_TICKS - 1, BLOCK_TICKS + 1, 2 * BLOCK_TICKS, 2 * BLOCK_TICKS + 1, 10007):
+                err = max(err, k12_check(tag, ops, st, tp, kind, direction, n, inv, blocks)[0])
         if F is F2:
             n = 2**14
-            ms = eager_ms(lambda: lfsr_step(ops, st, tp, n, kind, "forward"), 3)
+            ms = eager_ms(lambda: lfsr_step(ops, st, tp, n, kind, "forward", 0, blocks), 3)
             pms = eager_ms(lambda: lfsr_step_plain(ops, st, tp, n, kind, "forward"), 1)
             nbytes = 2 * k + n  # state and taps in, the state and n outputs out (uint8)
             k12_line = (err, ms, pms, bound(nbytes))
             print(f"[kernel] {smi} | K12 lfsr_step {tag} Fibonacci {n} ticks: {ms:.3f} ms ({ms / n * 1e3:.3f} us a tick) | "
                   f"plain {pms:.1f} ms | bound {bound(nbytes)[0]:.6f} ms (bytes; a chain of {n} dependent ticks)", flush=True)
+
+    # the block form at k = 1, 31, 32, 33 (one warp) and 1024 (32 warps), every mode, over GF(2^8)
+    ops8, hf8 = get_ops(F8._meta, F8._mode), get_host_field(F8._meta)
+    for k in (1, 31, 32, 33, 1024):
+        st = F8(rng.integers(0, 256, k), device=dev)._data
+        tp = F8(rng.integers(1, 256, k), device=dev)._data
+        for kind, end in (("fibonacci", k - 1), ("galois", 0)):
+            blocks = {}
+            for direction in ("forward", "backward"):
+                for n in (1031, BLOCK_TICKS - 1, 2 * BLOCK_TICKS + 1):  # the first builds the block form
+                    err = max(err, k12_check(f"GF(2^8) order {k}", ops8, st, tp, kind, direction, n,
+                                             hf8.reciprocal(int(tp[end])), blocks)[0])
 
     # K13 at the main path's shapes: its 2^14 random GF(2) elements, 8192 outputs of the GF(2^8) register,
     # 4096 of the GF(2^31-1) one; timed at 2^14 (the plain scan once, as it is checked)
@@ -1162,7 +1270,6 @@ def scan_limb_kernels(gt, dev, record, smi):
         err = max(err, k12_check(f"GF(2) order {L}", ops2, st, tp1.flip(0), "galois", direction, 4096, 1)[0])
     # above the shared memory: the state in the wrapper's global scratch
     k = 20000
-    ops8, hf8 = get_ops(F8._meta, F8._mode), get_host_field(F8._meta)
     st = F8(rng.integers(0, 256, k), device=dev)._data
     tp = F8(rng.integers(1, 256, k), device=dev)._data
     for kind, end in (("fibonacci", k - 1), ("galois", 0)):

@@ -12,7 +12,9 @@ raises):
 - ``step(n)``: fields that ``ops/_lfsr_scan.py::scan_supports`` names, int
   storage with GF(p), p < 2^32, GF(2^m), m <= 32, or GF(p^m), p odd,
   p^m <= 2^16, go to kernel K12 (``lfsr_step``) at every order: one launch
-  for all n ticks on a CUDA register, its plain tick loop on a CPU one.
+  for all n ticks on a CUDA register (and, up to 1024 taps, one more the
+  first time a direction takes the block form: the register keeps its
+  matrices), its plain tick loop on a CPU one.
   Every other field (GF(2^m), m > 32, on limbs, GF(p) above 2^32, the
   digit fields, odd p^m between 2^16 and 2^31) runs the plain torch tick
   loop on the register's device. The JAX package runs
@@ -75,6 +77,7 @@ class _LFSR:
             taps = taps[::-1]
         self._taps_int = taps
         self._taps = self._field(np.array(taps, dtype=object), device=self._state.device)
+        self._blocks = {}  # K12's block form of these taps, per direction and device (lfsr_step's ``blocks``)
 
     @classmethod
     def Taps(cls, taps, state=None):
@@ -149,7 +152,7 @@ class _LFSR:
         end = self._order - 1 if self._kind == "fibonacci" else 0  # the tap a backward step divides by
         if scan_supports(meta):
             inv = get_host_field(meta).reciprocal(self._taps_int[end]) if direction == "backward" else 0
-            new_state, y = lfsr_step(ops, state, taps, n, self._kind, direction, inv)
+            new_state, y = lfsr_step(ops, state, taps, n, self._kind, direction, inv, self._blocks)
         else:
             ax = 1 if meta.storage_first else 0
             inv = ops.reciprocal(taps.narrow(ax, end, 1)) if direction == "backward" else None

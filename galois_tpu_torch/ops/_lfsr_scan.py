@@ -1,7 +1,12 @@
 """Kernels K12 and K13: the shift-register scan and the long
 Berlekamp-Massey scan of ``lfsr.py``, each one launch of one CTA (CUDA C++
 in ``csrc/lfsr.cu``, the field arithmetic in ``csrc/field_scan.cuh``; the
-source's head gives the design and what bounds each on the H100).
+source's head gives the design and what bounds each on the H100). Up to
+1024 taps K12 takes 32 ticks at a time as two fixed matrix products of the
+taps and the mode (``block_matrices`` builds them by the plain tick loop on
+the identity; the wrapper by one launch of the kernel itself on the k basis
+states, kept by the register between calls), and the rest of the ticks one
+by one.
 
 ``lfsr_step_plain`` is the JAX package's four ``lax.scan`` tick functions
 (``galois_tpu/lfsr.py:63-106``) as a torch loop over the ticks, on any field
@@ -31,6 +36,11 @@ from ._linalg import _field_reduce
 from ._limbs import _where
 
 __all__ = [
+    "BLOCK_TICKS",
+    "BUILD_TICKS",
+    "block_matrices",
+    "block_layout",
+    "block_inputs",
     "scan_supports",
     "lfsr_step",
     "lfsr_step_plain",
@@ -39,6 +49,14 @@ __all__ = [
 ]
 
 _MODES = {("fibonacci", "forward"): 0, ("fibonacci", "backward"): 1, ("galois", "forward"): 2, ("galois", "backward"): 3}
+BLOCK_TICKS = 32  # K12's ticks a block (csrc/lfsr.cu BLK)
+# A call without the block form's matrices builds them from this many ticks: the build (one launch
+# of B ticks on k registers and about 35 small torch passes: about 0.5 ms, mostly host time, beside
+# an H100) then costs less than the ticks it saves (0.4-0.55 us each tick by tick there)
+BUILD_TICKS = 32 * BLOCK_TICKS
+_BLOCK_MAX_TAPS = 1024  # the block form's largest register; above, tick by tick
+# field_scan.cuh's kinds
+_GF2, _PRIME, _BINARY, _BINTAB, _ODDTAB = range(5)
 
 
 def scan_supports(meta: FieldMeta) -> bool:
@@ -132,35 +150,137 @@ def berlekamp_massey_long_plain(ops, seq):
     return c, L
 
 
+def block_matrices(ops, taps, kind: str, direction: str, inv_tap=None, B: int = BLOCK_TICKS):
+    """K12's block form for B ticks of the register with these taps (k,),
+    in storage: (D, G, P, Y) from B ticks of ``lfsr_step_plain`` on the
+    identity (column c the basis state e_c), so that B ticks of any state s
+    are the outputs Y s and the state P s. D (B, k) is what the kernel's
+    dots compute: the outputs Y for Galois and Fibonacci backward, and for
+    Fibonacci forward the feedback values of the B ticks (tick t's is output
+    t + k, or row B - 1 - t of the new state). G (k, min(B, k)), Galois
+    only (None for Fibonacci), is the columns of P that the shift of the
+    state by B does not cover: those of the B elements that leave it (the
+    last min(B, k) forward, the first backward). ``inv_tap``: as
+    ``lfsr_step_plain``'s."""
+    k = taps.shape[0]
+    eye = torch.eye(k, dtype=torch.int64, device=taps.device).to(taps.dtype)
+    P, Y = lfsr_step_plain(ops, eye, taps.reshape(k, 1), B, kind, direction, inv_tap)
+    return (*_block_form(P, Y, kind, direction), P, Y)
+
+
+def _block_form(P, Y, kind: str, direction: str):
+    """``block_matrices``' (D, G) from P (k, k) and Y (B, k)."""
+    k, B = P.shape[0], Y.shape[0]
+    if kind == "galois":
+        cw = min(B, k)
+        col0 = k - cw if direction == "forward" else 0
+        return Y, P[:, col0 : col0 + cw]
+    if direction == "forward":  # rows t < B - k: Y[t + k]; the rest P[B - 1 - t]
+        return torch.cat([Y[k:], P[: min(B, k)].flip(0)]), None
+    return Y, None
+
+
+def block_layout(M, threads: int, rows_first: bool) -> torch.Tensor:
+    """The kernel's layout of a block matrix for a CTA of ``threads``
+    threads, (BLOCK_TICKS, threads) int64: thread tid's r-th entry at
+    [r, tid]. D (rows_first): thread (w, l) = (tid // 32, tid % 32) takes row
+    l's entries w, w + nw, w + 2 nw, ... (nw = threads / 32); G: thread i
+    takes row i. Entries past the matrix are 0."""
+    r = torch.arange(BLOCK_TICKS, device=M.device).unsqueeze(1)
+    tid = torch.arange(threads, device=M.device).unsqueeze(0)
+    if rows_first:
+        row, col = (tid % 32).expand(BLOCK_TICKS, -1), tid // 32 + (threads // 32) * r
+    else:
+        row, col = tid.expand(BLOCK_TICKS, -1), r.expand(-1, threads)
+    ok = (row < M.shape[0]) & (col < M.shape[1])
+    vals = M.to(torch.int64)[row.clamp(max=M.shape[0] - 1), col.clamp(max=M.shape[1] - 1)]
+    return torch.where(ok, vals, torch.zeros_like(vals))
+
+
 # ----------------------------------------------------------------------
 # The kernels' wrappers
 # ----------------------------------------------------------------------
 
 class _Field(ctypes.Structure):
     _fields_ = [
-        ("kind", ctypes.c_int),
         ("p", ctypes.c_uint32),
         ("m", ctypes.c_int),
         ("f", ctypes.c_uint32),
         ("q1", ctypes.c_uint32),
+        ("mu", ctypes.c_ulonglong),
+        ("pinv", ctypes.c_uint32),
+        ("sent", ctypes.c_uint32),
         ("exp", ctypes.c_void_p),
         ("log", ctypes.c_void_p),
     ]
 
 
-def _field(ops, device) -> _Field:
-    """The kernel's description of the ops' field; the EXP and LOG tables
-    (int32, from the field's one table cache on ``device``) for odd p^m."""
-    meta = ops.meta
+def _kind(meta) -> int:
+    """``field_scan.cuh``'s kind of a field ``scan_supports`` takes."""
     p, m = meta.characteristic, meta.degree
     if m == 1:
-        return _Field(0, p, 1, 0, meta.order - 1, None, None)
+        return _GF2 if p == 2 else _PRIME
     if p == 2:
-        return _Field(1, 2, m, meta.irreducible_poly_int ^ (1 << m), meta.order - 1, None, None)
+        return _BINTAB if m <= 16 else _BINARY
+    return _ODDTAB
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_tables(meta, device: str):
+    """The table kinds' (EXP extended, LOG) int32 tensors on ``device``: the
+    field's one EXP (2 (q - 1) entries) followed by 2 (q - 1) + 1 zeros, so
+    that EXP[LOG a + LOG b] is 0 where 0's LOG is taken as 2 (q - 1)."""
     from ._lookup import field_tables
 
-    exp_t, log_t = field_tables(meta, device)[:2]
-    return _Field(2, p, m, 0, meta.order - 1, exp_t.data_ptr(), log_t.data_ptr())
+    exp_t, log_t = field_tables(meta, torch.device(device))[:2]
+    return torch.cat([exp_t, torch.zeros(exp_t.numel() + 1, dtype=exp_t.dtype, device=exp_t.device)]), log_t
+
+
+def _field(ops, device):
+    """(kind, the kernel's description of the ops' field); for the table
+    kinds, the EXP (extended with zeros) and LOG tables on ``device``."""
+    meta = ops.meta
+    p, m, kind = meta.characteristic, meta.degree, _kind(meta)
+    q1 = meta.order - 1
+    F = _Field(p, m, 0, q1, 2**64 // p if kind == _PRIME else 0, -(-(2**32) // p) if kind == _ODDTAB else 0)
+    if kind == _BINARY:
+        F.f = meta.irreducible_poly_int ^ (1 << m)
+    if kind in (_BINTAB, _ODDTAB):
+        exp_t, log_t = _scan_tables(meta, str(device))
+        F.sent, F.exp, F.log = 2 * q1, exp_t.data_ptr(), log_t.data_ptr()
+    return kind, F
+
+
+def _blocks(ops, taps, kind: str, direction: str, inv_tap: int, F):
+    """The block form's D and G for these taps, laid out and prepared for
+    the kernel (int32): P and Y come from one launch of the kernel itself,
+    B ticks of k registers with these taps, register c from the basis state
+    e_c (``block_matrices`` builds the same by the plain loop), then a few
+    torch passes; nothing is read back."""
+    k, dev = taps.shape[0], taps.device
+    eye = torch.eye(k, dtype=torch.int64, device=dev).to(taps.dtype)
+    Pt = torch.empty((k, k), dtype=taps.dtype, device=dev)  # row c: the state after B ticks from e_c
+    Yt = torch.empty((k, BLOCK_TICKS), dtype=taps.dtype, device=dev)  # row c: its B outputs
+    _launch(eye, taps, Pt, Yt, BLOCK_TICKS, kind, direction, inv_tap, F, None, None, 0, k)
+    return block_inputs(ops, *_block_form(Pt.T, Yt.T, kind, direction), k)
+
+
+def block_inputs(ops, D, G, k: int):
+    """D and G (None for Fibonacci) as the kernel reads them: the entries,
+    or for the table kinds their LOG (2 (q - 1) for 0), in ``block_layout``'s
+    layout for the CTA of k taps, as int32."""
+    threads = -(-k // 32) * 32
+
+    def prepared(M):
+        M = M.to(torch.int64)
+        if _kind(ops.meta) in (_BINTAB, _ODDTAB):
+            log_t = _scan_tables(ops.meta, str(M.device))[1].to(torch.int64)
+            M = torch.where(M == 0, 2 * (ops.meta.order - 1), log_t[M])
+        return M
+
+    lay = [block_layout(prepared(D), threads, True)]
+    lay.append(None if G is None else block_layout(prepared(G), threads, False))
+    return [None if x is None else torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous() for x in lay]
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,9 +289,11 @@ def _lib():
 
     lib = load("lfsr")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.lfsr_step_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, ctypes.c_uint, vp, i32, _Field, vp]
+    lib.lfsr_step_launch.argtypes = [
+        vp, vp, vp, vp, i64, i32, i32, ctypes.c_uint, vp, i32, i32, _Field, vp, vp, i64, i32, vp,
+    ]
     lib.lfsr_scratch_needed.argtypes = [i32]
-    lib.bm_long_launch.argtypes = [vp, i64, vp, vp, vp, i32, _Field, vp]
+    lib.bm_long_launch.argtypes = [vp, i64, vp, vp, vp, i32, i32, _Field, vp]
     lib.bm_long_scratch_needed.argtypes = [i64]
     for fn in (lib.lfsr_step_launch, lib.lfsr_scratch_needed, lib.bm_long_launch, lib.bm_long_scratch_needed):
         fn.restype = i32
@@ -188,12 +310,37 @@ def _check(name: str, ops, *xs) -> None:
         raise TypeError(f"{name}: needs {ops.meta.torch_dtype} storage, got {[x.dtype for x in xs]}.")
 
 
-def lfsr_step(ops, state, taps, steps: int, kind: str, direction: str, inv_tap: int = 0):
+def _launch(state, taps, new_state, out, steps, kind, direction, inv_tap, F, D, G, nblk, nregs):
+    """One launch of K12 on ``nregs`` registers (counted in ``lfsr_step.launches``)."""
+    lib = _lib()
+    k = taps.shape[0]
+    scratch = torch.empty(3 * k, dtype=torch.int32, device=state.device) if lib.lfsr_scratch_needed(k) else None
+    with torch.cuda.device(state.device):
+        rc = lib.lfsr_step_launch(
+            state.data_ptr(), taps.data_ptr(), new_state.data_ptr(), out.data_ptr(), steps, k,
+            _MODES[(kind, direction)], inv_tap, None if scratch is None else scratch.data_ptr(),
+            int(state.dtype == torch.uint8), F[0], F[1], None if D is None else D.data_ptr(),
+            None if G is None else G.data_ptr(), nblk, nregs,
+            ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"lfsr_step: kernel launch failed with CUDA error {rc}.")
+    lfsr_step.launches += 1
+
+
+def lfsr_step(ops, state, taps, steps: int, kind: str, direction: str, inv_tap: int = 0, blocks=None):
     """K12: ``lfsr_step_plain``'s (state, outputs) for a field inside
     ``scan_supports``; ``inv_tap`` is the reciprocal of the end tap as a
     Python int (backward only). CPU tensors take the plain version; CUDA
     tensors launch the kernel (counted in ``lfsr_step.launches``) or raise.
-    The state lives in registers up to 1024 taps, in shared memory up to
+    Up to 1024 taps and from 2 BLOCK_TICKS ticks the kernel takes blocks of
+    BLOCK_TICKS ticks, the rest tick by tick, when it has the block form's
+    matrices: ``blocks`` is a dict that keeps them between calls for one
+    register (its taps, field and mode fixed; an LFSR keeps one), keyed by
+    direction and device. Where they are missing, a call of BUILD_TICKS or
+    more ticks builds them (``_blocks``, one more launch) and stores them in
+    ``blocks``; a shorter one runs tick by tick. The state lives in
+    registers and shared memory up to 1024 taps, in shared memory up to
     about 19,000, in a global scratch above."""
     if state.device.type == "cpu" and taps.device.type == "cpu":
         inv = torch.full((1,), inv_tap, dtype=state.dtype) if direction == "backward" else None
@@ -205,21 +352,22 @@ def lfsr_step(ops, state, taps, steps: int, kind: str, direction: str, inv_tap: 
     state, taps = state.contiguous(), taps.contiguous()
     new_state = torch.empty_like(state)
     out = torch.empty(steps, dtype=state.dtype, device=state.device)
-    if steps:
-        lib = _lib()
-        scratch = torch.empty(3 * k, dtype=torch.int32, device=state.device) if lib.lfsr_scratch_needed(k) else None
-        with torch.cuda.device(state.device):
-            rc = lib.lfsr_step_launch(
-                state.data_ptr(), taps.data_ptr(), new_state.data_ptr(), out.data_ptr(), steps, k,
-                _MODES[(kind, direction)], inv_tap, None if scratch is None else scratch.data_ptr(),
-                int(state.dtype == torch.uint8), _field(ops, state.device),
-                ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream),
-            )
-        if rc != 0:
-            raise RuntimeError(f"lfsr_step: kernel launch failed with CUDA error {rc}.")
-        lfsr_step.launches += 1
-    else:
+    if not steps:
         new_state.copy_(state)
+        return new_state, out
+    F = _field(ops, state.device)
+    nblk, lay = 0, None
+    if k <= _BLOCK_MAX_TAPS and steps >= 2 * BLOCK_TICKS:
+        key = (direction, str(state.device))
+        lay = None if blocks is None else blocks.get(key)
+        if lay is None and steps >= BUILD_TICKS:
+            lay = _blocks(ops, taps, kind, direction, inv_tap, F)
+            if blocks is not None:
+                blocks[key] = lay
+        if lay is not None:
+            nblk = steps // BLOCK_TICKS
+    D, G = lay if lay is not None else (None, None)
+    _launch(state, taps, new_state, out, steps, kind, direction, inv_tap, F, D, G, nblk, 1)
     return new_state, out
 
 
@@ -240,10 +388,11 @@ def berlekamp_massey_long(ops, seq):
     L = torch.empty((), dtype=torch.int64, device=seq.device)
     lib = _lib()
     scratch = torch.empty(3 * (N + 1), dtype=torch.int32, device=seq.device) if lib.bm_long_scratch_needed(N) else None
+    fk, F = _field(ops, seq.device)
     with torch.cuda.device(seq.device):
         rc = lib.bm_long_launch(
             seq.data_ptr(), N, c.data_ptr(), L.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            int(seq.dtype == torch.uint8), _field(ops, seq.device),
+            int(seq.dtype == torch.uint8), fk, F,
             ctypes.c_void_p(torch.cuda.current_stream(seq.device).cuda_stream),
         )
     if rc != 0:

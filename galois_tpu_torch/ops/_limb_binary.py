@@ -7,13 +7,17 @@ limbs of the m coefficient bits, planar: shape (L, *shape), the limb axis
 leading (``fields/_meta.py``). K14 replaces the ``lax.scan`` products of the
 JAX package's ``LimbBinaryOps`` (``multiply_t``, ``square_t`` and
 ``_reduce_t``, ``galois_tpu/ops/_kernels.py:1345-1416``): one thread an
-element packs its limbs into W = ceil(m / 64) 64-bit words, computes the
-product in registers and writes the limbs back; the power entry runs a
-whole square-and-multiply ladder in registers, one launch a call.
+element, its limbs in 32-bit words in registers; the product is a comb with a
+4-bit window over a table of the 16 multiples of a in shared memory, the
+square spreads bits, and one reduction serves both: by the few terms of a
+sparse f, or a byte at a time through a table of b x^m mod f
+(``fold_inputs`` builds both from f on the host). The power entry runs a
+whole chain in registers, one launch a call: Itoh-Tsujii for the
+reciprocal, squares for a^(2^j), a square-and-multiply ladder otherwise.
 
 The plain versions are the same maps in torch, on any device. A product
-of many elements is the kernel's own bit-serial form on (W, n) int64
-words, a torch pass a step (about 8m launches a product), in chunks of
+of many elements is a bit-serial form on (W, n) int64 words (W = ceil(m /
+64)), a torch pass a step (about 8m launches a product), in chunks of
 ``_PLAIN_CHUNK_BYTES``; a product of few elements (n 2m^2 bytes at most
 ``_OUTER_BYTES``) is a skewed outer product of the elements' bits summed
 mod 2, then the reduction as one GF(2) matrix product, a few launches
@@ -37,6 +41,7 @@ from ._elementwise import itoh_tsujii
 from ._limbs import _i16, align_planar, planar_power_words
 
 __all__ = [
+    "fold_inputs",
     "gf2_limb_multiply",
     "gf2_limb_multiply_plain",
     "gf2_limb_square",
@@ -50,6 +55,15 @@ MAX_WORDS = 9  # W <= 9 64-bit words: m <= 576, NIST's largest binary field GF(2
 _EXP_WORDS = 10  # a public exponent below 2^640 (the kernel's argument struct)
 _PLAIN_CHUNK_BYTES = 1 << 27
 _OUTER_BYTES = 1 << 24  # the plain product's outer-product form up to this many bytes
+_SPARSE_TERMS = 5  # a sparse f - x^m: at most this many terms, of degree at most m / 2
+# Moduli at K14's edges, for its checks against the plain versions: the word edges m = 33 (the
+# least), 65 (one bit into a second 64-bit word) and 576 (the most), sparse f; and dense irreducible
+# f of degree 64, 128 and 129 (more than half their coefficients nonzero, from
+# irreducible_poly(2, m, method="random")), which only the byte table reduces
+EDGE_MODULI = [(33, 2**33 + 2**13 + 1), (65, 2**65 + 2**18 + 1), (576, 2**576 + 2**11 + 2**5 + 2**2 + 1)]
+DENSE_MODULI = [
+    (64, 0x1FFB8B0884E9E4FE5), (128, 0x1BAFF70836FDA3851C04476E3579F8B0B), (129, 0x3A92BF38946685B87E8BA19981BDB8B1B),
+]
 
 
 # ----------------------------------------------------------------------
@@ -150,7 +164,7 @@ def _from_words(words: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def _mulmod_words(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> torch.Tensor:
-    """The kernel's product on (W, n) int64 words: b's bits from the top,
+    """The bit-serial product on (W, n) int64 words: b's bits from the top,
     r = r x mod f, then r ^= a where the bit is set (the x^m overflow of
     r x folds in as r = f - x^m)."""
     W = a.shape[0]
@@ -232,11 +246,68 @@ def gf2_limb_power_plain(a: torch.Tensor, e, m: int, f_int: int, nbits: int = 0)
 
 
 # ----------------------------------------------------------------------
+# The reduction's host inputs
+# ----------------------------------------------------------------------
+
+def _mod(v: int, m: int, f_int: int) -> int:
+    """v mod f in Python ints (f of degree m)."""
+    for i in range(v.bit_length() - 1, m - 1, -1):
+        if (v >> i) & 1:
+            v ^= f_int << (i - m)
+    return v
+
+
+@functools.lru_cache(maxsize=None)
+def fold_inputs(m: int, f_int: int):
+    """The kernel's reduction inputs for f of degree m, in its frame shifted
+    by s = 32 N - m (N = 2 ceil(m / 64) 32-bit words, so that x^m sits at
+    bit 32 N): (s, terms, table). ``terms`` is the list of (q, r) with
+    s + e = 32 q + r for each exponent e of f - x^m when it has at most 5
+    terms of degree at most m / 2 (two folds of the high half by those
+    terms reduce any product), else None; ``table`` is the (256, N) uint32
+    array of (b x^m mod f) x^s, b < 256, for the top-down byte fold that
+    serves every f (the kernel reads it only when ``terms`` is None)."""
+    N = 2 * -(-m // 64)
+    s = 32 * N - m
+    low = f_int ^ (1 << m)
+    exps = [i for i in range(low.bit_length()) if (low >> i) & 1]
+    terms = None
+    if len(exps) <= _SPARSE_TERMS and 2 * max(exps, default=0) <= m:
+        terms = [divmod(s + e, 32) for e in exps]
+    rows = [_mod(b << m, m, f_int) << s for b in range(256)]
+    table = np.array([[(v >> (32 * w)) & 0xFFFFFFFF for w in range(N)] for v in rows], dtype=np.uint32)
+    return s, terms, table
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(m: int, f_int: int, device: str) -> torch.Tensor:
+    """``fold_inputs``' byte table on ``device``, once per (m, f, device)."""
+    table = fold_inputs(m, f_int)[2]
+    return torch.from_numpy(table.view(np.int32).copy()).to(device)
+
+
+# ----------------------------------------------------------------------
 # The kernel's wrappers
 # ----------------------------------------------------------------------
 
 class _Words(ctypes.Structure):
     _fields_ = [("w", ctypes.c_ulonglong * _EXP_WORDS)]
+
+
+class _Fold(ctypes.Structure):
+    _fields_ = [("sparse", ctypes.c_int), ("nterms", ctypes.c_int), ("q", ctypes.c_int * _SPARSE_TERMS),
+                ("r", ctypes.c_int * _SPARSE_TERMS)]
+
+
+def _fold(m: int, f_int: int, device):
+    """(the kernel's fold struct, the byte table's pointer or None) for f."""
+    terms = fold_inputs(m, f_int)[1]
+    if terms is None:
+        return _Fold(0, 0), _device_table(m, f_int, str(device))
+    fold = _Fold(1, len(terms))
+    for i, (q, r) in enumerate(terms):
+        fold.q[i], fold.r[i] = q, r
+    return fold, None
 
 
 def _words(x: int, count: int = _EXP_WORDS) -> _Words:
@@ -252,8 +323,8 @@ def _lib():
 
     lib = load("gf2_limb")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.gf2_limb_mul_launch.argtypes = [vp, i64, i64, vp, i64, i64, vp, i64, i32, _Words, vp]
-    lib.gf2_limb_pow_launch.argtypes = [vp, i64, i64, vp, i64, i32, _Words, _Words, i32, vp, i64, i64, i32, vp]
+    lib.gf2_limb_mul_launch.argtypes = [vp, i64, i64, vp, i64, i64, vp, i64, i32, _Fold, vp, i32, vp]
+    lib.gf2_limb_pow_launch.argtypes = [vp, i64, i64, vp, i64, i32, _Fold, vp, i32, _Words, i32, vp, i64, i64, vp]
     lib.gf2_limb_mul_launch.restype = lib.gf2_limb_pow_launch.restype = i32
     return lib
 
@@ -293,26 +364,37 @@ def gf2_limb_multiply(a: torch.Tensor, b: torch.Tensor, m: int, f_int: int) -> t
 
 
 def gf2_limb_square(a: torch.Tensor, m: int, f_int: int) -> torch.Tensor:
-    """K14's square: the product kernel with b = a, one pass (counted in
-    ``gf2_limb_multiply.launches``); CPU tensors take the plain version."""
+    """K14's square: the kernel's square entry (bits spread, then the
+    reduction), one pass counted in ``gf2_limb_multiply.launches``; CPU
+    tensors take the plain version."""
     if a.device.type == "cpu":
         return gf2_limb_square_plain(a, m, f_int)
     _check("gf2_limb_square", m, f_int, a)
-    return _multiply_launch(a, a, m, f_int)
+    return _multiply_launch(a, None, m, f_int)
+
+
+def _stream(x: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def _multiply_launch(a, b, m: int, f_int: int) -> torch.Tensor:
+    """The product a * b, or the square of a where b is None."""
     L = a.shape[0]
-    a, b = align_planar(a, b)
-    shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    if b is not None:
+        a, b = align_planar(a, b)
+        shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    else:
+        shape = a.shape[1:]
     out = torch.empty((L,) + tuple(shape), dtype=torch.uint16, device=a.device)
     n = out[0].numel()
     if n:
-        (ta, ap, ae), (tb, bp, be) = _operand(a, L, shape), _operand(b, L, shape)
+        ta, ap, ae = _operand(a, L, shape)
+        tb, bp, be = _operand(b, L, shape) if b is not None else (ta, ap, ae)
+        fold, table = _fold(m, f_int, a.device)
         with torch.cuda.device(a.device):
             rc = _lib().gf2_limb_mul_launch(
-                ta.data_ptr(), ap, ae, tb.data_ptr(), bp, be, out.data_ptr(), n, m, _words(f_int ^ (1 << m)),
-                ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+                ta.data_ptr(), ap, ae, tb.data_ptr(), bp, be, out.data_ptr(), n, m, fold,
+                None if table is None else table.data_ptr(), int(b is None), _stream(a),
             )
         if rc != 0:
             raise RuntimeError(f"gf2_limb_multiply: kernel launch failed with CUDA error {rc}.")
@@ -320,12 +402,19 @@ def _multiply_launch(a, b, m: int, f_int: int) -> torch.Tensor:
     return out
 
 
+# the power kernel's entries (csrc/gf2_limb.cu): a public exponent's ladder,
+# the Itoh-Tsujii reciprocal, j squares for a^(2^j), per-element exponent words
+_LADDER, _INVERSE, _SQUARES, _WORDS = range(4)
+
+
 def gf2_limb_power(a: torch.Tensor, e, m: int, f_int: int, nbits: int = 0) -> torch.Tensor:
     """K14's power entry: a^e for a public exponent ``e`` (a Python int
     below 2^640; a^0 = 1), or a**e for a list of int64 word tensors (62 bits
     a word, broadcast against a's elements; the low ``nbits`` bits count,
-    0**0 = 1), the whole ladder in one launch (counted in
-    ``gf2_limb_power.launches``). CPU tensors take the plain version."""
+    0**0 = 1), the whole chain in one launch (counted in
+    ``gf2_limb_power.launches``): the Itoh-Tsujii chain for e = 2^m - 2,
+    j squares for e = 2^j, else a square-and-multiply ladder. CPU tensors
+    take the plain version."""
     per_element = not isinstance(e, int)
     if a.device.type == "cpu" and (not per_element or all(w.device.type == "cpu" for w in e)):
         return gf2_limb_power_plain(a, e, m, f_int, nbits)
@@ -337,20 +426,27 @@ def gf2_limb_power(a: torch.Tensor, e, m: int, f_int: int, nbits: int = 0) -> to
         shape = torch.broadcast_shapes(a.shape[1:], *(w.shape for w in e))
         words = torch.stack([w.expand(shape) for w in e]).reshape(len(e), -1).contiguous()
         a = a.reshape(a.shape[:1] + (1,) * (len(shape) - (a.ndim - 1)) + a.shape[1:])
+        entry, ex = _WORDS, 0
     else:
         if not 0 <= e < 2 ** (64 * _EXP_WORDS):
             raise ValueError(f"gf2_limb_power: a public exponent must lie in [0, 2^{64 * _EXP_WORDS}), not {e}.")
-        shape, words, nbits = tuple(a.shape[1:]), None, e.bit_length()
+        shape, words, ex = tuple(a.shape[1:]), None, e
+        if e == 2**m - 2:
+            entry, nbits = _INVERSE, 0
+        elif e > 1 and e & (e - 1) == 0:
+            entry, nbits = _SQUARES, e.bit_length() - 1
+        else:
+            entry, nbits = _LADDER, e.bit_length()
     out = torch.empty((L,) + tuple(shape), dtype=torch.uint16, device=a.device)
     n = out[0].numel()
     if n:
         ta, ap, ae = _operand(a, L, shape)
+        fold, table = _fold(m, f_int, a.device)
         with torch.cuda.device(a.device):
             rc = _lib().gf2_limb_pow_launch(
-                ta.data_ptr(), ap, ae, out.data_ptr(), n, m, _words(f_int ^ (1 << m)),
-                _words(0 if per_element else e), nbits, None if words is None else words.data_ptr(),
-                0 if words is None else words.stride(0), 0 if words is None else words.stride(1),
-                int(per_element), ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+                ta.data_ptr(), ap, ae, out.data_ptr(), n, m, fold, None if table is None else table.data_ptr(),
+                entry, _words(ex), nbits, None if words is None else words.data_ptr(),
+                0 if words is None else words.stride(0), 0 if words is None else words.stride(1), _stream(a),
             )
         if rc != 0:
             raise RuntimeError(f"gf2_limb_power: kernel launch failed with CUDA error {rc}.")

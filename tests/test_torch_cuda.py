@@ -32,6 +32,7 @@ from galois_tpu_torch.ops._elementwise import (
 )
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops import _charpoly, _linalg
+from galois_tpu_torch.ops._limb_binary import DENSE_MODULI, EDGE_MODULI
 from galois_tpu_torch.ops._limb_matmul import int8_matmul
 from galois_tpu_torch.ops._linalg import balanced_planes_np
 from galois_tpu_torch.ops._lookup import (
@@ -1037,13 +1038,16 @@ def _random_limbs(m, shape, gen):
     return r.to(torch.int32).to(torch.int16).view(torch.uint16)
 
 
-@pytest.mark.parametrize(["m", "fi"], K14_MODULI)
+@pytest.mark.parametrize(["m", "fi"], K14_MODULI + EDGE_MODULI + DENSE_MODULI)
 def test_gf2_limb_kernels_match_plain(cuda_device, m, fi):
     """K14's product, square and power entries against their plain versions
     on the card: whole operands, a one-element operand (stride 0), an
-    element-axis broadcast (materialized), public exponents (the reciprocal
-    and the square root among them) and 62-bit exponent words."""
+    element-axis broadcast (materialized), public exponents (0, 1, the
+    reciprocal 2^m - 2, 2^m - 1, the square root 2^(m - 1) among them) and
+    62-bit exponent words with zeros; sparse moduli (the fold by terms) and
+    dense ones (the byte table)."""
     from galois_tpu_torch.ops._limb_binary import (
+        fold_inputs,
         gf2_limb_multiply,
         gf2_limb_multiply_plain,
         gf2_limb_power,
@@ -1052,6 +1056,7 @@ def test_gf2_limb_kernels_match_plain(cuda_device, m, fi):
         gf2_limb_square_plain,
     )
 
+    assert (fold_inputs(m, fi)[1] is None) == ((m, fi) in DENSE_MODULI)
     gen = torch.Generator(device=cuda_device).manual_seed(m)
     a, b = _random_limbs(m, (1000,), gen), _random_limbs(m, (1000,), gen)
     c, d = _random_limbs(m, (7, 1), gen), _random_limbs(m, (1, 9), gen)
@@ -1064,11 +1069,15 @@ def test_gf2_limb_kernels_match_plain(cuda_device, m, fi):
         (gf2_limb_square(a, m, fi), gf2_limb_square_plain(a, m, fi)),
     ]
     u = a[:, :16]  # the plain ladders run a product a bit
-    for e in (0, 1, 3, 2**m - 2, 2 ** (m - 1), 2**70 + 5):
+    for e in (0, 1, 3, 2**m - 2, 2**m - 1, 2 ** (m - 1), 2**70 + 5):
         cases.append((gf2_limb_power(u, e, m, fi), gf2_limb_power_plain(u, e, m, fi)))
     words = [torch.randint(0, 2**62, (16,), generator=gen, device=cuda_device) for _ in range(2)]
+    words[0][::3] = 0
+    words[1][::2] = 0
     cases.append((gf2_limb_power(u, words, m, fi, 124), gf2_limb_power_plain(u, words, m, fi, 124)))
     cases.append((gf2_limb_power(one, words, m, fi, 100), gf2_limb_power_plain(one, words, m, fi, 100)))
+    zero_words = [torch.zeros(16, dtype=torch.int64, device=cuda_device)]
+    cases.append((gf2_limb_power(u, zero_words, m, fi, 62), gf2_limb_power_plain(u, zero_words, m, fi, 62)))
     for got, want in cases:
         assert got.device.type == "cuda" and torch.equal(got.cpu().view(torch.int16), want.cpu().view(torch.int16))
 
@@ -1127,6 +1136,85 @@ def test_lfsr_step_kernel_matches_plain(cuda_device, q, k, kind):
         inv_t = torch.full((1,), inv, dtype=state.dtype, device=cuda_device)
         s_p, y_p = lfsr_step_plain(ops, state, taps, n, kind, direction, inv_t)
         assert torch.equal(s, s_p) and torch.equal(y, y_p)
+
+
+# One field of each kind field_scan.cuh has: GF(2); GF(p) (Barrett); GF(2^17) (carry-less);
+# GF(2^8), GF(2^16) (binary tables); GF(3^5) (odd tables). K12's block form takes 32 ticks at a time.
+# The long count: 10007 ticks, or 2063 (64 blocks and a tail) where the plain loop's product is a
+# chain of torch passes (GF(65537), GF(2^17), GF(3^5): about a millisecond a tick on the card).
+BLOCK_FIELDS = {2: 10007, 2**31 - 1: 10007, 65537: 2063, 2**17: 2063, 2**8: 10007, 2**16: 10007, 3**5: 2063}
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1024])
+@pytest.mark.parametrize("q", list(BLOCK_FIELDS))
+def test_lfsr_step_block_form_matches_plain(cuda_device, q, k):
+    """K12's block form (and its tick-by-tick rest) against the plain tick
+    loop: every mode, at the field's long count (which builds the block
+    form's matrices into ``blocks``), then at step counts 1, B - 1, B,
+    B + 1, 2B (the first count that takes blocks, two of them) and 2B + 1
+    (B = 32) with those matrices."""
+    from galois_tpu_torch.fields._hostfield import get_host_field
+    from galois_tpu_torch.ops._lfsr_scan import BLOCK_TICKS as B
+    from galois_tpu_torch.ops._lfsr_scan import lfsr_step, lfsr_step_plain
+
+    F = gt.GF(q)
+    ops = get_ops(F._meta, F._mode)
+    rng = np.random.default_rng(k + q % 1000)
+    state = F(rng.integers(0, q, k), device=cuda_device)._data
+    taps = F(rng.integers(1, q, k), device=cuda_device)._data
+    for kind in ("fibonacci", "galois"):
+        end = k - 1 if kind == "fibonacci" else 0
+        inv = get_host_field(F._meta).reciprocal(int(taps[end]))
+        inv_t = torch.full((1,), inv, dtype=state.dtype, device=cuda_device)
+        blocks = {}
+        for direction in ("forward", "backward"):
+            for n in (BLOCK_FIELDS[q], 1, B - 1, B, B + 1, 2 * B, 2 * B + 1):
+                s, y = lfsr_step(ops, state, taps, n, kind, direction, inv, blocks)
+                s_p, y_p = lfsr_step_plain(ops, state, taps, n, kind, direction, inv_t)
+                assert torch.equal(s, s_p) and torch.equal(y, y_p), (kind, direction, n)
+        assert len(blocks) == 2
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 1024])
+@pytest.mark.parametrize("q", [2, 2**31 - 1, 2**17, 2**8, 3**5])
+def test_lfsr_block_inputs_built_on_the_card_match_plain(cuda_device, q, k):
+    """The block form's matrices as the wrapper builds them (one launch of
+    the kernel on the k basis states) equal those of the plain tick loop on
+    the identity, in the kernel's layout, for every mode."""
+    from galois_tpu_torch.fields._hostfield import get_host_field
+    from galois_tpu_torch.ops._lfsr_scan import _blocks, _field, block_inputs, block_matrices
+
+    F = gt.GF(q)
+    ops = get_ops(F._meta, F._mode)
+    taps = F(np.random.default_rng(k).integers(1, q, k), device=cuda_device)._data
+    for kind in ("fibonacci", "galois"):
+        inv = get_host_field(F._meta).reciprocal(int(taps[k - 1 if kind == "fibonacci" else 0]))
+        for direction in ("forward", "backward"):
+            got = _blocks(ops, taps, kind, direction, inv, _field(ops, taps.device))
+            inv_t = torch.full((1,), inv, dtype=taps.dtype, device=cuda_device)
+            want = block_inputs(ops, *block_matrices(ops, taps, kind, direction, inv_t)[:2], k)
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w), (kind, direction)
+
+
+def test_lfsr_keeps_its_block_form(cuda_device):
+    """A register builds its block form once a direction, on the first call
+    of BUILD_TICKS ticks or more (one more launch), and uses it from then
+    on; shorter first calls run tick by tick and build nothing. The outputs
+    equal the same register's on the CPU."""
+    from galois_tpu_torch.ops._lfsr_scan import BUILD_TICKS, lfsr_step
+
+    F = gt.GF(2**8)
+    c = gt.ReedSolomon(255, 223).generator_poly.reverse()
+    state = F(np.arange(1, 33))
+    for cls in (gt.FLFSR, gt.GLFSR):
+        reg, ref = cls(c, state=F(state._data, device=cuda_device)), cls(c, state=F(state._data, device="cpu"))
+        for n, launches, built in ((100, 1, 0), (BUILD_TICKS, 2, 1), (3 * BUILD_TICKS + 5, 1, 1), (-BUILD_TICKS, 2, 2),
+                                   (-100, 1, 2)):
+            before = lfsr_step.launches
+            y, y_ref = reg.step(n), ref.step(n)
+            assert lfsr_step.launches - before == launches and len(reg._blocks) == built, (cls.__name__, n)
+            assert torch.equal(y._data.cpu(), y_ref._data) and torch.equal(reg.state._data.cpu(), ref.state._data)
 
 
 @pytest.mark.parametrize("q", [2, 2**8, 2**31 - 1, 3**5, 2**16])

@@ -1,6 +1,8 @@
 """FLFSR, GLFSR and berlekamp_massey of the torch port against the JAX
 package, and the plain versions of kernels K12 (the LFSR scan) and K13 (the
-long Berlekamp-Massey scan) against Python-int references.
+long Berlekamp-Massey scan) against Python-int references; K12's block form
+(its matrices, their layout and prepared entries, and one block assembled
+as the kernel assembles it) against the plain tick loop.
 
 The same seeded characteristic polynomials and states go to both packages
 over GF(2), GF(3), GF(2^3), GF(3^3), GF(2^8), GF(2^31 - 1), Goldilocks and
@@ -21,12 +23,18 @@ import galois_tpu_torch as gt
 from galois_tpu.fields._hostfield import get_host_field as jax_host_field
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops._lfsr_scan import (
+    BLOCK_TICKS,
     berlekamp_massey_long,
     berlekamp_massey_long_plain,
+    block_inputs,
+    block_layout,
+    block_matrices,
     lfsr_step,
     lfsr_step_plain,
     scan_supports,
 )
+from galois_tpu_torch.ops._linalg import _field_reduce
+from galois_tpu_torch.ops._lookup import field_tables
 
 ORDERS = [2, 3, 2**3, 3**3, 2**8, 2**31 - 1, 2**64 - 2**32 + 1, 2**100]
 IDS = ["GF(2)", "GF(3)", "GF(2^3)", "GF(3^3)", "GF(2^8)", "GF(2^31-1)", "Goldilocks", "GF(2^100)"]
@@ -250,3 +258,137 @@ def test_k13_plain_against_python_ints(q):
         want_c, want_L = _py_bm(hf, seq)
         assert int(L) == int(L_plain) == want_L
         assert _eq(Ft._view(c), want_c) and torch.equal(c, c_plain)
+
+
+# ----------------------------------------------------------------------
+# K12's block form: the host's matrices, as the kernel uses them
+# ----------------------------------------------------------------------
+
+def _matvec(ops, M, s):
+    """The field product of a matrix (r, c) and a vector (c,) in storage."""
+    return _field_reduce(ops.add, ops.multiply(M, s.unsqueeze(0)), 1)
+
+
+def _block_by_layout(ops, lay, s, k, threads, rows_first, col0=0):
+    """The kernel's step 1 from a layout of ``block_layout``: thread tid's
+    sum of its entries times the state elements it reads; D's partial sums
+    then summed over the warps (one value a lane), G's one a thread."""
+    r = torch.arange(BLOCK_TICKS).unsqueeze(1)
+    tid = torch.arange(threads).unsqueeze(0)
+    idx = (tid // 32 + (threads // 32) * r) if rows_first else (col0 + r).expand(-1, threads)
+    ok = idx < (k if rows_first else col0 + min(BLOCK_TICKS, k))
+    prod = ops.multiply(lay.to(s.dtype), s[idx.clamp(max=k - 1)])
+    part = _field_reduce(ops.add, torch.where(ok, prod, torch.zeros_like(prod)), 0)
+    if rows_first:
+        return _field_reduce(ops.add, part.reshape(threads // 32, 32), 0)
+    return part[:k]
+
+
+@pytest.mark.parametrize("k", [5, 32, 40], ids=["k<B", "k=B", "k>B"])
+@pytest.mark.parametrize("q", [2, 2**8, 3**5, 2**31 - 1], ids=["GF(2)", "GF(2^8)", "GF(3^5)", "GF(2^31-1)"])
+def test_k12_block_matrices_match_ticks(q, k):
+    """B ticks of the plain loop equal Y s and P s (``block_matrices`` on
+    the identity); one block assembled from D and G as csrc/lfsr.cu does
+    (the outputs, the shifted state and the new elements), and the sums of
+    D's and G's kernel layouts, equal them too; the prepared entries are
+    the values (or their LOG, 2 (q - 1) for 0, for the table kinds)."""
+    Ft = gt.GF(q)
+    ops = get_ops(Ft._meta, Ft._mode)
+    hf = jax_host_field(gj.GF(q)._meta)
+    rng = np.random.default_rng(k + q % 1000)
+    B = BLOCK_TICKS
+    st = Ft(rng.integers(0, q, k))._data
+    tp = Ft(rng.integers(1, q, k))._data
+    threads = -(-k // 32) * 32
+    for kind in ("fibonacci", "galois"):
+        end = k - 1 if kind == "fibonacci" else 0
+        inv = hf.reciprocal(int(tp[end]))
+        inv_t = torch.full((1,), inv, dtype=st.dtype)
+        for direction in ("forward", "backward"):
+            D, G, P, Y = block_matrices(ops, tp, kind, direction, inv_t)
+            s_ref, y_ref = lfsr_step_plain(ops, st, tp, B, kind, direction, inv_t)
+            assert torch.equal(_matvec(ops, Y, st), y_ref) and torch.equal(_matvec(ops, P, st), s_ref)
+            d = _matvec(ops, D, st)
+            assert torch.equal(_block_by_layout(ops, block_layout(D, threads, True), st, k, threads, True), d)
+            zero = torch.zeros((), dtype=st.dtype)
+            if (kind, direction) == ("fibonacci", "forward"):
+                y = torch.stack([st[k - 1 - j] if j < k else d[j - k] for j in range(B)])
+                s_new = torch.stack([d[B - 1 - i] if i < B else st[i - B] for i in range(k)])
+            elif kind == "fibonacci":
+                y = d
+                s_new = torch.stack([st[i + B] if i + B < k else d[i - (k - B)] for i in range(k)])
+            else:
+                cw = min(B, k)
+                col0 = k - cw if direction == "forward" else 0
+                g = _matvec(ops, G, st[col0 : col0 + cw])
+                lay = block_layout(G, threads, False)
+                assert torch.equal(_block_by_layout(ops, lay, st, k, threads, False, col0), g)
+                src = [i - B if direction == "forward" else i + B for i in range(k)]
+                shifted = torch.stack([st[j] if 0 <= j < k else zero for j in src])
+                y, s_new = d, ops.add(shifted, g)
+            assert torch.equal(y, y_ref) and torch.equal(s_new, s_ref), (kind, direction)
+            # the kernel's prepared layouts
+            Dk, Gk = block_inputs(ops, D, G, k)
+            raw = block_layout(D, threads, True)
+            inside = block_layout(torch.ones_like(D), threads, True) == 1  # the rest is padding, 0, never read
+            prep = Dk.to(torch.int64) & 0xFFFFFFFF
+            assert not prep[~inside].any()
+            if Ft._meta.degree > 1:
+                exp_t = field_tables(Ft._meta, "cpu")[0].to(torch.int64)
+                nz = inside & (raw != 0)
+                assert torch.equal(exp_t[prep[nz]], raw[nz])
+                assert bool((prep[inside & (raw == 0)] == 2 * (q - 1)).all())
+            else:
+                assert torch.equal(prep, raw)
+            assert (Gk is None) == (kind == "fibonacci")
+
+
+def _packed_gf2_blocks(Dk, Gk, st, k, kind, direction, nblk):
+    """csrc/lfsr.cu's GF(2) block form for k <= 32 in Python ints: the state
+    as one word (bit j: element j), lane l's row of D (and of G) as a mask of
+    its layout's low bits; each block one popc parity a lane, gathered by a
+    ballot into a word. Returns (state, outputs) as int lists."""
+    B = BLOCK_TICKS
+    kmask = (1 << k) - 1
+    dm = [sum((int(Dk[r, lane]) & 1) << r for r in range(B)) for lane in range(B)]
+    gm = [sum((int(Gk[r, lane]) & 1) << r for r in range(B)) for lane in range(B)] if Gk is not None else None
+
+    def ballot(bits):
+        return sum(b << lane for lane, b in enumerate(bits))
+
+    S = ballot([int(v) & 1 for v in st]) & kmask
+    out = []
+    for _ in range(nblk):
+        A = ballot([bin(dm[lane] & S).count("1") & 1 for lane in range(B)])
+        if (kind, direction) == ("fibonacci", "forward"):
+            out += [(S >> (k - 1 - lane)) & 1 if lane < k else (A >> (lane - k)) & 1 for lane in range(B)]
+            S = int(f"{A:032b}"[::-1], 2) & kmask  # __brev
+        elif kind == "fibonacci":
+            out += [(A >> lane) & 1 for lane in range(B)]
+            S = (A >> (B - k)) & kmask
+        else:
+            out += [(A >> lane) & 1 for lane in range(B)]
+            S = ballot([bin(gm[lane] & S).count("1") & 1 for lane in range(B)]) & kmask
+    return [(S >> i) & 1 for i in range(k)], out
+
+
+@pytest.mark.parametrize("k", [1, 7, 20, 31, 32])
+@pytest.mark.parametrize(["kind", "direction"], [("fibonacci", "forward"), ("fibonacci", "backward"),
+                                                 ("galois", "forward"), ("galois", "backward")])
+def test_k12_gf2_packed_blocks_match_ticks(kind, direction, k):
+    """GF(2) up to 32 taps: the kernel's packed block form (masks of D's and
+    G's layouts, popc parities, ballots, a bit reversal for Fibonacci
+    forward), modelled in Python ints, equals three blocks of the plain
+    tick loop."""
+    Ft = gt.GF(2)
+    ops = get_ops(Ft._meta, Ft._mode)
+    rng = np.random.default_rng(k)
+    st = Ft(rng.integers(0, 2, k))._data
+    tp = Ft(rng.integers(0, 2, k))._data
+    tp[k - 1 if kind == "fibonacci" else 0] = 1  # the end tap, which a backward step divides by
+    one = torch.ones(1, dtype=st.dtype)
+    D, G, _, _ = block_matrices(ops, tp, kind, direction, one)
+    Dk, Gk = block_inputs(ops, D, G, k)
+    s_ref, y_ref = lfsr_step_plain(ops, st, tp, 3 * BLOCK_TICKS, kind, direction, one)
+    s, y = _packed_gf2_blocks(Dk, Gk, st.tolist(), k, kind, direction, 3)
+    assert s == s_ref.tolist() and y == y_ref.tolist()

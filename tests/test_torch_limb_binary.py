@@ -6,7 +6,8 @@ go through the port's arithmetic (kernel K14's plain versions on the CPU)
 and through the JAX package's host field in Python ints, and for GF(2^100)
 through its device ops too. Integers must be equal. K14's plain product,
 square and power are also held against a carry-less product in Python
-ints written here.
+ints written here, and the kernel's reduction, folding through its host
+inputs (the sparse terms and the byte table), against the plain product.
 """
 
 import functools
@@ -19,9 +20,11 @@ import galois_tpu as gj
 import galois_tpu_torch as gt
 from galois_tpu.fields._hostfield import get_host_field as jax_host_field
 from galois_tpu_torch.ops._limb_binary import (
+    DENSE_MODULI,
     _from_words,
     _mulmod_words,
     _to_words,
+    fold_inputs,
     gf2_limb_multiply,
     gf2_limb_multiply_plain,
     gf2_limb_power,
@@ -234,3 +237,67 @@ def test_log_matches_jax(q, f):
     Ft, Fj = _fields(q, f)
     xs = _ints(q, 3, 13, low=1)
     assert _eq(Ft(xs).log(), Fj(xs).log())
+
+
+# (m, f): GCM's and B-233's sparse moduli; the dense irreducible ones, which only the byte table reduces
+FOLD_MODULI = [(128, 2**128 + 2**7 + 2**2 + 2 + 1), (233, 2**233 + 2**74 + 1), *DENSE_MODULI]
+
+
+def _fold_like_kernel(c: int, m: int, f: int, by_terms: bool) -> int:
+    """csrc/gf2_limb.cu's reduce() in Python ints on fold_inputs' arrays:
+    c (degree <= 2m - 2) in the frame shifted by s; two passes of the terms'
+    folds, or the byte table top down; then back out of the frame."""
+    s, terms, table = fold_inputs(m, f)
+    N = (m + s) // 32
+    low = (1 << (32 * N)) - 1
+    c <<= s
+    if by_terms:
+        for _ in range(2):
+            h, c = c >> (32 * N), c & low
+            for q, r in terms:
+                c ^= h << (32 * q + r)
+        assert c >> (32 * N) == 0  # two passes leave nothing above x^m
+    else:
+        for i in reversed(range(4 * N)):
+            b = (c >> (32 * N + 8 * i)) & 0xFF
+            row = sum(int(w) << (32 * j) for j, w in enumerate(table[b]))
+            c ^= row << (8 * i)
+        c &= low
+    return c >> s
+
+
+@pytest.mark.parametrize(["m", "fi"], FOLD_MODULI, ids=["GCM", "B-233", "dense-64", "dense-128", "dense-129"])
+def test_k14_fold_inputs_reduce_like_plain(m, fi):
+    """The kernel's reduction inputs: the frame shift, the sparse terms (None
+    for a dense f) and the byte table (every f); products and squares
+    folded through them equal the plain versions'."""
+    s, terms, table = fold_inputs(m, fi)
+    N = 2 * -(-m // 64)
+    dense = bin(fi).count("1") > (m + 1) // 2
+    assert s == 32 * N - m and table.shape == (256, N) and table.dtype == np.uint32
+    assert (terms is None) == dense
+    L = -(-m // 16)
+    xs = [int(v) % 2**m for v in _ints(2**m, 24, m)]
+    ys = [int(v) % 2**m for v in _ints(2**m, 24, m + 1)]
+    xs[0], ys[1] = 0, 2**m - 1
+
+    def limbs(vals):
+        arr = np.array([[(v >> (16 * l)) & 0xFFFF for v in vals] for l in range(L)], dtype=np.int64)
+        return torch.from_numpy(arr).to(torch.int32).to(torch.int16).view(torch.uint16)
+
+    def ints(t):
+        a = (t.view(torch.int16).to(torch.int64) & 0xFFFF).numpy()
+        return [sum(int(a[l, e]) << (16 * l) for l in range(L)) for e in range(a.shape[1])]
+
+    def clmul(a, b):
+        c = 0
+        for i in range(m):
+            if (b >> i) & 1:
+                c ^= a << i
+        return c
+
+    prod = ints(gf2_limb_multiply_plain(limbs(xs), limbs(ys), m, fi))
+    sq = ints(gf2_limb_square_plain(limbs(xs), m, fi))
+    for by_terms in ([True, False] if terms else [False]):
+        assert [_fold_like_kernel(clmul(a, b), m, fi, by_terms) for a, b in zip(xs, ys)] == prod
+        assert [_fold_like_kernel(clmul(a, a), m, fi, by_terms) for a in xs] == sq
