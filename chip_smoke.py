@@ -187,7 +187,12 @@ Phases, each fatal on failure:
      mode; at the order of the 2^14-element Berlekamp-Massey result, 8192,
      in shared memory, and at 20000 taps in global memory), K13 (at path
      8's sequences: the 2^14 GF(2) elements, 8192 GF(2^8) and 4096
-     GF(2^31 - 1) register outputs; and 1024 random elements) and K14
+     GF(2^31 - 1) register outputs, each timed beside its plain scan on
+     the card and its form's chain; then, against the plain scan (a prime
+     field's on the host), random elements of every kind across the switch
+     from warp 0 to the CTA, an LFSR's output then random elements, all
+     zeros, the impulse, GF(2) at 31-33 and 1023-1025 elements, and the
+     global-memory form in uint8 and int64 storage) and K14
      (GF(2^128) and GF(2^233) products and squares on 2^16 elements, powers
      by 0, 1, 2^m - 2, 2^m - 1, 2^(m - 1) and exponent words with zeros on
      2^12, and the GF(2^128) reciprocal on the 2^22 elements it is timed
@@ -1167,9 +1172,18 @@ def scan_limb_kernels(gt, dev, record, smi):
         s_p, y_p = lfsr_step_plain(ops, st, tp, n, kind, direction, inv_t)
         return check(f"K12 lfsr_step {tag} {kind} {direction} {n} ticks", torch.cat([s, y]), torch.cat([s_p, y_p])), y
 
-    def k13_check(tag, ops, seq):
+    def k13_check(tag, ops, seq, host=False):
+        """K13 against its plain scan on the same input: on the card (timed), or on the host (host: over
+        a prime field 2-3x quicker than one torch launch a step on the card; an extension field's plain
+        products and reciprocals are chains of torch passes there, slower than the card's kernels)."""
         c, Lc = berlekamp_massey_long(ops, seq)
-        (c_p, L_p), pms = once_ms(lambda: berlekamp_massey_long_plain(ops, seq))
+        if host:
+            t0 = time.perf_counter()
+            c_p, L_p = berlekamp_massey_long_plain(ops, seq.cpu())
+            pms = (time.perf_counter() - t0) * 1e3
+            c, Lc = c.cpu(), Lc.cpu()
+        else:
+            (c_p, L_p), pms = once_ms(lambda: berlekamp_massey_long_plain(ops, seq))
         err = check(f"K13 berlekamp_massey_long {tag} N={seq.shape[0]} (L = {int(Lc)})",
                     torch.cat([c.to(torch.int64), Lc.reshape(1)]), torch.cat([c_p.to(torch.int64), L_p.reshape(1)]))
         return err, c, int(Lc), pms
@@ -1232,24 +1246,64 @@ def scan_limb_kernels(gt, dev, record, smi):
                     err = max(err, k12_check(f"GF(2^8) order {k}", ops8, st, tp, kind, direction, n,
                                              hf8.reciprocal(int(tp[end])), blocks)[0])
 
-    # K13 at the main path's shapes: its 2^14 random GF(2) elements, 8192 outputs of the GF(2^8) register,
-    # 4096 of the GF(2^31-1) one; timed at 2^14 (the plain scan once, as it is checked)
+    # K13 at the main path's shapes: its 2^14 random GF(2) elements (the lookahead, 32 steps a block),
+    # 8192 outputs of the GF(2^8) register and 4096 of the GF(2^31-1) one (warp 0's steps, runs of
+    # d = 0 32 at a time), each timed beside its plain scan on the card (run once, as it is checked)
+    from galois_tpu_torch.ops import _lfsr_scan
+
+    t13 = time.perf_counter()
     ops2 = get_ops(F2._meta, F2._mode)
     seq = F2(bm_sequence(), device=dev)._data
     err13, c, L, pms = k13_check("GF(2) random", ops2, seq)
-    for tag, F, y in (("GF(2^8) GLFSR outputs", F8, outputs[F8.name, "forward"]),
-                      ("GF(2^31-1) FLFSR outputs", FM, outputs[FM.name, "forward"][:4096])):
-        err13 = max(err13, k13_check(tag, get_ops(F._meta, F._mode), y)[0])
-    for F in (F8, FM):  # random sequences, complexity near N / 2
-        y = F(rng.integers(0, F.order, 1024), device=dev)._data
-        err13 = max(err13, k13_check(f"{F.name} random", get_ops(F._meta, F._mode), y)[0])
+    timed13 = [("GF(2) 2^14 random", ops2, seq, L, pms)]
+    for tag, F, y in (("GF(2^8) 8192 GLFSR outputs", F8, outputs[F8.name, "forward"]),
+                      ("GF(2^31-1) 4096 FLFSR outputs", FM, outputs[FM.name, "forward"][:4096])):
+        ops = get_ops(F._meta, F._mode)
+        e, _, Ly, py = k13_check(tag, ops, y)
+        err13 = max(err13, e)
+        timed13.append((tag, ops, y, Ly, py))
+    # the forms' edges: random elements across the switch from warp 0 to the CTA (256 elements) in
+    # every kind, N not a multiple of 32, L changing inside a block (an LFSR's output, then random
+    # elements), all zeros, the impulse (L = N), GF(2) at its word edges, and the global-memory form
+    # (no shared-memory budget) in uint8 and int64 storage; a prime field's against the plain scan on
+    # the host
+    t_edges = time.perf_counter()
+    edges = [(F, F(rng.integers(0, F.order, n), device=dev)._data)
+             for F, n in ((F8, 1024), (FM, 1024), (gt.GF(3**5), 600), (gt.GF(2**17), 300), (F2, 1000), (FM, 300))]
+    edges += [(F2, torch.cat([outputs[F2.name, "forward"][:600], F2(rng.integers(0, 2, 300), device=dev)._data])),
+              (F8, torch.cat([outputs[F8.name, "forward"][:600], F8(rng.integers(0, 256, 400), device=dev)._data])),
+              (F2, torch.zeros(700, dtype=torch.uint8, device=dev)), (F8, torch.zeros(700, dtype=torch.uint8, device=dev)),
+              (F2, F2([0] * 699 + [1], device=dev)._data), (FM, FM([0] * 299 + [1], device=dev)._data)]
+    edges += [(F2, F2(rng.integers(0, 2, n), device=dev)._data) for n in (31, 32, 33, 1023, 1024, 1025)]
+    for F, y in edges:
+        err13 = max(err13, k13_check(f"{F.name} edge", get_ops(F._meta, F._mode), y, host=F.degree == 1)[0])
+    budget = _lfsr_scan.BM_SMEM_BYTES
+    _lfsr_scan.BM_SMEM_BYTES = 0
+    try:
+        for F, y in (edges[4], edges[7], edges[5]):  # GF(2), GF(2^8): uint8; GF(2^31 - 1): int64
+            err13 = max(err13, k13_check(f"{F.name} global memory", get_ops(F._meta, F._mode), y,
+                                         host=F.degree == 1)[0])
+    finally:
+        _lfsr_scan.BM_SMEM_BYTES = budget
+    t_edges = time.perf_counter() - t_edges
+    for i, (tag, ops, y, Ly, py) in enumerate(timed13):
+        n = y.shape[0]
+        ms = eager_ms(lambda: berlekamp_massey_long(ops, y), 3)
+        nbytes = y.element_size() * (2 * n + 1) + 8  # the sequence in, c and L out
+        if i == 0:
+            record("berlekamp_massey_long", err13, ms, pms, bound(nbytes))
+            form = (f"a chain of {-(-n // 32)} blocks of 32 steps, each one barrier and 32 dependent scalar "
+                    f"steps on 32-bit words")
+        else:  # d = 0 from step 2 L on: warp 0's single steps, then batches of 32 steps
+            form = (f"a chain of at most {2 * Ly} steps on warp 0, each a warp reduction and no barrier, "
+                    f"then {-(-(n - 2 * Ly) // 32)} batches of 32 steps")
+        print(f"[kernel] {smi} | K13 berlekamp_massey_long {tag} (L = {Ly}): {ms:.3f} ms "
+              f"({ms / n * 1e3:.3f} us a step) | plain {py:.1f} ms | bound {bound(nbytes)[0]:.6f} ms (bytes; the "
+              f"form: {form})", flush=True)
+    print(f"[main] phase 3's K13 block took {time.perf_counter() - t13:.1f} s: the plain scans of path 8's "
+          f"sequences on the card {sum(t[4] for t in timed13) / 1e3:.1f} s, the {len(edges) + 3} edge checks "
+          f"(prime fields' plain scans on the host) {t_edges:.1f} s", flush=True)
     n = seq.shape[0]
-    ms = eager_ms(lambda: berlekamp_massey_long(ops2, seq), 3)
-    nbytes = n + (n + 1) + 8
-    record("berlekamp_massey_long", err13, ms, pms, bound(nbytes))
-    print(f"[kernel] {smi} | K13 berlekamp_massey_long GF(2) N={n} (L = {L}): {ms:.3f} ms ({ms / n * 1e3:.2f} us a step) | "
-          f"plain {pms:.1f} ms | bound {bound(nbytes)[0]:.6f} ms (bytes; a chain of {n} dependent steps, about "
-          f"{n * L // 2} products in the dots)", flush=True)
 
     # K12's shared-memory form at the order of that sequence's minimal LFSR: the FLFSR that
     # berlekamp_massey returns (state: the first L elements reversed, taps: c_1..c_L) regenerates it

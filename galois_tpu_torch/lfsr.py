@@ -43,7 +43,7 @@ from .ops._lfsr_scan import (
     lfsr_step_plain,
     scan_supports,
 )
-from .polys._poly import Poly
+from .polys._poly import Poly, _int_array
 
 __all__ = ["FLFSR", "GLFSR", "berlekamp_massey"]
 
@@ -76,7 +76,7 @@ class _LFSR:
         if self._kind == "galois":
             taps = taps[::-1]
         self._taps_int = taps
-        self._taps = self._field(np.array(taps, dtype=object), device=self._state.device)
+        self._taps = self._field(_int_array(taps, self._field), device=self._state.device)
         self._blocks = {}  # K12's block form of these taps, per direction and device (lfsr_step's ``blocks``)
 
     @classmethod
@@ -237,8 +237,11 @@ def berlekamp_massey(sequence, output: str = "characteristic"):
         scan = berlekamp_massey_long if scan_supports(meta) else berlekamp_massey_long_plain
         c_dev, L_dev = scan(ops, sequence._data)
         L = int(L_dev)
-        c = [int(v) for v in c_dev[: L + 1].cpu().numpy().astype(np.int64)]
-        return _bm_output(sequence, c, L, field, output)
+        c = c_dev[: L + 1].cpu().numpy()
+        if field.order == 2:  # the connection polynomial as GF(2)[x]'s packed int, bit i the x^i term
+            packed = np.packbits(c.astype(np.uint8), bitorder="little").tobytes()
+            return _bm_output(sequence, Poly._from_int2(int.from_bytes(packed, "little"), field), output)
+        return _bm_output(sequence, Poly(c[::-1].astype(np.int64).tolist(), field=field), output)
 
     # Classic discrepancy/update form.
     hf = get_host_field(meta)
@@ -271,12 +274,11 @@ def berlekamp_massey(sequence, output: str = "characteristic"):
         else:
             m += 1
 
-    return _bm_output(sequence, c, L, field, output)
+    return _bm_output(sequence, Poly(c[: L + 1][::-1], field=field), output)
 
 
-def _bm_output(sequence, c, L, field, output):
-    """Shared tail: ascending connection coefficients -> requested form."""
-    connection_poly = Poly(c[: L + 1][::-1], field=field)
+def _bm_output(sequence, connection_poly, output):
+    """Shared tail: the connection polynomial -> requested form."""
     if output == "characteristic":
         return connection_poly.reverse()
     if output == "connection":

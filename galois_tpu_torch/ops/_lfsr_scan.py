@@ -6,7 +6,9 @@ source's head gives the design and what bounds each on the H100). Up to
 taps and the mode (``block_matrices`` builds them by the plain tick loop on
 the identity; the wrapper by one launch of the kernel itself on the k basis
 states, kept by the register between calls), and the rest of the ticks one
-by one.
+by one. K13 takes GF(2) 32 steps a block by lookahead on packed words, and
+the other fields' steps on one warp while c is short (runs of zero
+discrepancies 32 at a time), on the whole CTA after.
 
 ``lfsr_step_plain`` is the JAX package's four ``lax.scan`` tick functions
 (``galois_tpu/lfsr.py:63-106``) as a torch loop over the ticks, on any field
@@ -37,6 +39,7 @@ from ._limbs import _where
 
 __all__ = [
     "BLOCK_TICKS",
+    "BM_S",
     "BUILD_TICKS",
     "block_matrices",
     "block_layout",
@@ -55,6 +58,12 @@ BLOCK_TICKS = 32  # K12's ticks a block (csrc/lfsr.cu BLK)
 # an H100) then costs less than the ticks it saves (0.4-0.55 us each tick by tick there)
 BUILD_TICKS = 32 * BLOCK_TICKS
 _BLOCK_MAX_TAPS = 1024  # the block form's largest register; above, tick by tick
+BM_MAX_N = 2**28  # K13's longest sequence (csrc/lfsr.cu)
+BM_S = 32  # K13's steps a block over GF(2), and its batch of zero discrepancies elsewhere (csrc/lfsr.cu)
+# K13's shared-memory budget for its buffers and the staged sequence, above which they go to a global
+# scratch: None for the kernel's own (csrc/lfsr.cu BM_SMEM, 219 KB); a smaller value (0) forces the
+# global form
+BM_SMEM_BYTES = None
 # field_scan.cuh's kinds
 _GF2, _PRIME, _BINARY, _BINTAB, _ODDTAB = range(5)
 
@@ -293,10 +302,11 @@ def _lib():
         vp, vp, vp, vp, i64, i32, i32, ctypes.c_uint, vp, i32, i32, _Field, vp, vp, i64, i32, vp,
     ]
     lib.lfsr_scratch_needed.argtypes = [i32]
-    lib.bm_long_launch.argtypes = [vp, i64, vp, vp, vp, i32, i32, _Field, vp]
-    lib.bm_long_scratch_needed.argtypes = [i64]
-    for fn in (lib.lfsr_step_launch, lib.lfsr_scratch_needed, lib.bm_long_launch, lib.bm_long_scratch_needed):
+    lib.bm_long_launch.argtypes = [vp, i32, vp, vp, vp, i32, i32, _Field, i64, vp]
+    lib.bm_long_scratch_words.argtypes = [i32, i32, ctypes.c_uint, i64]
+    for fn in (lib.lfsr_step_launch, lib.lfsr_scratch_needed, lib.bm_long_launch):
         fn.restype = i32
+    lib.bm_long_scratch_words.restype = i64
     return lib
 
 
@@ -375,24 +385,31 @@ def berlekamp_massey_long(ops, seq):
     """K13: ``berlekamp_massey_long_plain``'s (c, L) for one sequence (N,)
     of a field inside ``scan_supports``. CPU tensors take the plain version;
     CUDA tensors launch the kernel (counted in
-    ``berlekamp_massey_long.launches``) or raise. c and b live in shared
-    memory up to N of about 18,900, in a global scratch above."""
+    ``berlekamp_massey_long.launches``) or raise. GF(2) takes BM_S steps a
+    block on packed words; the other fields take the steps on warp 0 while c
+    spans fewer than 256 elements (runs of d = 0 BM_S at a time), on the
+    whole CTA after. The kernel stages the sequence, reversed, beside its
+    buffers in shared memory (GF(2) up to N of about 350,000, the other
+    fields about 14,000; ``BM_SMEM_BYTES`` lowers the budget), in a global
+    scratch above."""
     if seq.device.type == "cpu":
         return berlekamp_massey_long_plain(ops, seq)
     _check("berlekamp_massey_long", ops, seq)
-    if seq.ndim != 1 or seq.shape[0] < 1:
-        raise ValueError(f"berlekamp_massey_long: needs one sequence (N,), got {tuple(seq.shape)}.")
+    if seq.ndim != 1 or not 1 <= seq.shape[0] <= BM_MAX_N:
+        raise ValueError(f"berlekamp_massey_long: needs one sequence (N,), 1 <= N <= 2^28, got {tuple(seq.shape)}.")
     seq = seq.contiguous()
     N = seq.shape[0]
     c = torch.empty(N + 1, dtype=seq.dtype, device=seq.device)
     L = torch.empty((), dtype=torch.int64, device=seq.device)
     lib = _lib()
-    scratch = torch.empty(3 * (N + 1), dtype=torch.int32, device=seq.device) if lib.bm_long_scratch_needed(N) else None
     fk, F = _field(ops, seq.device)
+    budget = -1 if BM_SMEM_BYTES is None else BM_SMEM_BYTES
+    words = lib.bm_long_scratch_words(N, fk, F.q1, budget)
+    scratch = torch.empty(words, dtype=torch.int32, device=seq.device) if words else None
     with torch.cuda.device(seq.device):
         rc = lib.bm_long_launch(
             seq.data_ptr(), N, c.data_ptr(), L.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            int(seq.dtype == torch.uint8), fk, F,
+            int(seq.dtype == torch.uint8), fk, F, budget,
             ctypes.c_void_p(torch.cuda.current_stream(seq.device).cuda_stream),
         )
     if rc != 0:

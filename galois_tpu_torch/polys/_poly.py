@@ -363,11 +363,15 @@ class Poly:
     def coefficients(self, size: Optional[int] = None, order: str = "desc"):
         """Dense coefficients, optionally zero-padded to `size`
         (reference: src/galois/_polys/_poly.py:618-679)."""
-        self._ensure_terms()
         n = self.degree + 1
         size = n if size is None else int(size)
         if size < n:
             raise ValueError(f"Argument 'size' must be >= {n}, not {size}.")
+        if self._type == "binary":  # the packed int's bits, without its term tuples
+            raw = np.frombuffer(self._int.to_bytes((size + 7) // 8, "little"), dtype=np.uint8)
+            bits = np.unpackbits(raw, bitorder="little")[:size].astype(np.int64)
+            return self._field(bits if order == "asc" else bits[::-1].copy())
+        self._ensure_terms()
         if len(self._coeffs) == size:  # every coefficient nonzero: the terms are the dense array
             out = list(self._coeffs)
         else:

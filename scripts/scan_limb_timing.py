@@ -4,7 +4,7 @@ galois_tpu_torch package found first on the path, on one CUDA card, so that
 two commits can be compared in one call by running it with each tree's path
 in turn (parent, change, change, parent).
 
-    PYTHONPATH=<tree> python3 scripts/scan_limb_timing.py [label] [--k12-only]
+    PYTHONPATH=<tree> python3 scripts/scan_limb_timing.py [label] [--k12-only | --k13-only]
 
 K14 by CUDA-graph replay: the GF(2^128) product (GCM's f) at 2^24 elements,
 its reciprocal at 2^22 and its power by 63-bit exponent words at 2^24; then, through the public API at main path 8's
@@ -22,12 +22,27 @@ time, synchronized, after the same calls on another register of the same
 polynomial): the GF(2) degree-20 FLFSR, the GF(2^8) GLFSR, the GF(2^31 - 1)
 degree-16 FLFSR, and degree-16 FLFSRs over GF(65537) and GF(3^5), whose
 plain tick loop is a chain of torch passes; three new registers each.
-``--k12-only`` leaves out K14. One JSON line per call, the card's name and
-power limit first.
+``--k12-only`` leaves out K14. ``--k13-only`` times K13 alone (CUDA events
+around eager calls) on main path 8's three sequences: 2^14 random GF(2)
+elements, 8192 outputs of the GF(2^8) GLFSR of RS(255,223)'s generator
+(L = 32) and 4096 of a GF(2^31 - 1) degree-16 FLFSR (L = 16), then random
+sequences (complexity near N / 2, the CTA-wide form): 8192 GF(2^8)
+elements, 2^16 GF(2) elements, 20000 GF(2^31 - 1) elements (too long for
+shared memory: the global-scratch form), 8192 GF(2^16) elements (a table
+field whose tables stay in global memory) and 8192 GF(2^17) elements (a
+binary field on carry-less products); each line carries a digest of (c, L),
+so that two trees' results can be compared; then the three public
+``berlekamp_massey(seq, output="fibonacci")`` calls, and one cProfile of the
+GF(2) call (its 25 most expensive functions by cumulative time). One JSON
+line per call, the card's name and power limit first.
 """
 
+import cProfile
+import hashlib
 import inspect
+import io
 import json
+import pstats
 import sys
 import time
 
@@ -43,7 +58,7 @@ def main() -> int:
     import galois_tpu_torch as gt
     from galois_tpu_torch.ops._lfsr_scan import lfsr_step
 
-    args = [a for a in sys.argv[1:] if a != "--k12-only"]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     label = args[0] if args else gt.__file__
     # a tree whose lfsr_step keeps the block form in the caller's dict gets one, so that the
     # timed calls reuse it as a register does
@@ -54,10 +69,62 @@ def main() -> int:
     def emit(name, ms, **kw):
         print(json.dumps({"tree": label, "call": name, "ms": ms, **kw}), flush=True)
 
+    if "--k13-only" in sys.argv:
+        k13(gt, dev, emit)
+        return 0
     if "--k12-only" not in sys.argv:
         k14(gt, dev, emit)
     k12(gt, dev, emit, keep)
     return 0
+
+
+def k13_sequences(gt, dev):
+    """(label, field, storage tensor) of main path 8's three Berlekamp-Massey
+    sequences and five random ones of complexity near N / 2."""
+    F2, F8, FM, F16, F17 = gt.GF(2), gt.GF(2**8), gt.GF(2**31 - 1), gt.GF(2**16), gt.GF(2**17)
+    gen = gt.ReedSolomon(255, 223).generator_poly
+    G = gt.GLFSR(gen.reverse(), state=F8(np.random.default_rng(81).integers(0, 256, 32), device=dev))
+    rng = np.random.default_rng(82)
+    cm = [1] + [int(v) for v in rng.integers(1, 2**31 - 1, 16)]
+    LM = gt.FLFSR(gt.Poly(cm, field=FM).reverse(), state=FM(rng.integers(0, 2**31 - 1, 16), device=dev))
+    return [
+        ("GF(2) 2^14 random", F2, F2(np.random.default_rng(14).integers(0, 2, 2**14), device=dev)),
+        ("GF(2^8) 8192 GLFSR outputs (L = 32)", F8, G.step(8192)),
+        ("GF(2^31-1) 4096 FLFSR outputs (L = 16)", FM, LM.step(4096)),
+        ("GF(2^8) 8192 random", F8, F8(np.random.default_rng(83).integers(0, 256, 8192), device=dev)),
+        ("GF(2) 2^16 random", F2, F2(np.random.default_rng(84).integers(0, 2, 2**16), device=dev)),
+        ("GF(2^31-1) 20000 random (global scratch)", FM, FM(np.random.default_rng(85).integers(0, 2**31 - 1, 20000), device=dev)),
+        ("GF(2^16) 8192 random (tables in global memory)", F16, F16(np.random.default_rng(86).integers(0, 2**16, 8192), device=dev)),
+        ("GF(2^17) 8192 random", F17, F17(np.random.default_rng(87).integers(0, 2**17, 8192), device=dev)),
+    ]
+
+
+def k13(gt, dev, emit):
+    """K13 alone, then the public calls and one profile of the GF(2) one."""
+    from galois_tpu_torch.ops import _lfsr_scan
+    from galois_tpu_torch.ops._kernels import get_ops
+
+    def digest(c, L):
+        return hashlib.sha256(c.cpu().numpy().tobytes() + str(int(L)).encode()).hexdigest()[:16]
+
+    seqs = k13_sequences(gt, dev)
+    for label, F, x in seqs:
+        ops = get_ops(F._meta, F._mode)
+        ms = eager_ms(lambda: _lfsr_scan.berlekamp_massey_long(ops, x._data), 3)
+        c, L = _lfsr_scan.berlekamp_massey_long(ops, x._data)
+        emit(f"K13 {label}", ms, us_a_step=ms / x.size * 1e3, L=int(L), digest=digest(c, L))
+    for label, F, x in seqs[:3]:
+        ms = eager_ms(lambda: gt.berlekamp_massey(x, output="fibonacci"), 3)
+        emit(f"berlekamp_massey {label}", ms)
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    gt.berlekamp_massey(seqs[0][2], output="fibonacci")
+    torch.cuda.synchronize()
+    prof.disable()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(25)
+    print(out.getvalue(), flush=True)
 
 
 def k14(gt, dev, emit):

@@ -1217,22 +1217,52 @@ def test_lfsr_keeps_its_block_form(cuda_device):
             assert torch.equal(y._data.cpu(), y_ref._data) and torch.equal(reg.state._data.cpu(), ref.state._data)
 
 
-@pytest.mark.parametrize("q", [2, 2**8, 2**31 - 1, 3**5, 2**16])
-def test_berlekamp_massey_long_kernel_matches_plain(cuda_device, q):
-    """K13 against its plain scan on the card: a random sequence (complexity
-    near N / 2), an LFSR's output, the high-complexity impulse; and one
-    sequence past the shared-memory capacity (global scratch)."""
+# K13's fields: every kind of field_scan.cuh in both storages where it has both (GF(2) only uint8,
+# GF(2^m > 16) only int64)
+BM_FIELDS = [2, 2**8, 2**16, 3**5, 3**7, 251, 2**31 - 1, 2**17]
+
+
+@pytest.mark.parametrize("q", BM_FIELDS)
+def test_berlekamp_massey_long_kernel_matches_plain(cuda_device, q, monkeypatch):
+    """K13 on the card against its plain scan on the same inputs (a prime
+    field's on the host, where it is quicker; an extension field's on the
+    card, whose kernels take its products and reciprocals), at N not a
+    multiple of the 32 steps of a GF(2) block or of a batch: 600 random elements (complexity near N / 2: warp 0, then the CTA
+    from 256 elements); 600 and 300 of an LFSR's output (runs of d = 0,
+    taken 32 at a time), that output then random elements (L changes inside
+    a block), the impulse at 600 and 300 (L = N), all zeros; N = 1 and 33;
+    GF(2) also at its word edges; the random sequence and the 600 LFSR
+    outputs in the global-memory form (the shared-memory budget set to 0);
+    and GF(2) at 20,000 elements, too long for the plain scan, where the
+    connection polynomial must annihilate the sequence."""
+    from galois_tpu_torch.ops import _lfsr_scan
     from galois_tpu_torch.ops._lfsr_scan import berlekamp_massey_long, berlekamp_massey_long_plain
 
     F = gt.GF(q)
     ops = get_ops(F._meta, F._mode)
     rng = np.random.default_rng(q % 1000)
     lf = gt.FLFSR(gt.Poly([1] + [int(v) for v in rng.integers(0, q, 11)] + [1], field=F), state=F(rng.integers(1, q, 12), device=cuda_device))
-    seqs = [F(rng.integers(0, q, 600), device=cuda_device)._data, lf.step(600)._data, F([0] * 599 + [1], device=cuda_device)._data]
-    for seq in seqs:
-        c, L = berlekamp_massey_long(ops, seq)
-        c_p, L_p = berlekamp_massey_long_plain(ops, seq)
-        assert int(L) == int(L_p) and torch.equal(c, c_p)
+    seqs = [F(rng.integers(0, q, 600), device=cuda_device)._data]
+    y = lf.step(600)._data
+    seqs += [y, y[:300], torch.cat([y[:170], F(rng.integers(0, q, 130), device=cuda_device)._data]),
+             F([0] * 599 + [1], device=cuda_device)._data, F([0] * 299 + [1], device=cuda_device)._data,
+             F([0] * 300, device=cuda_device)._data, F([1], device=cuda_device)._data,
+             F(rng.integers(0, q, 33), device=cuda_device)._data]
+    if q == 2:
+        seqs += [F(rng.integers(0, 2, n), device=cuda_device)._data for n in (31, 32, 1023, 1024, 1025)]
+    plain = [berlekamp_massey_long_plain(ops, seq.cpu() if F.degree == 1 else seq) for seq in seqs]
+
+    def same(i):
+        c, L = berlekamp_massey_long(ops, seqs[i])
+        c_p, L_p = plain[i]
+        assert int(L) == int(L_p) and torch.equal(c.cpu(), c_p.cpu()), (q, seqs[i].shape[0], int(L), int(L_p))
+
+    for i in range(len(seqs)):
+        same(i)
+    monkeypatch.setattr(_lfsr_scan, "BM_SMEM_BYTES", 0)
+    for i in range(2):
+        same(i)
+    monkeypatch.undo()
     if q == 2:
         seq = F(rng.integers(0, 2, 20000), device=cuda_device)._data
         c, L = berlekamp_massey_long(ops, seq)

@@ -2,7 +2,10 @@
 package, and the plain versions of kernels K12 (the LFSR scan) and K13 (the
 long Berlekamp-Massey scan) against Python-int references; K12's block form
 (its matrices, their layout and prepared entries, and one block assembled
-as the kernel assembles it) against the plain tick loop.
+as the kernel assembles it) against the plain tick loop; K13's two forms
+(GF(2)'s lookahead blocks on packed words, the other kinds' warp-0 steps,
+zero-run batches and CTA-wide steps), modelled in Python ints, against the
+plain scan and the JAX package's ``_bm_kernel``.
 
 The same seeded characteristic polynomials and states go to both packages
 over GF(2), GF(3), GF(2^3), GF(3^3), GF(2^8), GF(2^31 - 1), Goldilocks and
@@ -21,9 +24,16 @@ import torch
 import galois_tpu as gj
 import galois_tpu_torch as gt
 from galois_tpu.fields._hostfield import get_host_field as jax_host_field
+from galois_tpu.lfsr import _bm_kernel as jax_bm_kernel
+from galois_tpu_torch.fields._hostfield import get_host_field
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops._lfsr_scan import (
     BLOCK_TICKS,
+    BM_S,
+    _BINTAB,
+    _ODDTAB,
+    _field,
+    _scan_tables,
     berlekamp_massey_long,
     berlekamp_massey_long_plain,
     block_inputs,
@@ -392,3 +402,268 @@ def test_k12_gf2_packed_blocks_match_ticks(kind, direction, k):
     s_ref, y_ref = lfsr_step_plain(ops, st, tp, 3 * BLOCK_TICKS, kind, direction, one)
     s, y = _packed_gf2_blocks(Dk, Gk, st.tolist(), k, kind, direction, 3)
     assert s == s_ref.tolist() and y == y_ref.tolist()
+
+
+# ----------------------------------------------------------------------
+# K13's forms, modelled in Python ints as csrc/lfsr.cu computes them
+# ----------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _fsr(lo, hi, sh):  # __funnelshift_r
+    return (((hi << 32) | lo) >> (sh & 31)) & _M32
+
+
+def _fsl(lo, hi, sh):  # __funnelshift_l
+    return ((((hi << 32) | lo) << (sh & 31)) >> 32) & _M32
+
+
+def _parity(x):
+    return bin(x).count("1") & 1
+
+
+def _gf2_block_scan(seq, S=BM_S):
+    """``bm_gf2_kernel`` in Python ints: the sequence reversed as bits after
+    one zero word, c and b (and two spares) as 32-bit words; a block of S
+    steps is (1) the dots of c and of x^m b at t0 .. t0 + S - 1 as two words,
+    each word of c AND-ed with the window funnel-shifted to each step, (2) the
+    S scalar steps on the 2 x 2 matrix rows (u, v) and (w, z) as 32-bit
+    polynomials, (3) c' = u c + v x^m b and, where L grew, b' = ug c + vg x^m b
+    as carry-less products by each set bit. Returns (c as N + 1 bits, L)."""
+    N = len(seq)
+    cw, rw, last = (N + 32) >> 5, ((N + 31) >> 5) + 2, N >> 5
+    last_mask = _M32 if (N & 31) == 31 else (2 << (N & 31)) - 1
+    buf = [0] * (4 * cw)
+    buf[0] = buf[cw] = 1
+    Rp = [0] + [sum((int(seq[N - 1 - 32 * r - k]) & 1) << k for k in range(32) if N - 1 - 32 * r - k >= 0)
+                for r in range(rw - 1)]
+
+    def dots(off, top, o):  # bit k: the dot at t0 + k, of the words 0..top at R-offset o
+        acc = [0] * S
+        for w in range(top + 1):
+            p0 = o + 32 * w + 1
+            i0, sh = p0 >> 5, p0 & 31
+            a, b, e = (Rp[i] if i < rw else 0 for i in (i0, i0 + 1, i0 + 2))
+            lo, hi = _fsr(a, b, sh), _fsr(b, e, sh)
+            for k in range(S):
+                acc[k] ^= buf[off + w] & _fsr(lo, hi, S - 1 - k)
+        return sum(_parity(acc[k]) << k for k in range(S))
+
+    def clmul(u, lo, hi):
+        r = 0
+        for i in range(32):
+            if (u >> i) & 1:
+                r ^= _fsl(lo, hi, i)
+        return r
+
+    oc, ob, s1, s2 = 0, cw, 2 * cw, 3 * cw
+    L, m, ext_c, ext_b = 0, 1, 0, 0
+    for t0 in range(0, N, S):
+        n = min(S, N - t0)
+        rdc = int(f"{dots(oc, ext_c >> 5, N - 1 - t0):032b}"[::-1], 2)  # __brev
+        rdb = int(f"{dots(ob, ext_b >> 5, N - 1 - t0 + m):032b}"[::-1], 2)
+        u, v, w, z, ug, vg, kg = 1, 0, 0, 1, 0, 0, -1
+        for k in range(n):
+            sh = S - 1 - k
+            if _parity((u & (rdc >> sh)) ^ (v & (rdb >> sh))):
+                if 2 * L <= t0 + k:
+                    ug, vg = u, v
+                    u, v = u ^ w, v ^ z
+                    w, z = (ug << 1) & _M32, (vg << 1) & _M32
+                    L, kg = t0 + k + 1 - L, k
+                    continue
+                u, v = u ^ w, v ^ z
+            w, z = (w << 1) & _M32, (z << 1) & _M32
+        q, r = m >> 5, m & 31
+        nc = max(ext_c + u.bit_length() - 1, m + ext_b + v.bit_length() - 1 if v else 0)
+        nb = ext_b if kg < 0 else max(ext_c + ug.bit_length() - 1, m + ext_b + vg.bit_length() - 1 if vg else 0)
+        nc, nb = min(nc, N), min(nb, N)
+        new = []
+        for j in range(max(nc, nb) // 32 + 1):
+            c0, c1 = buf[oc + j], buf[oc + j - 1] if j else 0
+            b0 = buf[ob + j - q] if j >= q else 0
+            b1 = buf[ob + j - q - 1] if j > q else 0
+            b2 = buf[ob + j - q - 2] if j > q + 1 else 0
+            B0, B1 = _fsl(b1, b0, r), _fsl(b2, b1, r)
+            if j <= nc >> 5:
+                x = clmul(u, c1, c0) ^ clmul(v, B1, B0)
+                new.append((s1 + j, x & last_mask if j == last else x))
+            if kg >= 0 and j <= nb >> 5:
+                x = clmul(ug, c1, c0) ^ clmul(vg, B1, B0)
+                new.append((s2 + j, x & last_mask if j == last else x))
+        for i, x in new:
+            buf[i] = x
+        oc, s1 = s1, oc
+        if kg >= 0:
+            ob, s2 = s2, ob
+            m = n - kg
+        else:
+            m += n
+        ext_c, ext_b = nc, nb
+    return [(buf[oc + (j >> 5)] >> (j & 31)) & 1 for j in range(N + 1)], L
+
+
+def _general_scan(Ft, seq, narrow, S=BM_S, U=4):
+    """``bm_long_kernel`` in Python ints: the sequence staged reversed (LOG
+    form, 0 as 2 (q - 1), for the table kinds), c, b and the spare as offsets
+    of one buffer; warp 0 (stride 32) runs the steps while c spans fewer than
+    32 narrow elements, after a step with d = 0 as batches of S dots of the
+    same c (a lane's partials transposed, lane k summing step t + k's), then
+    the CTA (``launch_bm``'s thread count) one step at a time. Each thread
+    reads and writes only its own elements (asserted), BM_CHUNK (U) at a time.
+    Returns (c, L)."""
+    ops = get_ops(Ft._meta, Ft._mode)
+    kind, F = _field(ops, "cpu")
+    hf = get_host_field(Ft._meta)
+    if kind in (_BINTAB, _ODDTAB):
+        exp, log = (t.tolist() for t in _scan_tables(Ft._meta, "cpu"))
+
+        def prep(a):
+            return log[a] if a else F.sent
+
+        def mulp(x, y):
+            return exp[x + y]
+    else:
+        def prep(a):
+            return a
+
+        mulp = hf.multiply
+    N, K = len(seq), len(seq) + 1
+    buf = [1] + [0] * N + [1] + [0] * (2 * N + 1)
+    rs = [prep(int(seq[N - 1 - i])) for i in range(N)]
+    st = {"c": 0, "b": K, "s": 2 * K, "t": 0, "L": 0, "m": 1, "ext_c": 0, "ext_b": 0, "inv_b": 1}
+    threads = 256
+    while N + 1 > 32 * narrow and threads < 512 and threads * 8 < N + 1:
+        threads *= 2
+
+    def dot(stride):
+        t, c = st["t"], st["c"]
+        top = min(st["ext_c"], t)
+        total = 0
+        for tid in range(stride):
+            acc = 0
+            for j in range(tid, top + 1, U * stride):
+                for k in range(j, j + U * stride, stride):
+                    assert k % stride == tid
+                    cv, rv = (buf[c + k], rs[N - 1 - t + k]) if k <= top else (0, prep(0))
+                    acc = hf.add(acc, mulp(prep(cv), rv))
+            total = hf.add(total, acc)
+        return total
+
+    def advance(d, stride):
+        t = st["t"]
+        st["t"] += 1
+        if d == 0:
+            st["m"] += 1
+            return
+        m, c, b = st["m"], st["c"], st["b"]
+        grow = 2 * st["L"] <= t
+        nxt = min(max(st["ext_c"], m + st["ext_b"]), N)
+        hi = nxt if grow else min(m + st["ext_b"], N)
+        dst = st["s"] if grow else c
+        pc = prep(hf.multiply(d, st["inv_b"]))
+        j0 = 0 if grow else m
+        for tid in range(stride):
+            for k in range(j0 + ((tid - j0) & (stride - 1)), hi + 1, stride):
+                assert k % stride == tid
+                bv = buf[b + k - m] if k >= m else 0
+                buf[dst + k] = hf.subtract(buf[c + k], mulp(pc, prep(bv)))
+        if grow:
+            st["b"], st["c"], st["s"] = c, st["s"], b
+            st["ext_b"], st["inv_b"], st["L"], st["m"] = st["ext_c"], hf.reciprocal(d), t + 1 - st["L"], 1
+        else:
+            st["m"] += 1
+        st["ext_c"] = nxt
+
+    def batch(nb):
+        t, c = st["t"], st["c"]
+        top = min(st["ext_c"], t + nb - 1)
+        rows = [[0] * 32 for _ in range(S)]  # the transpose: row k, lane l
+        for lane in range(32):
+            for j in range(lane, top + 1, 32):
+                cj = prep(buf[c + j])
+                for k in range(S):
+                    rv = rs[N - 1 - t + j - k] if k < nb and j <= t + k else prep(0)
+                    rows[k][lane] = hf.add(rows[k][lane], mulp(cj, rv))
+        return [functools.reduce(hf.add, row, 0) for row in rows]
+
+    run = False
+    while st["t"] < N and st["ext_c"] < 32 * narrow:
+        if run:
+            nb = min(S, N - st["t"])
+            dk = batch(nb)
+            nz = [k for k in range(nb) if dk[k]]
+            if not nz:
+                st["t"] += nb
+                st["m"] += nb
+                continue
+            st["t"] += nz[0]
+            st["m"] += nz[0]
+            d = dk[nz[0]]
+        else:
+            d = dot(32)
+        run = d == 0
+        advance(d, 32)
+    while st["t"] < N:
+        advance(dot(threads), threads)
+    return buf[st["c"] : st["c"] + K], st["L"]
+
+
+@functools.lru_cache(maxsize=None)
+def _bm_sequences(q, N=600):
+    """K13's edge cases over GF(q), N elements: random (complexity near N / 2),
+    a degree-12 LFSR's output (runs of d = 0), that output then random
+    elements (L changes inside a block), the impulse (L = N), all zeros."""
+    rng = np.random.default_rng(q % 1009)
+    hi = min(q, 2**31)
+    coeffs = [1] + [int(v) for v in rng.integers(0, hi, 11)] + [1]
+    Fj = gj.GF(q)
+    lf = np.asarray(gj.FLFSR(gj.Poly(coeffs, field=Fj), state=[int(v) for v in rng.integers(1, hi, 12)]).step(N),
+                    dtype=np.int64)
+    return {
+        "random": rng.integers(0, hi, N),
+        "lfsr": lf,
+        "lfsr-then-random": np.concatenate([lf[: N * 11 // 20], rng.integers(0, hi, N - N * 11 // 20)]),
+        "impulse": np.array([0] * (N - 1) + [1]),
+        "zeros": np.zeros(N, dtype=np.int64),
+    }
+
+
+def _plain_and_jax(q, seq):
+    """(c, L) of the port's plain scan and of the JAX package's ``_bm_kernel``."""
+    Ft, Fj = gt.GF(q), gj.GF(q)
+    c, L = berlekamp_massey_long_plain(get_ops(Ft._meta, Ft._mode), Ft(seq)._data)
+    cj, Lj = jax_bm_kernel(Fj._meta, "jit-calculate", len(seq))(Fj(seq)._data)
+    return (c.tolist(), int(L)), (np.asarray(cj, dtype=np.int64).tolist(), int(Lj))
+
+
+BM_CASES = ["random", "lfsr", "lfsr-then-random", "impulse", "zeros"]
+
+
+@pytest.mark.parametrize("case", BM_CASES + ["N=33", "N=65"])
+def test_k13_gf2_block_model_matches_plain_and_jax(case):
+    """GF(2): the kernel's lookahead blocks of 32 steps on packed words equal
+    the plain scan and the JAX package's scan, N = 600 (not a multiple of 32)
+    and at the word edges 33 and 65."""
+    if case.startswith("N="):
+        seq = np.random.default_rng(int(case[2:])).integers(0, 2, int(case[2:]))
+    else:
+        seq = _bm_sequences(2)[case]
+    got = _gf2_block_scan([int(v) for v in seq])
+    plain, jax_result = _plain_and_jax(2, seq)
+    assert got == plain == jax_result
+
+
+@pytest.mark.parametrize("case", BM_CASES)
+@pytest.mark.parametrize("q", [2**8, 3**5, 2**31 - 1, 2**17], ids=["GF(2^8)", "GF(3^5)", "GF(2^31-1)", "GF(2^17)"])
+def test_k13_general_model_matches_plain_and_jax(q, case):
+    """The other kinds (BINTAB, ODDTAB, PRIME, BINARY): warp 0's steps and
+    zero-run batches, then the CTA's, equal the plain scan and the JAX
+    package's scan, N = 400 (not a multiple of 32); narrow 1 switches to the
+    CTA at 32 elements, narrow 8 (the kernel's BM_NARROW) at 256."""
+    seq = _bm_sequences(q, 400)[case]
+    plain, jax_result = _plain_and_jax(q, seq)
+    assert plain == jax_result
+    for narrow in (1, 8):
+        assert _general_scan(gt.GF(q), seq, narrow) == plain
