@@ -200,6 +200,28 @@ Phases, each fatal on failure:
      degree 64, 128 and 129) against their plain versions on the card, and
      times each, K14 beside its form's own operation and shared-memory
      counts.
+ 12. main path 9, the same way: element assignment on a 2^24-element
+     GF(2^8) array (a half-density mask, x[::3] = 7, 2^20 distinct index
+     positions), on Goldilocks at 2^22 (uint16 limbs) and GF(3^30) digits
+     at 2^20, each write against the same write by raw torch ops, and a
+     slice taken before the writes unchanged; np.multiply.outer and
+     np.add.outer at 4096 x 4096 over GF(2^8) (K8 by stride), GF(2^16)
+     (K7) and GF(2^31 - 1) (K9), 2048 x 2048 over Goldilocks (K10) and
+     1024 x 1024 over GF(2^128) (K14), rows against the card's broadcast
+     product and samples against Python ints, and a zero divisor of
+     np.true_divide.outer raising; np.add.reduce and np.multiply.reduce of
+     a (4096, 4096) array over GF(2^8) and GF(2^31 - 1) on both axes,
+     against .sum and .prod and Python ints; np.subtract.reduce,
+     np.true_divide.reduce, np.multiply.accumulate, np.add.reduceat and
+     np.add.at on 2^16 elements (the host field); a pickle round trip of a
+     2^24-element GF(2^8) and a 2^20-element Goldilocks card array (bytes
+     and seconds); the python-calculate mode against jit-calculate (and
+     jit-lookup, K3, for GF(2^8)) over GF(2^8), Goldilocks and BLS12-381 r
+     on 4096 elements (*, /, ** 65537, an exponent array, np.sqrt), a Poly
+     evaluation and np.convolve in that mode; the poly and power reprs of a
+     card array against its CPU copy's, GF(2^4).repr_table() and
+     GF(3^2).arithmetic_table("*"). Each line starts with nvidia-smi's card
+     and power limit; K3, K7, K8, K9, K10 and K14 must have been launched.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -1544,6 +1566,245 @@ def lfsr_path(gt, dev, timed, smi):
         line(f"berlekamp_massey, {label} (L = {fib.order})", ms, used, peak, " | divides c(x), regenerates every output")
     del m_seq, y8, yM
     print(f"[main] {smi} | main path 8 took {time.perf_counter() - t_path:.1f} s", flush=True)
+
+
+def api_path(gt, dev, timed, smi):
+    """Main path 9: the rest of the FieldArray API through the public calls
+    on ``dev``: element assignment (a 2^24-element GF(2^8) array by a mask,
+    a strided slice and 2^20 index positions; Goldilocks at 2^22; GF(3^30)
+    digits at 2^20), np.multiply.outer and np.add.outer (4096^2 over
+    GF(2^8), GF(2^16), GF(2^31 - 1), 2048^2 over Goldilocks, 1024^2 over
+    GF(2^128)), the device reductions of a (4096, 4096) array, the ufunc
+    methods that run on the host at 2^16 elements, pickling, the
+    python-calculate mode against the device modes, and the element reprs.
+    Each result is held against an independent answer: raw torch ops on the
+    storage, the card's own elementwise product, or Python ints on samples.
+    ``timed(call)`` returns (result, ms, launches by wrapper, peak device
+    MiB) of one call."""
+    import pickle
+
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(90)
+    rng = np.random.default_rng(90)
+
+    def line(label, ms, used, peak, extra=""):
+        print(f"[main] {smi} | {label}: {ms:.1f} ms, launches {used}, peak device memory {peak:.0f} MiB{extra}", flush=True)
+
+    def raw(X):
+        """A FieldArray's storage; uint16 limbs as int16 (CUDA has no uint16 scatter)."""
+        return X._data.view(torch.int16) if X._data.dtype == torch.uint16 else X._data
+
+    def host_mul(F):
+        p, m = F.characteristic, F.degree
+        if p == 2:
+            f = F._meta.irreducible_poly_int
+            return lambda a, b: py_clmul_mod(a, b, m, f)
+        return lambda a, b: a * b % p
+
+    def host_add(F):
+        p = F.characteristic
+        return (lambda a, b: a ^ b) if p == 2 else (lambda a, b: (a + b) % p)
+
+    # 1. element assignment: each write against the same write by raw torch ops on a copy of the storage,
+    # and a slice taken before the writes keeps its values
+    F8, FG, F330 = gt.GF(2**8), gt.GF(GOLDILOCKS), gt.GF(3**30)
+    for F, n, tag in ((F8, 2**24, "GF(2^8) 2^24"), (FG, 2**22, "Goldilocks 2^22"), (F330, 2**20, "GF(3^30) digits 2^20")):
+        x = F.Random(n, seed=1, device=dev)
+        head = x[: 1 << 12]
+        head_before = raw(head).clone()
+        want = raw(x).clone()
+        lead = (slice(None),) * x._storage_ndim()
+        mask = torch.rand(n, generator=gen, device=dev) < 0.5
+        idx = torch.randperm(n, generator=gen, device=dev)[: 1 << 20]
+        vals = F.Random(1 << 20, seed=2, device=dev)
+        seven = raw(F(7, device=dev))
+        seven = seven.reshape(-1, 1) if lead else seven  # planar words as a column: they broadcast over elements
+        writes = (
+            ("x[mask] = 7, half-density mask", mask, 7, lambda w: torch.where(mask, seven, w)),
+            ("x[::3] = 7", slice(None, None, 3), 7, lambda w: w.index_copy(
+                len(lead), torch.arange(0, n, 3, device=dev), seven.expand(*w.shape[:-1], len(range(0, n, 3))))),
+            ("x[idx] = values, 2^20 distinct index positions", idx, vals,
+             lambda w: w.index_copy(len(lead), idx, raw(vals))),
+        )
+        for label, index, value, by_torch in writes:
+            _, ms, used, peak = timed(lambda: x.__setitem__(index, value))
+            want = by_torch(want)
+            if not (x.device == dev and torch.equal(raw(x), want)):
+                raise AssertionError(f"{tag} {label} disagrees with the same write by raw torch ops")
+            line(f"{tag} {label}", ms, used, peak, " | equal to the same write by torch.where / index_copy")
+        if not torch.equal(raw(head), head_before):
+            raise AssertionError(f"{tag}: a slice taken before the assignments changed")
+    print(f"[main] {smi} | assignment: the slices taken before the writes kept their values", flush=True)
+    del x, head, want, mask, idx, vals
+    torch.cuda.empty_cache()
+
+    # 2. outer products: rows against the card's own broadcast product, samples against Python ints
+    F128 = gt.GF(2**128, irreducible_poly="x^128 + x^7 + x^2 + x + 1")
+    for F, n, tag in ((F8, 4096, "GF(2^8)"), (gt.GF(2**16), 4096, "GF(2^16)"), (gt.GF(2**31 - 1), 4096, "GF(2^31-1)"),
+                      (FG, 2048, "Goldilocks"), (F128, 1024, "GF(2^128)")):
+        a = F.Random(n, seed=3, device=dev)
+        b = F.Random(n, low=1, seed=4, device=dev)
+        rows = torch.as_tensor(np.sort(rng.choice(n, 16, replace=False)), device=dev)
+        ii, jj = rng.integers(0, n, 256), rng.integers(0, n, 256)
+        av, bv = ints(a), ints(b)
+        for ufunc, ref in ((np.multiply, host_mul(F)), (np.add, host_add(F))):
+            z, ms, used, peak = timed(lambda: ufunc.outer(a, b))
+            if z.shape != (n, n) or z.device != dev:
+                raise AssertionError(f"{tag} {ufunc.__name__}.outer: shape {z.shape} on {z.device}")
+            for r in rows.tolist():
+                if not torch.equal(raw(z[r]), raw(ufunc(a[r], b))):
+                    raise AssertionError(f"{tag} {ufunc.__name__}.outer row {r} != a[r] op b on the card")
+            got = ints(z[torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)])
+            if got != [ref(av[i], bv[j]) for i, j in zip(ii, jj)]:
+                raise AssertionError(f"{tag} {ufunc.__name__}.outer disagrees with Python ints")
+            line(f"{tag} np.{ufunc.__name__}.outer, {n} x {n}", ms, used, peak,
+                 " | 16 rows equal a[r] op b on the card, 256 samples exact")
+        del z
+        torch.cuda.empty_cache()
+    try:
+        np.true_divide.outer(b, a.__class__(torch.zeros_like(a._data[..., :4])))
+    except ZeroDivisionError:
+        print(f"[main] {smi} | np.true_divide.outer with a zero divisor raised ZeroDivisionError", flush=True)
+    else:
+        raise AssertionError("np.true_divide.outer with a zero divisor did not raise")
+
+    # 3. the device reductions of a (4096, 4096) array, against .sum and .prod and Python ints
+    for F, tag in ((F8, "GF(2^8)"), (gt.GF(2**31 - 1), "GF(2^31-1)")):
+        X = F.Random((4096, 4096), low=1, seed=5, device=dev)
+        cols = rng.integers(0, 4096, 4)
+        for ufunc, method, ref in ((np.add, "sum", host_add(F)), (np.multiply, "prod", host_mul(F))):
+            for axis in (0, 1):
+                r, ms, used, peak = timed(lambda: ufunc.reduce(X, axis=axis))
+                if not torch.equal(raw(r), raw(getattr(X, method)(axis=axis))):
+                    raise AssertionError(f"{tag} np.{ufunc.__name__}.reduce axis {axis} != .{method}")
+                for c in cols.tolist():
+                    line_vals = ints(X[:, c] if axis == 0 else X[c])
+                    acc = line_vals[0]
+                    for v in line_vals[1:]:
+                        acc = ref(acc, v)
+                    if int(r[c]) != acc:
+                        raise AssertionError(f"{tag} np.{ufunc.__name__}.reduce axis {axis} disagrees with Python ints")
+                line(f"{tag} np.{ufunc.__name__}.reduce, (4096, 4096), axis {axis}", ms, used, peak,
+                     f" | equal to .{method}, 4 lines exact in Python ints")
+        del X, r
+        torch.cuda.empty_cache()
+
+    # 4. the ufunc methods that run on the host field, at 2^16 elements of GF(2^31 - 1), against Python ints
+    FM = gt.GF(2**31 - 1)
+    p = FM.order
+    x = FM.Random(2**16, low=1, seed=6, device=dev)
+    xv = ints(x)
+    inv = lambda v: pow(v, p - 2, p)  # noqa: E731
+    prod_rest = 1
+    for v in xv[1:]:
+        prod_rest = prod_rest * v % p
+    at_idx = rng.integers(0, 2**16, 4096)
+    for label, call, want in (
+        ("np.subtract.reduce", lambda: np.subtract.reduce(x), (xv[0] - sum(xv[1:])) % p),
+        ("np.true_divide.reduce", lambda: np.true_divide.reduce(x), xv[0] * inv(prod_rest) % p),
+        ("np.multiply.accumulate", lambda: np.multiply.accumulate(x), None),
+        ("np.add.reduceat, 256 segments", lambda: np.add.reduceat(x, np.arange(0, 2**16, 256)), None),
+        ("np.add.at, 4096 positions", lambda: np.add.at(x, at_idx, FM(1, device=dev)), None),
+    ):
+        before = list(xv)
+        r, ms, used, peak = timed(call)
+        if label == "np.multiply.accumulate":
+            acc, want = 1, []
+            for v in before:
+                acc = acc * v % p
+                want.append(acc)
+            got = ints(r)
+        elif label.startswith("np.add.reduceat"):
+            want = [sum(before[s : s + 256]) % p for s in range(0, 2**16, 256)]
+            got = ints(r)
+        elif label.startswith("np.add.at"):
+            want = list(before)
+            for i in at_idx.tolist():
+                want[i] = (want[i] + 1) % p
+            got, r = ints(x), x
+        else:
+            got = int(r)
+        if got != want or r.device != dev:
+            raise AssertionError(f"GF(2^31-1) {label} disagrees with Python ints or left the card")
+        line(f"GF(2^31-1) {label}, 2^16 elements (host field)", ms, used, peak, " | exact in Python ints, result on the card")
+
+    # 5. pickling: a round trip of the card's arrays, back on the card (the default device)
+    for F, n, tag in ((F8, 2**24, "GF(2^8) 2^24"), (FG, 2**20, "Goldilocks 2^20")):
+        x = F.Random(n, seed=7, device=dev)
+        t0 = time.perf_counter()
+        data = pickle.dumps(x)
+        t1 = time.perf_counter()
+        y = pickle.loads(data)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not (type(y) is F and y.device.type == "cuda" and y.dtype == x.dtype and torch.equal(raw(y), raw(x))):
+            raise AssertionError(f"{tag} pickle round trip: not equal, not the cached class or not on the card")
+        print(f"[main] {smi} | pickle {tag}: {len(data)} bytes, dumps {t1 - t0:.3f} s, loads {t2 - t1:.3f} s"
+              " | equal, the cached class, on the card", flush=True)
+    del x, y, data
+
+    # 6. python-calculate against the device modes on the card, 4096 elements
+    FB = gt.GF(BLS_R)
+    for F, tag in ((F8, "GF(2^8)"), (FG, "Goldilocks"), (FB, "BLS12-381 r")):
+        x = F.Random(4096, seed=8, device=dev)
+        y = F.Random(4096, low=1, seed=9, device=dev)
+        e = rng.integers(-(2**62), 2**62, 4096, dtype=np.int64)
+        calls = (("x * y", lambda: x * y), ("x / y", lambda: x / y), ("x ** 65537", lambda: x**65537),
+                 ("y ** e, int64 exponent array", lambda: y**e), ("np.sqrt(x * x)", lambda: np.sqrt(x * x)))
+        modes = ("jit-calculate", "jit-lookup") if F is F8 else ("jit-calculate",)
+        try:
+            for label, call in calls:
+                # BLS12-381 r's jit-calculate np.sqrt is about 2300 launch-bound limb products (21 s at
+                # 4096 elements, PERF.md): its python-calculate roots are held against Python ints instead
+                skip_device = F is FB and label.startswith("np.sqrt")
+                results = {}
+                for mode in (() if skip_device else modes) + ("python-calculate",):
+                    F.compile(mode)
+                    results[mode], ms, used, peak = timed(call)
+                    line(f"{tag} {label}, {mode}, 4096 elements", ms, used, peak)
+                host = results["python-calculate"]
+                if host.device != dev or not all(torch.equal(raw(host), raw(r)) for r in results.values()):
+                    raise AssertionError(f"{tag} {label}: python-calculate disagrees with the device modes")
+                if skip_device:
+                    p = F.order
+                    if any(r * r % p != a * a % p or r > p - r for r, a in zip(ints(host), ints(x))):
+                        raise AssertionError(f"{tag} {label}: a python-calculate root is not the canonical root")
+                    print(f"[main] {smi} | {tag} {label}: r * r == x * x and r <= -r for every root, in Python ints",
+                          flush=True)
+        finally:
+            F.compile("auto")
+    coeffs = rng.integers(0, 256, 64).tolist()
+    xs = F8.Random(4096, seed=10, device=dev)
+    a8, b8 = F8.Random(4096, seed=11, device=dev), F8.Random(4096, seed=12, device=dev)
+    results = {}
+    try:
+        for mode in ("jit-calculate", "python-calculate"):
+            F8.compile(mode)
+            poly = gt.Poly(coeffs, field=F8)
+            ev, ms, used, peak = timed(lambda: poly(xs))
+            line(f"GF(2^8) degree-63 Poly evaluation at 4096 points, {mode}", ms, used, peak)
+            cv, ms, used, peak = timed(lambda: np.convolve(a8, b8))
+            line(f"GF(2^8) np.convolve 4096 x 4096, {mode} (the default mode's device product)", ms, used, peak)
+            results[mode] = (ev, cv)
+    finally:
+        F8.compile("auto")
+    (e1, c1), (e2, c2) = results["jit-calculate"], results["python-calculate"]
+    if not (e2.device == dev and torch.equal(raw(e1), raw(e2)) and torch.equal(raw(c1), raw(c2))):
+        raise AssertionError("GF(2^8) Poly evaluation or np.convolve: python-calculate disagrees with jit-calculate")
+    print(f"[main] {smi} | python-calculate: every call equal to the device modes, results on the card", flush=True)
+
+    # 7. reprs: a card array prints as its CPU copy; the tables print
+    x = F8.Random(64, seed=13, device=dev)
+    xc = F8(x._data.cpu())
+    for element_repr in ("poly", "power"):
+        with F8.repr(element_repr):
+            if str(x) != str(xc) or repr(x) != repr(xc):
+                raise AssertionError(f"GF(2^8) {element_repr} repr of a card array differs from its CPU copy's")
+    print(f"[main] {smi} | GF(2^8) poly and power reprs of a card array equal its CPU copy's", flush=True)
+    print(gt.GF(2**4).repr_table(), flush=True)
+    print(gt.GF(3**2).arithmetic_table("*"), flush=True)
+    print(f"[main] {smi} | main path 9 took {time.perf_counter() - t_path:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3079,6 +3340,13 @@ def main() -> int:
         fn.launches = 0
     lfsr_path(gt, dev, timed, smi)
     read_counts(8, (lfsr_step, berlekamp_massey_long, gf2_limb_multiply, gf2_limb_power))
+
+    # -- 12. main path 9: assignment, the ufunc methods, pickling, python-calculate, reprs
+    for fn in counters:
+        fn.launches = 0
+    api_path(gt, dev, timed, smi)
+    read_counts(9, (gf2m_multiply_swar, gf2m_multiply, m31_multiply, goldilocks_multiply, gf2_limb_multiply,
+                    _lookup.lookup_multiply))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),

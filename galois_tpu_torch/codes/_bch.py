@@ -22,6 +22,7 @@ from ..nt import ilog
 from ..polys._poly import Poly
 from ..polys._primitive import matlab_primitive_poly
 from ._cyclic import _CyclicCode
+from ..ops._kernels import kernel_mode
 from ._decoder import make_decoder
 
 __all__ = ["BCH"]
@@ -113,7 +114,7 @@ class BCH(_CyclicCode):
             return codeword, np.zeros(codeword.shape[0], dtype=np.int64)
         decoder = make_decoder(
             ext._meta,
-            ext._mode,
+            kernel_mode(ext),
             self.field.order,
             codeword.shape[-1],
             self.n,  # design_n: Chien scans the full parent-code length even

@@ -18,6 +18,7 @@ from ..nt import ilog
 from ..polys._poly import Poly
 from ..polys._primitive import matlab_primitive_poly
 from ._cyclic import _CyclicCode
+from ..ops._kernels import kernel_mode
 from ._decoder import make_decoder
 
 __all__ = ["ReedSolomon"]
@@ -115,7 +116,7 @@ class ReedSolomon(_CyclicCode):
             return codeword, np.zeros(codeword.shape[0], dtype=np.int64)
         decoder = make_decoder(
             field._meta,
-            field._mode,
+            kernel_mode(field),
             field.order,
             codeword.shape[-1],
             self.n,

@@ -20,29 +20,42 @@ representation in the array's dtype (an object array of Python ints for
 orders above 2^63), ``np.multiply(x, y)`` and friends
 go through ``__array_ufunc__``, and the NumPy functions of
 ``fields/_np_functions.py`` (``np.fft.fft``, ``np.linalg.inv``, ...) through
-``__array_function__``. ``sum`` and ``prod`` reduce with a tree of field adds
-or multiplies on the array's device.
+``__array_function__``. ``sum``, ``prod`` and ``np.add``/``np.multiply``
+``reduce`` reduce with a tree of field adds or multiplies on the array's
+device, ``outer`` is one broadcast op there; the other ufunc methods
+(``accumulate``, ``reduceat``, ``at``, the other ``reduce`` calls) run on the
+exact host field, as in the JAX package. Element assignment gives the array
+new storage, so that, as with the JAX package's immutable arrays, no view or
+tensor it shares storage with changes. The 'python-calculate' mode computes
+the elementwise arithmetic on exact host ints (``_python_op``) and puts the
+result back on the operands' device. Arrays pickle with their storage as a
+NumPy array (``fields/_factory.py``) and print in the class's element repr
+('int', 'poly' or 'power').
 """
 
 from __future__ import annotations
 
 import math
+import operator
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from .._options import resolve_device
+from ..polys._conversions import integer_to_poly, poly_to_str
 from ..ops._limbs import _i16, align_planar, normalize_limbs
 from ._meta import STORAGE_DIGITS, STORAGE_INT, FieldMeta, int_to_limbs
 
 __all__ = ["Array", "FieldArray", "FieldArrayMeta"]
 
 
-def _get_ops(meta: FieldMeta, mode: str):
-    from ..ops._kernels import get_ops
+def _get_ops(field):
+    """The ops object of a field class or array, in its kernel mode
+    (``ops/_kernels.py::kernel_mode``)."""
+    from ..ops._kernels import get_ops, kernel_mode
 
-    return get_ops(meta, mode)
+    return get_ops(field._meta, kernel_mode(field))
 
 
 # ----------------------------------------------------------------------
@@ -271,21 +284,49 @@ class FieldArrayMeta(type):
     def default_ufunc_mode(cls) -> str:
         return cls._meta.default_ufunc_mode
 
+    @property
+    def element_repr(cls) -> str:
+        return cls._element_repr
+
     def compile(cls, mode: str) -> None:
-        """Select the ufunc mode: 'auto' (the default mode), 'jit-calculate'
-        or, for orders <= 2^20, 'jit-lookup' (EXP/LOG table kernels; the
-        results are identical, only the speed differs)."""
+        """Select the ufunc mode: 'auto' (the default mode), 'jit-calculate',
+        for orders <= 2^20 'jit-lookup' (EXP/LOG table kernels), or
+        'python-calculate' (the elementwise arithmetic on exact host ints,
+        the result back on the operands' device). The results are
+        identical, only the speed differs."""
         if mode == "auto":
             mode = cls._meta.default_ufunc_mode
         if mode not in cls._meta.ufunc_modes:
             raise ValueError(
                 f"Argument 'mode' must be in {['auto'] + cls._meta.ufunc_modes}, not {mode!r}."
             )
-        if mode == "python-calculate":
-            raise NotImplementedError(
-                "The 'python-calculate' mode is not ported yet (it needs the host ufuncs of that mode)."
-            )
         cls._mode = mode
+
+    def repr(cls, element_repr: str = "int"):
+        """Set how elements print: 'int', 'poly' or 'power'. Also a context
+        manager that restores the prior setting on exit."""
+        if element_repr not in ("int", "poly", "power"):
+            raise ValueError(
+                f"Argument 'element_repr' must be in ['int', 'poly', 'power'], not {element_repr!r}."
+            )
+        prior = cls._element_repr
+        cls._element_repr = element_repr
+
+        class _ReprContext:
+            def __enter__(self_ctx):
+                return cls
+
+            def __exit__(self_ctx, *exc):
+                cls._element_repr = prior
+
+        return _ReprContext()
+
+    def _element_to_str(cls, x: int) -> str:
+        """An int repr as the tables print it: the int, or for an extension
+        field outside int repr its polynomial in α."""
+        if cls._element_repr == "int" or cls._meta.degree == 1:
+            return str(x)
+        return poly_to_str(integer_to_poly(x, cls.characteristic), poly_var="α")
 
 
 # ----------------------------------------------------------------------
@@ -313,6 +354,7 @@ class FieldArray(Array):
 
     _meta: FieldMeta = None
     _mode: str = None
+    _element_repr: str = "int"
 
     def __init__(self, x, dtype=None, copy=True, order="K", ndmin=0, *, device=None):
         cls = type(self)
@@ -476,6 +518,25 @@ class FieldArray(Array):
         # through an int16 view: CUDA has no uint16 gather for tensor and mask indices
         return type(self)._view(_i16(self._data)[index].view(self._data.dtype), self._dtype)
 
+    def __setitem__(self, index, value) -> None:
+        """Element assignment, with the JAX package's value semantics: the
+        array gets new storage, a copy with the values written, so a slice
+        taken before and a tensor the array was made from keep their values.
+        The value is checked as the constructor checks it (``ValueError``
+        out of range, ``TypeError`` for floats) and goes to the array's
+        device."""
+        value = _convert_to_storage(type(self), value, self.device)
+        data = self._data.clone()
+        if self._storage_ndim():
+            # the storage axis moved last, where the JAX package keeps digits,
+            # so that a scalar or (w,) value broadcasts over the element axes;
+            # uint16 limbs through int16 views (CUDA has no uint16 scatter)
+            target = _i16(data).movedim(0, -1)
+            target[_expand_index(index, self.ndim, first=False)] = _i16(value).movedim(0, -1)
+        else:
+            data[index] = value
+        self._data = data
+
     def reshape(self, *shape) -> "FieldArray":
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
@@ -506,6 +567,13 @@ class FieldArray(Array):
 
     def copy(self) -> "FieldArray":
         return type(self)._view(self._data.clone(), self._dtype)
+
+    # copy.copy and copy.deepcopy keep the array's device (pickling goes to the default device)
+    def __copy__(self) -> "FieldArray":
+        return self.copy()
+
+    def __deepcopy__(self, memo) -> "FieldArray":
+        return self.copy()
 
     def astype(self, dtype) -> "FieldArray":
         return type(self)._view(self._data, _validate_dtype(type(self), dtype))
@@ -554,11 +622,13 @@ class FieldArray(Array):
         except (TypeError, ValueError):
             return NotImplemented
         a, b = (o, self) if reflected else (self, o)
-        if opname == "multiply":
+        if self._mode == "python-calculate":
+            out = _python_op(self._meta, opname, a._data, b._data)
+        else:
             # the public elementwise multiply may ride a table kernel (K3 for
             # small odd extension fields); composites keep ops.multiply
-            opname = "multiply_bulk"
-        out = getattr(_get_ops(self._meta, self._mode), opname)(a._data, b._data)
+            opname = "multiply_bulk" if opname == "multiply" else opname
+            out = getattr(_get_ops(self), opname)(a._data, b._data)
         return type(self)._view(out, self._dtype)
 
     def __add__(self, other):
@@ -604,8 +674,9 @@ class FieldArray(Array):
         return matmul(self._coerce(other), self)
 
     def __neg__(self):
-        out = _get_ops(self._meta, self._mode).negative(self._data)
-        return type(self)._view(out, self._dtype)
+        if self._mode == "python-calculate":
+            return type(self)._view(_python_op(self._meta, "negative", self._data), self._dtype)
+        return type(self)._view(_get_ops(self).negative(self._data), self._dtype)
 
     def __pos__(self):
         return self.copy()
@@ -616,8 +687,9 @@ class FieldArray(Array):
             e = int(other)
             if e < 0:
                 _check_div_by_zero(self)
-            out = _get_ops(cls._meta, cls._mode).power_static(self._data, e)
-            return cls._view(out, self._dtype)
+            if cls._mode == "python-calculate":
+                return cls._view(_python_op(cls._meta, "power", self._data, e), self._dtype)
+            return cls._view(_get_ops(cls).power_static(self._data, e), self._dtype)
         e = np.asarray(other)
         if isinstance(other, FieldArray) or (e.dtype != object and not np.issubdtype(e.dtype, np.integer)):
             raise TypeError(f"Exponents must be integers, not {e.dtype}.")
@@ -643,8 +715,9 @@ class FieldArray(Array):
 
     def multiplicative_inverse(self) -> "FieldArray":
         _check_div_by_zero(self)
-        out = _get_ops(self._meta, self._mode).reciprocal(self._data)
-        return type(self)._view(out, self._dtype)
+        if self._mode == "python-calculate":
+            return type(self)._view(_python_op(self._meta, "reciprocal", self._data), self._dtype)
+        return type(self)._view(_get_ops(self).reciprocal(self._data), self._dtype)
 
     def log(self, base=None) -> np.ndarray:
         """Discrete logarithm, as an int64 ndarray (base: the primitive
@@ -659,7 +732,7 @@ class FieldArray(Array):
         """1 for zero, else the characteristic (an object array of Python
         ints above int64)."""
         p = self._meta.characteristic
-        zero = _get_ops(self._meta, self._mode).is_zero(self._data)
+        zero = _get_ops(self).is_zero(self._data)
         if p <= np.iinfo(np.int64).max:
             out = torch.where(zero, 1, p).cpu().numpy()
             return out if out.ndim else np.int64(out)
@@ -670,7 +743,7 @@ class FieldArray(Array):
     def _is_square_data(self) -> torch.Tensor:
         """Euler's criterion on the device: a bool tensor of the element
         shape (every element is a square in characteristic 2)."""
-        ops = _get_ops(self._meta, self._mode)
+        ops = _get_ops(self)
         zero = ops.is_zero(self._data)
         if self._meta.characteristic == 2:
             return torch.ones_like(zero)
@@ -687,8 +760,9 @@ class FieldArray(Array):
         raises ArithmeticError if any element is a non-square."""
         if not bool(self._is_square_data().all()):
             raise ArithmeticError("Input array has elements that are non-squares.")
-        out = _get_ops(self._meta, self._mode).sqrt(self._data)
-        return type(self)._view(out, self._dtype)
+        if self._mode == "python-calculate":
+            return type(self)._view(_python_op(self._meta, "sqrt", self._data), self._dtype)
+        return type(self)._view(_get_ops(self).sqrt(self._data), self._dtype)
 
     def vector(self, dtype=None) -> "FieldArray":
         """The length-m GF(p) vectors of the elements, degrees descending,
@@ -732,7 +806,7 @@ class FieldArray(Array):
             data, dim = data.reshape(tuple(data.shape[:lead]) + (-1,)), lead
         else:
             dim = lead + int(axis) % self.ndim
-        op = getattr(_get_ops(cls._meta, cls._mode), opname)
+        op = getattr(_get_ops(cls), opname)
         return cls._view(_field_reduce(op, data, dim), self._dtype)
 
     def sum(self, axis=None) -> "FieldArray":
@@ -748,10 +822,11 @@ class FieldArray(Array):
 
     def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
         name = ufunc.__name__
+        if method == "reduce" and name in ("add", "multiply") and not kwargs.get("keepdims"):
+            recv = next(x for x in inputs if isinstance(x, FieldArray))
+            return recv._reduce(name, kwargs.get("axis", None))
         if method != "__call__":
-            raise NotImplementedError(
-                f"Ufunc method {method!r} is not ported yet (it needs the ufunc methods of fields/_array.py)."
-            )
+            return _ufunc_method(ufunc, method, inputs, kwargs)
         if name in ("add", "subtract", "true_divide", "divide", "floor_divide"):
             if not all(isinstance(x, FieldArray) for x in inputs):
                 raise TypeError(
@@ -798,17 +873,39 @@ class FieldArray(Array):
     # Display
     # ------------------------------------------------------------------
 
+    def _format_element(self, x: int) -> str:
+        """One int repr in the class's element repr: the int, its polynomial
+        in α, or α^i by the host discrete log (``ops/_dlog.py::host_log``)."""
+        cls = type(self)
+        if cls._element_repr == "int":
+            return str(x)
+        if cls._element_repr == "poly":
+            return poly_to_str(integer_to_poly(x, self._meta.characteristic), poly_var="α")
+        if x == 0:
+            return "0"
+        from ..ops._dlog import host_log
+
+        i = host_log(self._meta, x)
+        return "1" if i == 0 else ("α" if i == 1 else f"α^{i}")
+
     def __repr__(self) -> str:
-        return f"GF({self._to_string()}, order={self._meta.order})"
+        return self._to_string(repr_mode=True)
 
     def __str__(self) -> str:
-        return self._to_string()
+        return self._to_string(repr_mode=False)
 
-    def _to_string(self) -> str:
+    def _to_string(self, repr_mode: bool) -> str:
         arr = _storage_to_ints(self._meta, self._data)
         if not arr.shape:
-            return str(int(arr))
-        return np.array2string(arr, separator=", ")
+            body = self._format_element(int(arr))
+        elif type(self)._element_repr == "int":
+            body = np.array2string(arr, separator=", ")
+        else:
+            strs = np.empty(arr.shape, dtype=object)
+            for idx in np.ndindex(arr.shape):
+                strs[idx] = self._format_element(int(arr[idx]))
+            body = np.array2string(strs, separator=", ", formatter={"all": str})
+        return f"GF({body}, order={self._meta.order})" if repr_mode else body
 
 
 # ----------------------------------------------------------------------
@@ -816,8 +913,8 @@ class FieldArray(Array):
 # ----------------------------------------------------------------------
 
 def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
-    """x ** e for an integer ndarray exponent of any magnitude and sign:
-    e is reduced mod q-1 on the host, in NumPy for integer dtypes (a
+    """x ** e for an integer ndarray exponent of any magnitude and sign (on
+    host ints in 'python-calculate'): e is reduced mod q-1 on the host, in NumPy for integer dtypes (a
     non-negative int64 exponent of a field with q - 1 >= 2^63 is its own
     residue) and in Python ints otherwise. Int storage passes the reduced
     exponent as one int64 tensor, planar storage as 62-bit words."""
@@ -825,9 +922,11 @@ def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
     meta = cls._meta
     q1 = meta.order - 1
     nbits = max(1, q1.bit_length())
-    ops = _get_ops(meta, cls._mode)
+    ops = _get_ops(cls)
     if (e < 0).any():
         _check_div_by_zero(x)
+    if cls._mode == "python-calculate":
+        return cls._view(_python_op(meta, "power", x._data, e), x._dtype)
     red = None
     if e.dtype != object:
         if np.issubdtype(e.dtype, np.unsignedinteger):
@@ -856,20 +955,132 @@ def _power_array(x: FieldArray, e: np.ndarray) -> FieldArray:
 
 
 # ----------------------------------------------------------------------
+# The ufunc methods and the python-calculate mode
+# ----------------------------------------------------------------------
+
+_UFUNC_OPS = {  # ufunc -> (the host field's op, the operator of the device route)
+    "add": ("add", operator.add),
+    "subtract": ("subtract", operator.sub),
+    "multiply": ("multiply", operator.mul),
+    "true_divide": ("divide", operator.truediv),
+    "floor_divide": ("divide", operator.truediv),
+    "divide": ("divide", operator.truediv),
+}
+
+
+def _ufunc_method(ufunc, method, inputs, kwargs):
+    """reduce, accumulate, reduceat, outer and at of the four arithmetic
+    ufuncs, as in the JAX package. ``outer`` is one broadcast operation on
+    the operands' device (the field's own multiply kernel reads the
+    operands by stride); the others run a ``np.frompyfunc`` ufunc of the
+    exact host field, which gives NumPy's semantics of every method (axis,
+    indices, ``at`` in place), and their result goes back to the input's
+    device. A zero divisor raises ``ZeroDivisionError`` on either route."""
+    name = ufunc.__name__
+    if name not in _UFUNC_OPS or method not in ("reduce", "accumulate", "reduceat", "outer", "at"):
+        raise ValueError(
+            f"Ufunc method {method!r} is not supported on {name!r}. Only '__call__' is supported."
+        )
+    opname, op = _UFUNC_OPS[name]
+    recv = next(x for x in inputs if isinstance(x, FieldArray))
+    cls, device = type(recv), recv.device
+    if method == "outer":
+        a, b = (x if isinstance(x, FieldArray) else cls(x, device=device) for x in inputs)
+        return op(cls._view(a._data.reshape(tuple(a._data.shape) + (1,) * b.ndim)), b)
+    from ._hostfield import get_host_field
+
+    fn = np.frompyfunc(getattr(get_host_field(cls._meta), opname), 2, 1)
+
+    def host(x):
+        return np.asarray(x if isinstance(x, FieldArray) else cls(x, device="cpu"), dtype=object)
+
+    if method == "at":
+        a = inputs[0]
+        arr = host(a)
+        fn.at(arr, inputs[1], *(host(v) for v in inputs[2:]))
+        a[...] = cls(arr, device=a.device)  # NumPy's `at` works in place
+        return None
+    if method == "reduceat":
+        out = fn.reduceat(host(inputs[0]), np.asarray(inputs[1], dtype=np.intp), **kwargs)
+    else:
+        out = getattr(fn, method)(host(inputs[0]), **kwargs)
+    return cls(out if isinstance(out, np.ndarray) else int(out), device=device)
+
+
+def _python_op(meta: FieldMeta, opname: str, *args) -> torch.Tensor:
+    """The python-calculate mode's elementwise op ('add', 'subtract',
+    'multiply', 'divide', 'negative', 'reciprocal', 'sqrt', 'power') on
+    exact host ints: the storage tensors in ``args`` come to the host (a
+    power's exponent is an int or an integer ndarray), broadcast as NumPy
+    does, and the result goes back to the first one's device."""
+    from ._hostfield import get_host_field
+
+    hf = get_host_field(meta)
+    fn = (lambda a: _host_sqrt(hf, a)) if opname == "sqrt" else getattr(hf, opname)
+    ints = [
+        _storage_to_ints(meta, a).astype(object) if isinstance(a, torch.Tensor) else np.asarray(a, dtype=object)
+        for a in args
+    ]
+    out = np.frompyfunc(fn, len(ints), 1)(*ints)
+    return _ints_to_storage(meta, np.asarray(out, dtype=object), args[0].device)
+
+
+def _host_sqrt(hf, a: int) -> int:
+    """The canonical square root (the smaller int repr of r and -r) of one
+    host int: one power for characteristic 2 and q = 3 mod 4, Atkin for
+    q = 5 mod 8, else Tonelli-Shanks."""
+    q = hf.q
+    if a == 0:
+        return 0
+    if hf.p == 2:
+        return hf.power(a, q // 2)
+    if q % 4 == 3:
+        r = hf.power(a, (q + 1) // 4)
+    elif q % 8 == 5:
+        # Atkin: t = (2a)^((q-5)/8), i = 2a t^2, root = a t (i - 1)
+        a2 = hf.add(a, a)
+        t = hf.power(a2, (q - 5) // 8)
+        i_val = hf.multiply(a2, hf.multiply(t, t))
+        r = hf.multiply(hf.multiply(a, t), hf.subtract(i_val, 1))
+    else:
+        Q, S = q - 1, 0
+        while Q % 2 == 0:
+            Q //= 2
+            S += 1
+        c = hf.power(hf.find_non_square(), Q)
+        t = hf.power(a, Q)
+        r = hf.power(a, (Q + 1) // 2)
+        M = S
+        while t != 1:
+            i, tt = 0, t
+            while tt != 1:
+                tt = hf.multiply(tt, tt)
+                i += 1
+            b = c
+            for _ in range(M - i - 1):
+                b = hf.multiply(b, b)
+            r = hf.multiply(r, b)
+            c = hf.multiply(b, b)
+            t = hf.multiply(t, c)
+            M = i
+    return min(r, hf.negative(r))
+
+
+# ----------------------------------------------------------------------
 # Helpers
 # ----------------------------------------------------------------------
 
-def _expand_index(index, ndim: int):
-    """An index of the element axes -> an index of planar storage: the
-    leading limb axis is kept whole, and an ellipsis is expanded so that it
-    cannot swallow it."""
+def _expand_index(index, ndim: int, first: bool = True):
+    """An index of the element axes -> an index of planar storage whose
+    storage axis leads (``first``) or, moved there, trails: that axis is
+    kept whole, and an ellipsis is expanded so that it cannot swallow it."""
     if not isinstance(index, tuple):
         index = (index,)
     if any(ix is Ellipsis for ix in index):
         pos = index.index(Ellipsis)
         n_specified = sum(1 for ix in index if ix is not None and ix is not Ellipsis)
         index = index[:pos] + (slice(None),) * (ndim - n_specified) + index[pos + 1 :]
-    return (slice(None),) + index
+    return (slice(None),) + index if first else index + (slice(None),)
 
 
 def _random_limbs(L: int, low: int, high: int, shape, generator, device) -> torch.Tensor:
@@ -1037,5 +1248,5 @@ def _parse_nested(cls, x):
 
 
 def _check_div_by_zero(x: FieldArray):
-    if bool(_get_ops(x._meta, x._mode).is_zero(x._data).any()):
+    if bool(_get_ops(x).is_zero(x._data).any()):
         raise ZeroDivisionError("Cannot compute the multiplicative inverse of 0 in a Galois field.")

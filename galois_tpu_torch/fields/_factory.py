@@ -10,12 +10,15 @@ is searched.
 
 from __future__ import annotations
 
+import copyreg
 import functools
 import itertools
 from typing import Optional
 
 import numpy as np
+import torch
 
+from .._options import resolve_device
 from ..nt import factors, is_prime, is_primitive_root, primitive_root
 from ..polys._conversions import integer_to_poly, poly_to_integer, poly_to_str, str_to_integer
 from ._array import FieldArray, FieldArrayMeta
@@ -52,8 +55,10 @@ def GF(
     """Create a FieldArray subclass for GF(p^m).
 
     Call as ``GF(order)`` or ``GF(characteristic, degree)``. ``compile``
-    sets the class's ufunc mode (``"auto"``, ``"jit-calculate"`` or, for
-    orders <= 2^20, ``"jit-lookup"``). Arrays of the returned class take a
+    sets the class's ufunc mode (``"auto"``, ``"jit-calculate"``,
+    ``"python-calculate"`` or, for orders <= 2^20, ``"jit-lookup"``) and
+    ``repr`` its element repr (``"int"``, ``"poly"`` or ``"power"``); both
+    are state of the cached class. Arrays of the returned class take a
     ``device=`` argument; see ``FieldArray``.
     """
     if degree is not None:
@@ -67,9 +72,6 @@ def GF(
     else:
         p, m = _factor_prime_power(int(order))
 
-    if repr not in (None, "int"):
-        raise NotImplementedError(f"Element repr {repr!r} is not ported yet; the port prints ints.")
-
     if m == 1:
         cls = _GF_prime(p, alpha=primitive_element, verify=verify)
     else:
@@ -78,6 +80,8 @@ def GF(
         )
     if compile is not None:
         cls.compile(compile)
+    if repr is not None:
+        cls.repr(repr)
     return cls
 
 
@@ -203,7 +207,49 @@ def _make_class(p: int, m: int, f_int: int, alpha: int):
 
     meta = FieldMeta(p, m, f_int, alpha)
     name = f"GF_{p}" if m == 1 else f"GF_{p}_{m}"
-    cls = FieldArrayMeta(name, (FieldArray,), {"_meta": meta, "_mode": meta.default_ufunc_mode})
+    cls = FieldArrayMeta(name, (FieldArray,), {"_meta": meta, "_mode": meta.default_ufunc_mode, "_element_repr": "int"})
     cls.__doc__ = f"A FieldArray subclass over {meta.name}."
     _FIELD_CACHE[key] = cls
     return cls
+
+
+# ----------------------------------------------------------------------
+# Pickling: a field class is rebuilt from (p, m, f, alpha), with the ufunc
+# mode and element repr it was pickled with, so that it unpickles as the
+# cached class itself; an array carries its storage as a NumPy array.
+# ----------------------------------------------------------------------
+
+def _reconstruct_field_class(p, m, f_int, alpha, mode, element_repr):
+    cls = _make_class(p, m, f_int, alpha)
+    cls._mode = mode
+    cls._element_repr = element_repr
+    return cls
+
+
+def _field_class_args(cls) -> tuple:
+    meta = cls._meta
+    return (meta.characteristic, meta.degree, meta.irreducible_poly_int, meta.primitive_element_int, cls._mode, cls._element_repr)
+
+
+def _reduce_field_class(cls):
+    if cls._meta is None:
+        return cls.__qualname__  # Array and FieldArray pickle by name
+    return _reconstruct_field_class, _field_class_args(cls)
+
+
+copyreg.pickle(FieldArrayMeta, _reduce_field_class)
+
+
+def _reconstruct_field_array(field_args, storage: np.ndarray, dtype):
+    """An array from its pickle, on the default device at load time."""
+    cls = _reconstruct_field_class(*field_args)
+    return cls._view(torch.from_numpy(storage).to(resolve_device(None)), dtype)
+
+
+def _reduce_field_array(x):
+    # the storage tensor as it is (uint8, int64 or uint16 words): a 2^24-element
+    # array pickles as one buffer, not as 2^24 Python ints
+    return _reconstruct_field_array, (_field_class_args(type(x)), x._data.cpu().numpy(), x.dtype)
+
+
+FieldArray.__reduce__ = _reduce_field_array

@@ -2,7 +2,8 @@
 
 Port of ``galois_tpu/fields/_hostfield.py``: any GF(p^m) with arbitrary
 precision. Used by the NTT plans, the irreducibility and primitive-element
-searches of ``GF()``, ``host_log`` and the tests' exact checks. Elements are
+searches of ``GF()``, ``host_log``, the 'python-calculate' mode, the ufunc
+methods that run on the host and the tests' exact checks. Elements are
 in the integer representation (the base-p digits of the polynomial
 representation).
 """
@@ -110,6 +111,13 @@ class HostField:
         if a == 0 or self.p == 2:
             return True
         return self.power(a, (self.q - 1) // 2) == 1
+
+    def find_non_square(self) -> int:
+        """A non-square element (odd q only): the primitive element, whose
+        discrete log, 1, is odd."""
+        if self.q % 2 == 0:
+            raise RuntimeError("Every element of a characteristic-2 field is a square.")
+        return self.meta.primitive_element_int
 
     def multiplicative_order(self, a: int) -> int:
         """Order of a in the unit group, via the factorization of q-1."""

@@ -15,10 +15,12 @@ algebra need:
   product of (x - c) over its conjugates c, on the host) and of a square
   matrix: for int storage from n = 32 (the char poly, ``ops/_charpoly.py``)
   and above n^2 = 1024 (the min poly, ``ops/_minpoly.py``, verified by
-  m(A) == 0) on the matrix's device, else the JAX package's host loops
-  (Berkowitz; the dependence of I, A, A^2, ...);
+  m(A) == 0) on the matrix's device, else (and in 'python-calculate') the
+  JAX package's host loops (Berkowitz; the dependence of I, A, A^2, ...);
 - ``primitive_root_of_unity`` and ``primitive_roots_of_unity`` of a field
-  class.
+  class;
+- the display tables ``repr_table`` and ``arithmetic_table`` of a field
+  class, on host ints.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from ..nt import factors, totatives
 from ..ops import _linalg
-from ..ops._kernels import mulmod
+from ..ops._kernels import kernel_mode, mulmod
 from ._array import FieldArray, FieldArrayMeta, _get_ops, _storage_to_ints
 from ._hostfield import get_host_field
 from ._meta import STORAGE_DIGITS, STORAGE_INT
@@ -57,7 +59,7 @@ def multiplicative_order(self):
         if bool((self._data == 0).any()):
             raise ArithmeticError("0 has no multiplicative order.")
         n = meta.order - 1
-        ops = _get_ops(meta, type(self)._mode)
+        ops = _get_ops(self)
         ord_arr = torch.full(self._data.shape, n, dtype=torch.int64, device=self.device)
         for pi, ei in zip(*factors(n)):
             for _ in range(ei):
@@ -219,7 +221,7 @@ def _nonzero_row_count(R) -> int:
     device; one read-back."""
     if R.size == 0:
         return 0
-    nz = torch.logical_not(_get_ops(R._meta, type(R)._mode).is_zero(R._data)).any(dim=-1)
+    nz = torch.logical_not(_get_ops(R).is_zero(R._data)).any(dim=-1)
     return int((nz * torch.arange(1, nz.numel() + 1, device=nz.device)).max())
 
 
@@ -279,8 +281,8 @@ def _matrix_char_poly(A):
 
     cls = type(A)
     n = A.shape[0]
-    if _charpoly.supports(cls._meta) and n >= 32:
-        coeffs_asc = _charpoly.charpoly_data(cls._meta, cls._mode, A._data)
+    if _charpoly.supports(cls._meta) and n >= 32 and cls._mode != "python-calculate":
+        coeffs_asc = _charpoly.charpoly_data(cls._meta, kernel_mode(cls), A._data)
         return Poly(cls._view(coeffs_asc.flip(0), A._dtype))
 
     hf = get_host_field(cls._meta)
@@ -329,13 +331,13 @@ def _matrix_minimal_poly(A):
 
     cls = type(A)
     n = A.shape[0]
-    ops = _get_ops(cls._meta, cls._mode)
-    if _minpoly.supports(cls._meta) and n * n > 1024:
+    ops = _get_ops(cls)
+    if _minpoly.supports(cls._meta) and n * n > 1024 and cls._mode != "python-calculate":
         rng = np.random.default_rng(0x5EED)
         m_poly = None
         for _ in range(4):
             v = cls(rng.integers(0, min(cls.order, 2**62), size=n, dtype=np.int64) % cls.order, device=A.device)
-            coeffs, d = _minpoly.krylov_minpoly_data(cls._meta, cls._mode, A._data, v._data)
+            coeffs, d = _minpoly.krylov_minpoly_data(cls._meta, kernel_mode(cls), A._data, v._data)
             d = int(d)
             cand = Poly(cls._view(coeffs[: d + 1].flip(0), A._dtype))
             m_poly = cand if m_poly is None else poly_lcm(m_poly, cand)
@@ -397,3 +399,65 @@ def primitive_roots_of_unity(cls, n: int):
     hf = get_host_field(cls._meta)
     base = hf.power(cls._meta.primitive_element_int, (q - 1) // n)
     return cls(sorted(hf.power(base, k) for k in totatives(n)))
+
+
+# ----------------------------------------------------------------------
+# Display tables, on host ints (the JAX package's strings, character for
+# character)
+# ----------------------------------------------------------------------
+
+def _table(header, rows) -> str:
+    widths = [max(len(h), max(len(r[j]) for r in rows)) for j, h in enumerate(header)]
+    sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+    out = [sep, "|" + "|".join(f" {h:^{w}} " for h, w in zip(header, widths)) + "|", sep]
+    for r in rows:
+        out.append("|" + "|".join(f" {v:^{w}} " for v, w in zip(r, widths)) + "|")
+        out.append(sep)
+    return "\n".join(out)
+
+
+@_attach(FieldArrayMeta, "repr_table")
+def repr_table(cls, element=None, sort: str = "power") -> str:
+    """The power, polynomial, vector and integer reprs of every element, by
+    the powers of ``element`` (the primitive element unless given), sorted
+    by power or by int repr."""
+    from ..ops._dlog import host_log
+    from ..polys._conversions import integer_to_poly, poly_to_str
+
+    if sort not in ("power", "int"):
+        raise ValueError(f"Argument 'sort' must be 'power' or 'int', not {sort!r}.")
+    q, p = cls.order, cls.characteristic
+    hf = get_host_field(cls._meta)
+    alpha = cls._meta.primitive_element_int if element is None else int(cls(element, device="cpu"))
+    if sort == "power":
+        elems, cur = [], 1
+        for i in range(q - 1):
+            elems.append((i, cur))
+            cur = hf.multiply(cur, alpha)
+    else:
+        elems = [(host_log(cls._meta, e, alpha), e) for e in range(1, q)]
+    rows = [("0", "0", str([0] * cls.degree), "0")]
+    for i, e in elems:
+        power = "1" if i == 0 else ("α" if i == 1 else f"α^{i}")
+        rows.append((power, poly_to_str(integer_to_poly(e, p), poly_var="α"), str(integer_to_poly(e, p, cls.degree - 1)), str(e)))
+    return _table(("Power", "Polynomial", "Vector", "Integer"), rows)
+
+
+@_attach(FieldArrayMeta, "arithmetic_table")
+def arithmetic_table(cls, operation: str, x=None, y=None) -> str:
+    """The table of x op y for op in '+', '-', '*', '/', over every element
+    (nonzero divisors for '/') unless x or y is given, in the class's
+    element repr."""
+    if operation not in ("+", "-", "*", "/"):
+        raise ValueError(f"Argument 'operation' must be in ['+', '-', '*', '/'], not {operation!r}.")
+    hf = get_host_field(cls._meta)
+    opfn = {"+": hf.add, "-": hf.subtract, "*": hf.multiply, "/": hf.divide}[operation]
+
+    def given(v):
+        return [int(e) for e in np.asarray(cls(v, device="cpu"), dtype=object).reshape(-1)]
+
+    xs = given(x) if x is not None else list(range(cls.order))
+    ys = given(y) if y is not None else list(range(1 if operation == "/" else 0, cls.order))
+    fmt = cls._element_to_str
+    rows = [[fmt(xv)] + [fmt(opfn(xv, yv)) for yv in ys] for xv in xs]
+    return _table([f"x {operation} y"] + [fmt(v) for v in ys], rows)

@@ -85,7 +85,7 @@ def dispatch(self, func, args, kwargs):
         A = args[0]
         lead = A._storage_ndim()
         diag = A._data.diagonal(dim1=lead, dim2=lead + 1)
-        ops = _linalg.get_ops(cls._meta, cls._mode)
+        ops = _linalg.get_ops(cls._meta, _linalg.kernel_mode(cls))
         return cls._view(_linalg._field_reduce(ops.add, diag, diag.ndim - 1), A._dtype)
     if func in _PASSTHROUGH:
         from ._array import FieldArray

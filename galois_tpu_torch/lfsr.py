@@ -23,8 +23,10 @@ raises):
   take the device scan, as in the JAX package: kernel K13
   (``berlekamp_massey_long``) for the fields K12 takes, one launch on a
   CUDA sequence and the plain scan on a CPU one, and the plain scan on the
-  sequence's device for the other int-storage fields; shorter sequences and
-  the limb and digit fields take the host discrepancy loop in Python ints.
+  sequence's device for the other int-storage fields; shorter sequences,
+  the limb and digit fields and the 'python-calculate' mode take the host
+  discrepancy loop in Python ints. In that mode ``step`` runs the default
+  mode's route above.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 from .fields._array import FieldArray
 from .fields._hostfield import get_host_field
 from .fields._meta import STORAGE_INT
-from .ops._kernels import get_ops
+from .ops._kernels import get_ops, kernel_mode
 from .ops._limbs import _i16
 from .ops._lfsr_scan import (
     berlekamp_massey_long,
@@ -147,7 +149,7 @@ class _LFSR:
         n = abs(steps)
         cls = self._field
         meta = cls._meta
-        ops = get_ops(meta, cls._mode)
+        ops = get_ops(meta, kernel_mode(cls))
         state, taps = self._state._data, self._taps._data.to(self._state.device)
         end = self._order - 1 if self._kind == "fibonacci" else 0  # the tap a backward step divides by
         if scan_supports(meta):
@@ -232,8 +234,8 @@ def berlekamp_massey(sequence, output: str = "characteristic"):
 
     # Long sequences: one device scan instead of the O(N L) host loop, read
     # back once at the end.
-    if meta.storage == STORAGE_INT and len(sequence) >= 512:
-        ops = get_ops(meta, field._mode)
+    if meta.storage == STORAGE_INT and len(sequence) >= 512 and field._mode != "python-calculate":
+        ops = get_ops(meta, kernel_mode(field))
         scan = berlekamp_massey_long if scan_supports(meta) else berlekamp_massey_long_plain
         c_dev, L_dev = scan(ops, sequence._data)
         L = int(L_dev)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..fields._meta import STORAGE_INT, FieldMeta
-from ._kernels import get_ops
+from ._kernels import get_ops, kernel_mode
 
 __all__ = ["convolve"]
 
@@ -86,7 +86,7 @@ def _sum_rows(ops, x: torch.Tensor) -> torch.Tensor:
 
 def _convolve_data(cls, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     meta = cls._meta
-    ops = get_ops(meta, cls._mode)
+    ops = get_ops(meta, kernel_mode(cls))
     w = meta.storage_width if meta.storage_first else 0
     n, m = a.shape[-1], b.shape[-1]  # the coefficient axis is the last of the storage
     if m > n:

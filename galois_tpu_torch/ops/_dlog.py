@@ -187,11 +187,11 @@ def log(x, base=None):
     (int) for a 0-D array. The device routes end in one copy of the logs
     to the host."""
     from ..fields._array import _storage_to_ints
-    from ._kernels import get_ops, mulmod
+    from ._kernels import get_ops, kernel_mode, mulmod
 
     cls = type(x)
     meta = cls._meta
-    ops = get_ops(meta, cls._mode)
+    ops = get_ops(meta, kernel_mode(cls))
     if bool(ops.is_zero(x._data).any()):
         raise ArithmeticError("The discrete logarithm of 0 does not exist.")
     n = meta.order - 1

@@ -835,10 +835,25 @@ class GoldilocksOps(LimbPrimeOps):
         return goldilocks_multiply(a, a)
 
 
+def kernel_mode(field) -> str:
+    """The mode whose ops run a field's device work (``field``: a field
+    class or array): its ufunc mode, except under 'python-calculate', which
+    computes only the elementwise arithmetic on exact host ints
+    (``fields/_array.py::_python_op``); reductions, linear algebra, the NTT,
+    logs, LFSRs and decoders then run the default mode's ops, as in the JAX
+    package."""
+    mode = field._mode
+    return field._meta.default_ufunc_mode if mode == "python-calculate" else mode
+
+
 @functools.lru_cache(maxsize=None)
 def get_ops(meta: FieldMeta, mode: str):
     """Return the ops object for (field, mode): 'jit-calculate' or
-    'jit-lookup' (orders <= 2^20, not GF(2))."""
+    'jit-lookup' (orders <= 2^20, not GF(2)); 'python-calculate' gets the
+    default mode's object, whose device ops serve that mode's composite
+    routes (``kernel_mode``)."""
+    if mode == "python-calculate":
+        return get_ops(meta, meta.default_ufunc_mode)
     p, m = meta.characteristic, meta.degree
     if meta.storage == STORAGE_LIMBS:
         if p == 2:
@@ -858,5 +873,5 @@ def get_ops(meta: FieldMeta, mode: str):
             raise ValueError(f"{meta.name} does not support lookup mode.")
         return LookupOps(calc)
     if mode != "jit-calculate":
-        raise NotImplementedError(f"Mode {mode!r} is not ported yet (it needs the host ufuncs of python-calculate).")
+        raise ValueError(f"Argument 'mode' must be in {meta.ufunc_modes}, not {mode!r}.")
     return calc

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..fields._meta import STORAGE_INT
-from ._kernels import get_ops, mulmod
+from ._kernels import get_ops, kernel_mode, mulmod
 from ._limbs import _i16, _where
 
 __all__ = ["matmul", "row_reduce", "inv", "det", "solve", "matrix_rank", "lu_decompose", "plu_decompose"]
@@ -128,7 +128,7 @@ def matmul(A, B):
     cls = type(A)
     if A.ndim == 0 or B.ndim == 0:
         raise ValueError("matmul is not defined for 0-D inputs.")
-    out = _matmul_data(cls._meta, cls._mode, A._data, B._data, A.ndim == 1, B.ndim == 1)
+    out = _matmul_data(cls._meta, kernel_mode(cls), A._data, B._data, A.ndim == 1, B.ndim == 1)
     return cls._view(out, A._dtype)
 
 
@@ -273,7 +273,7 @@ def row_reduce(A, ncols=None):
     if A.size <= _DEVICE_LINALG_CUTOFF:
         R, _, _ = _host_row_reduce(cls, np.asarray(A, dtype=object), ncols)
         return cls(R, dtype=A._dtype, device=A.device)
-    out, _ = _row_reduce_data(cls._meta, cls._mode, A._data, ncols)
+    out, _ = _row_reduce_data(cls._meta, kernel_mode(cls), A._data, ncols)
     return cls._view(out, A._dtype)
 
 
@@ -364,7 +364,7 @@ def matrix_rank(A) -> int:
     if A.size <= _DEVICE_LINALG_CUTOFF:
         _, rank, _ = _host_row_reduce(cls, np.asarray(A, dtype=object), A.shape[1])
         return rank
-    _, pivots = _row_reduce_data(cls._meta, cls._mode, A._data, A.shape[1])
+    _, pivots = _row_reduce_data(cls._meta, kernel_mode(cls), A._data, A.shape[1])
     return int(pivots)
 
 
@@ -383,7 +383,7 @@ def inv(A):
             raise np.linalg.LinAlgError("Matrix is singular and cannot be inverted.")
         return cls(R[:, n:], dtype=A._dtype, device=A.device)
     AI = torch.cat([A._data, cls.Identity(n, device=A.device)._data], dim=-1)
-    out, pivots = _row_reduce_data(cls._meta, cls._mode, AI, n)
+    out, pivots = _row_reduce_data(cls._meta, kernel_mode(cls), AI, n)
     if int(pivots) != n:
         raise np.linalg.LinAlgError("Matrix is singular and cannot be inverted.")
     return cls._view(out[..., n:].contiguous(), A._dtype)
@@ -444,7 +444,7 @@ def _lu_split(cls, lu, perm, n: int, dtype):
     cols = torch.arange(lu.shape[-1], device=dev)[None, :]
     lower, diag = rows > cols, rows == cols
     zero = torch.zeros_like(lu)
-    L = _where(lower, lu, _where(diag, get_ops(meta, cls._mode).one_like(lu), zero))
+    L = _where(lower, lu, _where(diag, get_ops(meta, kernel_mode(cls)).one_like(lu), zero))
     U = _where(torch.logical_not(lower), lu, zero)
     oh = (rows == perm[None, :]).to(torch.int64)
     if meta.storage_first:
@@ -471,7 +471,7 @@ def det(A):
         for i in range(1, n):
             out = hf.multiply(out, U[i][i])
         return cls(hf.negative(out) if swaps % 2 else out, dtype=A._dtype, device=A.device)
-    return cls._view(_det_data(cls._meta, cls._mode, A._data), A._dtype)
+    return cls._view(_det_data(cls._meta, kernel_mode(cls), A._data), A._dtype)
 
 
 def lu_decompose(A):
@@ -488,7 +488,7 @@ def plu_decompose(A):
     if A.size <= _DEVICE_LINALG_CUTOFF:
         P, L, U, _ = _host_plu(cls, A)
         return tuple(cls(x, dtype=A._dtype, device=A.device) for x in (P, L, U))
-    lu, perm, _ = _plu_data(cls._meta, cls._mode, A._data)
+    lu, perm, _ = _plu_data(cls._meta, kernel_mode(cls), A._data)
     return _lu_split(cls, lu, perm, A.shape[0], A._dtype)
 
 

@@ -35,7 +35,7 @@ from ..fields._array import _ints_to_limbs, _ints_to_storage
 from ..fields._hostfield import get_host_field
 from ..fields._meta import STORAGE_INT, STORAGE_LIMBS, FieldMeta
 from ..nt import factors as int_factors
-from ._kernels import get_ops, mulmod
+from ._kernels import get_ops, kernel_mode, mulmod
 from ._limb_matmul import limb_matmul
 from ._limb_matmul import supports_any as _limb_supports
 from ._limbs import align_planar
@@ -455,12 +455,12 @@ def fft_data(cls, data: torch.Tensor, N: int, inverse: bool = False, scale: bool
         scale = inverse
     if inverse:
         omega = hf.reciprocal(omega)
-    out = _plan(meta, N, omega, cls._mode, data.device).transform(data)
+    out = _plan(meta, N, omega, kernel_mode(cls), data.device).transform(data)
     if scale:
         # Scaling by 1/N: N acts as the N-fold sum of 1, i.e. the prime-
         # subfield element N mod p (not the integer representation N).
         n_inv = hf.reciprocal(N % meta.characteristic)
-        ops = get_ops(meta, cls._mode)
+        ops = get_ops(meta, kernel_mode(cls))
         n_inv = _ints_to_storage(meta, np.array(n_inv, dtype=object), out.device)
         out = _multiply_chunked(ops, out, n_inv) if meta.storage != STORAGE_INT else ops.multiply(out, n_inv)
     return out

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._kernels import get_ops
+from ._kernels import get_ops, kernel_mode
 
 __all__ = ["batched_floordiv", "poly_divmod_device"]
 
@@ -50,7 +50,7 @@ def batched_floordiv(codeword, g_poly, ks: int):
     lead = cls._storage_ndim()
     g = cls(g_poly.coefficients(), device=codeword.device)._data
     n, deg = codeword.shape[-1], g_poly.degree
-    q = _divide(get_ops(meta, cls._mode), lead, codeword._data.clone(), g.reshape(g.shape[:lead] + (1, -1)), n - deg)
+    q = _divide(get_ops(meta, kernel_mode(cls)), lead, codeword._data.clone(), g.reshape(g.shape[:lead] + (1, -1)), n - deg)
     return cls._view(q[..., max(0, q.shape[-1] - ks) :], codeword._dtype)
 
 
@@ -59,7 +59,7 @@ def poly_divmod_device(a_poly, b_poly):
     from ..polys._poly import Poly
 
     field = a_poly.field
-    ops = get_ops(field._meta, field._mode)
+    ops = get_ops(field._meta, kernel_mode(field))
     lead = field._storage_ndim()
     deg_a, deg_b = a_poly.degree, b_poly.degree
     if deg_a < deg_b:

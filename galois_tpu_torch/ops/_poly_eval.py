@@ -2,7 +2,8 @@
 
 Port of ``galois_tpu/ops/_poly_eval.py``: Horner's rule over a whole field
 array, one elementwise field op per step, on the array's device. The
-coefficients travel as a small storage tensor.
+coefficients travel as a small storage tensor. In the 'python-calculate'
+mode ``evaluate`` runs Horner on exact host ints instead, as the JAX package.
 
 - Fewer than 64 coefficients: plain Horner, n multiply-adds.
 - Otherwise the two-level Horner of the JAX package: with c = isqrt(n) and
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..fields._meta import FieldMeta
-from ._kernels import get_ops
+from ._kernels import get_ops, kernel_mode
 
 __all__ = ["evaluate", "evaluate_data"]
 
@@ -82,6 +83,14 @@ def evaluate(poly, x):
     returns a FieldArray."""
     cls = type(x)
     meta = cls._meta
+    if cls._mode == "python-calculate":  # Horner on exact host ints, as the JAX package
+        from ..fields._hostfield import get_host_field
+        from ..polys import _hostpoly as hp
+
+        hf, asc = get_host_field(meta), poly._asc()
+        xi = np.asarray(x, dtype=object)
+        out = np.frompyfunc(lambda v: hp.evaluate(hf, asc, int(v)), 1, 1)(xi)
+        return cls(out if xi.ndim else int(out), device=x.device)
     poly._ensure_terms()
     coeffs_desc = [0] * (poly.degree + 1)
     for d, c in zip(poly._degrees, poly._coeffs):
@@ -90,7 +99,7 @@ def evaluate(poly, x):
     scalar = x.ndim == 0
     if scalar:
         data = data[:, None] if meta.storage_first else data[None]
-    out = evaluate_data(meta, cls._mode, coeffs_desc, data)
+    out = evaluate_data(meta, kernel_mode(cls), coeffs_desc, data)
     if scalar:
         out = out[:, 0] if meta.storage_first else out[0]
     return cls._view(out, x._dtype)

@@ -41,12 +41,12 @@ def poly_roots(poly: Poly, multiplicity: bool = False):
 def _chien_roots(poly: Poly):
     """The elements where poly vanishes: one evaluation over the whole field
     on the device, one read-back of the mask."""
-    from ..ops._kernels import get_ops
+    from ..ops._kernels import get_ops, kernel_mode
     from ..ops._poly_eval import evaluate
 
     field = poly.field
     x = field.elements
-    zero = get_ops(field._meta, field._mode).is_zero(evaluate(poly, x)._data)
+    zero = get_ops(field._meta, kernel_mode(field)).is_zero(evaluate(poly, x)._data)
     return [int(e) for e in np.asarray(x._masked(zero), dtype=np.int64)]
 
 

@@ -44,8 +44,8 @@ def test_public_names_differ_only_by_the_listed_sets(names, have, lack, expected
     assert names[have] - names[lack] == expected
 
 
-# ROADMAP.md, queue 1 item 8: the element reprs and the tables built on them
-MISSING_FROM_PORT_META = {"arithmetic_table", "element_repr", "repr", "repr_table"}
+# nothing: the element reprs and the tables built on them are ported
+MISSING_FROM_PORT_META = set()
 # ``jax``, the JAX storage array; the port's storage is a torch tensor, on ``device``
 MISSING_FROM_PORT_ARRAY = {"jax"}
 ONLY_IN_PORT_ARRAY = {"device", "from_numpy"}

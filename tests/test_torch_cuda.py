@@ -1293,3 +1293,81 @@ def test_lfsr_and_berlekamp_massey_never_read_back(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# Element assignment, outer products and pickling on the card: each field's storage kind (uint8, int64,
+# uint16 limbs, int64 digits), against the same calls on CPU copies
+API_FIELDS = [2**8, 2**16, 2**31 - 1, GOLDILOCKS, 2**100, 3**30]
+
+
+def _same_storage(got, want):
+    a, b = got._data.cpu(), want._data
+    if a.dtype == torch.uint16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("q", API_FIELDS)
+def test_assignment_on_cuda_matches_cpu(cuda_device, q):
+    """Scalars, slices, masks and index tensors (on the card and on the host)
+    written into a CUDA array give the CPU's integers; the array stays on
+    the card, and a slice taken before keeps its values."""
+    F = gt.GF(q)
+    x = F.Random(4096, seed=1, device="cpu")
+    xc = F(x._data, device=cuda_device)
+    head = xc[:8]
+    head_before = head._data.clone()
+    mask = torch.arange(4096) % 2 == 0
+    idx = torch.randperm(4096, generator=torch.Generator().manual_seed(2))[:512]  # distinct: no write races
+    vals = F.Random(512, seed=3, device="cpu")
+    writes = [
+        (lambda a: a.__setitem__(0, 5), None),
+        (lambda a: a.__setitem__(slice(None, None, 3), 7), None),
+        (lambda a: a.__setitem__(mask, 1), mask),
+        (lambda a: a.__setitem__(idx, vals), idx),
+        (lambda a: a.__setitem__((Ellipsis, slice(100, 102)), [q - 1, 0]), None),
+    ]
+    for write, index in writes:
+        write(x)
+        if index is not None:  # the same index as a tensor on the card
+            if index is mask:
+                xc[mask.to(cuda_device)] = 1
+            else:
+                xc[idx.to(cuda_device)] = F(vals._data, device=cuda_device)
+        else:
+            write(xc)
+        assert xc.device.type == "cuda" and _same_storage(xc, x)
+    assert torch.equal(head._data, head_before)
+
+
+@pytest.mark.parametrize("q", API_FIELDS + [2**128])
+def test_outer_on_cuda_matches_cpu(cuda_device, q):
+    """np.multiply.outer and np.add.outer on the card (the multiply kernels on
+    broadcast operands) equal the CPU's; a zero divisor raises."""
+    F = gt.GF(q) if q != 2**128 else gt.GF(q, irreducible_poly="x^128 + x^7 + x^2 + x + 1")
+    a = F.Random(96, seed=4, device="cpu")
+    b = F.Random(80, low=1, seed=5, device="cpu")
+    ac, bc = F(a._data, device=cuda_device), F(b._data, device=cuda_device)
+    for ufunc in (np.multiply, np.add, np.subtract, np.true_divide):
+        got, want = ufunc.outer(ac, bc), ufunc.outer(a, b)
+        assert got.shape == (96, 80) and got.device.type == "cuda" and _same_storage(got, want)
+    ac[3] = 0
+    with pytest.raises(ZeroDivisionError):
+        np.true_divide.outer(bc, ac)
+
+
+@pytest.mark.parametrize("q", API_FIELDS)
+def test_pickle_round_trip_from_cuda(cuda_device, q):
+    """A pickled CUDA array comes back equal, of its class, on the default
+    device at load time: the card, or the CPU when that is the default."""
+    import pickle
+
+    F = gt.GF(q)
+    x = F.Random((64, 3), seed=6, device=cuda_device)
+    data = pickle.dumps(x)
+    with gt.default_device(cuda_device):
+        y = pickle.loads(data)
+    with gt.default_device("cpu"):
+        z = pickle.loads(data)
+    assert type(y) is F and y.device.type == "cuda" and _same_storage(y, z)
+    assert z.device.type == "cpu" and np.array_equal(np.asarray(z), np.asarray(x))
