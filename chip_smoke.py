@@ -222,6 +222,25 @@ Phases, each fatal on failure:
      card array against its CPU copy's, GF(2^4).repr_table() and
      GF(3^2).arithmetic_table("*"). Each line starts with nvidia-smi's card
      and power limit; K3, K7, K8, K9, K10 and K14 must have been launched.
+ 13. main path 10, parallel/ on torch.distributed (the JAX package's
+     dryrun_multichip at real sizes): (a) NCCL at one rank in this process:
+     sharded_fft over GF(3*2^30+1) and BLS12-381 r at 2^24 and Goldilocks
+     at 2^22 (plans built and timed apart), sharded_batched_fft at 32 x
+     2^20, sharded_decode of RS(255,223) at B = 65536 with errors and with
+     erasures and of BCH(511,493) at B = 16384; K1, K2, K8 and K10 must
+     have been launched; every result gathered and exactly equal to the
+     single-device port (field_fft, code.decode(..., errors=True), the
+     plain ops), 16 bins of a 2^12 BLS12-381 r transform against Python
+     ints; each NTT's transposes, local DFTs and twiddle timed apart.
+     (b) four gloo ranks spawned on the same card, which they time-share
+     (their times are no scaling figure), each warmed up by small calls
+     of every family first: the same calls and sizes, the
+     inverse round trips, the fallback at N = 8 (which must warn) and
+     dryrun_multichip's step on 65536 rows (GF(2^8) rows @ (256, 64)
+     weights, h * h + h; GF(2^31 - 1) a * a + a); every rank must have
+     launched K1, K2, K7, K8, K8-A, K8-B, K9 and K10, and rank 0 holds every
+     gathered result against (a)'s references. Each line starts with
+     nvidia-smi's card and power limit; the path's time is printed.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -1807,6 +1826,449 @@ def api_path(gt, dev, timed, smi):
     print(f"[main] {smi} | main path 9 took {time.perf_counter() - t_path:.1f} s", flush=True)
 
 
+def launch_counters():
+    """Every kernel wrapper, each with its launch count in ``.launches``."""
+    from galois_tpu_torch.ops import _lookup
+    from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan
+    from galois_tpu_torch.ops._elementwise import (
+        device_probe,
+        gf2m_multiply,
+        gf2m_multiply_swar,
+        gf2m_power,
+        goldilocks_multiply,
+        m31_multiply,
+    )
+    from galois_tpu_torch.ops._lfsr_scan import berlekamp_massey_long, lfsr_step
+    from galois_tpu_torch.ops._limb_binary import gf2_limb_multiply, gf2_limb_power
+    from galois_tpu_torch.ops._plane_matmul import plane_matmul_data_left, plane_matmul_data_right
+
+    return (
+        plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply, gf2m_multiply_swar,
+        gf2m_power, berlekamp_massey_scan,
+        _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
+        m31_multiply, goldilocks_multiply, device_probe,
+        lfsr_step, berlekamp_massey_long, gf2_limb_multiply, gf2_limb_power,
+    )
+
+
+# Main path 10's sizes: the transforms of config 5 (BLS12-381 r and GF(3*2^30+1) at 2^24,
+# Goldilocks at 2^22), the NTT metric's batch, main path 4's decodes, dryrun_multichip's step
+PARALLEL = {"p": 2**24, "bls": 2**24, "gold": 2**22, "batch": (32, 2**20), "rs": 65536, "bch": 16384,
+            "bins": 2**12, "fallback": 8, "step": 65536}
+# the kernels each rank of the four-rank run must launch, and the one-rank run
+PARALLEL_NEEDED = {
+    4: ("plane_matmul_data_right", "plane_matmul_data_left", "gf2m_multiply", "gf2m_multiply_swar", "gf2m_power",
+        "berlekamp_massey_scan", "m31_multiply", "goldilocks_multiply"),
+    1: ("plane_matmul_data_right", "plane_matmul_data_left", "gf2m_multiply_swar", "goldilocks_multiply"),
+}
+PARALLEL_RANKS, PARALLEL_TIMEOUT_S = 4, 600
+
+
+def parallel_inputs(gt, dev):
+    """Main path 10's inputs, made on ``dev`` from seeds, so that every
+    process makes the same ones: random field elements; RS(255,223) words
+    with 0-16 errors (40 in every 16th row), and a batch with f erasures and
+    e errors, 2e + f <= 32, as main path 4's; BCH(511,493) words with 0-2
+    bit errors (3-6 in every 16th row); GF(2^8) rows, (256, 64) weights and
+    GF(2^31 - 1) rows for dryrun_multichip's step."""
+    S = PARALLEL
+    F, Fb, Fg = gt.GF(P), gt.GF(BLS_R), gt.GF(GOLDILOCKS)
+    inp = {
+        "p": F.Random(S["p"], seed=101, device=dev),
+        "bls": Fb.Random(S["bls"], seed=102, device=dev),
+        "gold": Fg.Random(S["gold"], seed=103, device=dev),
+        "batch": F.Random(S["batch"], seed=104, device=dev),
+        "bins": Fb.Random(S["bins"], seed=105, device=dev),
+        "fallback": F.Random(S["fallback"], seed=106, device=dev),
+    }
+    from scripts._timing import corrupt, ranks
+
+    gen = torch.Generator(device=dev).manual_seed(107)
+    rs, bch = gt.ReedSolomon(255, 223), gt.BCH(511, 493)
+    B = S["rs"]
+    cw = rs.encode(rs.field.Random((B, rs.k), generator=gen, device=dev))._data
+    counts = torch.randint(0, rs.t + 1, (B,), generator=gen, device=dev)
+    counts[::16] = 40
+    inp["rs"] = rs.field._view(corrupt(cw, ranks(B, rs.n, gen) < counts[:, None], 256, gen))
+    cw = rs.encode(rs.field.Random((B, rs.k), generator=gen, device=dev))._data
+    f_cnt = torch.randint(0, rs.d, (B,), generator=gen, device=dev)
+    e_cnt = (torch.rand(B, generator=gen, device=dev) * ((rs.d - 1 - f_cnt) // 2 + 1)).long()
+    rk = ranks(B, rs.n, gen)
+    inp["rs_erasures"] = rk < f_cnt[:, None]
+    inp["rs_era"] = rs.field._view(corrupt(cw, rk < (f_cnt + e_cnt)[:, None], 256, gen))
+    Bb = S["bch"]
+    cw = bch.encode(bch.field.Random((Bb, bch.k), generator=gen, device=dev))._data
+    counts = torch.randint(0, bch.t + 1, (Bb,), generator=gen, device=dev)
+    counts[::16] = torch.randint(bch.t + 1, 7, (Bb // 16,), generator=gen, device=dev)
+    inp["bch"] = bch.field._view(corrupt(cw, ranks(Bb, bch.n, gen) < counts[:, None], 2, gen))
+    G8, G31 = gt.GF(2**8), gt.GF(M31)
+    inp["step_x"] = G8.Random((S["step"], 256), seed=108, device=dev)
+    inp["step_w"] = G8.Random((256, 64), seed=109, device=dev)
+    inp["step_a"] = G31.Random((S["step"], 128), seed=110, device=dev)
+    return inp, rs, bch
+
+
+def parallel_warmup(inp, rs, bch):
+    """One small call of each family path 10 runs, on a rank that has not
+    launched anything yet, so that its timed calls do not include a
+    kernel's first launch in the process (a library's load, Triton's,
+    cuBLAS's handle): 64 words of each decode and 2^10-point transforms
+    over the three prime fields (not 2^12, whose plans are the 2^24
+    transforms' local plans: their build is timed)."""
+    from galois_tpu_torch.ops._ntt import field_fft
+
+    rs.decode(inp["rs"][:64])
+    rs.decode(inp["rs_era"][:64], erasures=inp["rs_erasures"][:64])
+    bch.decode(inp["bch"][:64])
+    for key in ("p", "bls", "gold"):
+        field_fft(inp[key][: 2**10])
+    torch.cuda.synchronize()
+
+
+def dist_ms(fn, group):
+    """(fn(), ms): CUDA events around one call that starts after a barrier of ``group``."""
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group=group)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def parallel_calls(gt, mesh, dev, inp, rs, bch, four):
+    """Main path 10's calls on one rank of ``mesh`` (mesh dim "x"): the
+    sharded NTTs (each plan built first and timed apart), the batched NTT,
+    the three decodes; with ``four``, also the inverse round trips, the
+    D^2-not-dividing-N fallback (which must warn) and dryrun_multichip's
+    data-parallel step on this rank's rows. Returns (this rank's results,
+    {call: (ms, plan or decoder build s, or None)})."""
+    import warnings
+
+    from galois_tpu_torch.ops import _ntt
+    from galois_tpu_torch.ops._kernels import kernel_mode
+    from galois_tpu_torch.parallel import _fec_sharded, _ntt_sharded, sharded_batched_fft, sharded_decode, sharded_fft
+
+    group = mesh.get_group("x")
+    D, r = group.size(), mesh.get_local_rank("x")
+    out, times = {}, {}
+    for key, label in (("p", "GF(3*2^30+1)"), ("bls", "BLS12-381 r"), ("gold", "Goldilocks")):
+        x = inp[key]
+        F, N = type(x), x.shape[-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = _ntt_sharded._sharded_plan(F._meta, N, _ntt._get_omega(F, N), kernel_mode(F), mesh, "x")
+        plan._build_twiddle()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        out[key], ms = dist_ms(lambda: sharded_fft(F, x, mesh, "x"), group)
+        times[f"sharded_fft {label} N=2^{N.bit_length() - 1} ({plan.N1} x {plan.N2})"] = (ms, build_s)
+    x = inp["bins"]
+    out["bins"] = sharded_fft(type(x), x, mesh, "x")
+    x = inp["batch"]
+    F = type(x)
+    t0 = time.perf_counter()
+    _ntt._plan(F._meta, x.shape[-1], _ntt._get_omega(F, x.shape[-1]), kernel_mode(F), dev)
+    build_s = time.perf_counter() - t0
+    out["batch"], ms = dist_ms(lambda: sharded_batched_fft(F, x, mesh, "x"), group)
+    times[f"sharded_batched_fft GF(3*2^30+1) {tuple(x.shape)}"] = (ms, build_s)
+    for key, code, label, kw in (
+        ("rs", rs, "RS(255,223)", {}),
+        ("rs_era", rs, "RS(255,223) with erasures", {"erasures": inp["rs_erasures"]}),
+        ("bch", bch, "BCH(511,493)", {}),
+    ):
+        x = inp[key]
+        t0 = time.perf_counter()
+        _fec_sharded._raw_decoder(code, code.n, "erasures" in kw)[1].consts(dev)
+        build_s = time.perf_counter() - t0
+        out[key], ms = dist_ms(lambda: sharded_decode(code, x, mesh, "x", **kw), group)
+        times[f"sharded_decode {label}, B={x.shape[0]} ({x.shape[0] // D} a rank)"] = (ms, build_s)
+    if four:
+        for key in ("p", "bls", "gold"):
+            F = type(inp[key])
+            whole = gather_shards(out[key]._data, group, D, 1 if F._meta.storage_first else 0)
+            out[key + "_inverse"], ms = dist_ms(lambda: sharded_fft(F, F._view(whole), mesh, "x", inverse=True), group)
+            del whole
+            times[f"sharded_fft {key} inverse (its plan built in the call)"] = (ms, None)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            x = inp["fallback"]
+            out["fallback"] = sharded_fft(type(x), x, mesh, "x")
+        if not any(issubclass(w.category, RuntimeWarning) and "REPLICATED" in str(w.message) for w in caught):
+            raise AssertionError(f"the fallback at N = {x.shape[0]} over {D} ranks did not warn")
+        b = PARALLEL["step"] // D
+        rows = slice(r * b, (r + 1) * b)
+
+        def step():
+            h = inp["step_x"][rows] @ inp["step_w"]
+            a = inp["step_a"][rows]
+            return h * h + h, a * a + a
+
+        (out["step_h"], out["step_g"]), ms = dist_ms(step, group)
+        times[f"dryrun_multichip's step, {b} rows a rank"] = (ms, None)
+    return out, times
+
+
+def gather_shards(shard, group, D, dim):
+    """The whole of a tensor sharded along ``dim``, by all_gather in rank order."""
+    from galois_tpu_torch.parallel._mesh import all_gather
+
+    whole = all_gather(shard, group, D).movedim(0, dim)
+    return whole.reshape(tuple(shard.shape[:dim]) + (D * shard.shape[dim],) + tuple(shard.shape[dim + 1 :]))
+
+
+def parallel_split(mesh, inp):
+    """The parts of one sharded NTT on this rank at each field's plan (built
+    by parallel_calls), each by CUDA events after a barrier: {field: (the
+    three transposes' ms, the local DFTs' ms (size N2, then N1), the twiddle
+    multiply's ms)}."""
+    from galois_tpu_torch.ops import _ntt
+    from galois_tpu_torch.ops._kernels import kernel_mode
+    from galois_tpu_torch.parallel import _ntt_sharded
+
+    group = mesh.get_group("x")
+    parts = {}
+    for key in ("p", "bls", "gold"):
+        x = inp[key]
+        F, N = type(x), x.shape[-1]
+        plan = _ntt_sharded._sharded_plan(F._meta, N, _ntt._get_omega(F, N), kernel_mode(F), mesh, "x")
+        D, lead = plan.D, 1 if F._meta.storage_first else 0
+        head = tuple(x._data.shape[:lead])
+        a = torch.zeros(head + (plan.N2 // D, plan.N1), dtype=x._data.dtype, device=x.device)
+        b = torch.zeros(head + (plan.N1 // D, plan.N2), dtype=x._data.dtype, device=x.device)
+        t = [dist_ms(lambda: _ntt_sharded._transpose(m, D, group, lead), group)[1] for m in (a, b, a)]
+        d2 = dist_ms(lambda: plan.plan2.transform(b), group)[1]
+        tw = dist_ms(lambda: _ntt._multiply_chunked(plan.ops, b, plan._build_twiddle()), group)[1]
+        d1 = dist_ms(lambda: plan.plan1.transform(a), group)[1]
+        parts[key] = (t, (d2, d1), tw)
+        del a, b
+    return parts
+
+
+def split_text(key, ranks_parts):
+    """One line of parallel_split's parts for ``key``, rank by rank."""
+    def each(fn):
+        return ", ".join(f"{fn(p[key]):.1f}" for p in ranks_parts)
+
+    return (f"{key}'s NTT split, ms by rank: transposes [{each(lambda v: sum(v[0]))}] (the three: "
+            f"{', '.join('/'.join(f'{t:.1f}' for t in p[key][0]) for p in ranks_parts)}), local DFTs "
+            f"[{each(lambda v: sum(v[1]))}], twiddle [{each(lambda v: v[2])}]")
+
+
+def times_text(label, ranks_times):
+    """One line of parallel_calls' times for ``label``, rank by rank."""
+    ms = ", ".join(f"{t[label][0]:.1f}" for t in ranks_times)
+    build = ranks_times[0][label][1]
+    return f"{label}: ms by rank [{ms}]" + ("" if build is None else f", plan or decoder build {build:.2f} s (rank 0)")
+
+
+def parallel_refs(gt, inp, rs, bch):
+    """The single-device port's results for main path 10's inputs, on the card."""
+    from galois_tpu_torch.ops._ntt import field_fft
+
+    refs = {key: field_fft(inp[key])._data for key in ("p", "bls", "gold", "batch", "bins", "fallback")}
+    for key, code, kw in (("rs", rs, {}), ("rs_era", rs, {"erasures": inp["rs_erasures"]}), ("bch", bch, {})):
+        dec, nerr = code.decode(inp[key], output="codeword", errors=True, **kw)
+        refs[key], refs[key + "_nerr"] = dec._data, torch.from_numpy(nerr).to(dec.device)
+    h = inp["step_x"] @ inp["step_w"]
+    a = inp["step_a"]
+    refs["step_h"], refs["step_g"] = (h * h + h)._data, (a * a + a)._data
+    return refs
+
+
+def parallel_check(out, refs, inp, group, D):
+    """Gathers every result of parallel_calls (on every rank) and, where
+    ``refs`` is given, holds it for exact equality against the single-device
+    port, the inverse round trips against the inputs and 16 bins of the
+    BLS12-381 r transform at 2^12 against a direct DFT in Python ints.
+    Returns the names checked."""
+    checked, bins = [], None
+    for key, res in out.items():
+        if isinstance(res, tuple):  # sharded_decode: (words, n_errors)
+            got = {key: gather_shards(res[0]._data, group, D, 0), key + "_nerr": gather_shards(res[1], group, D, 0)}
+        else:
+            got = {key: gather_shards(res._data, group, D, 1 if type(res)._meta.storage_first else 0)}
+        if refs is None:
+            continue
+        for k, v in got.items():
+            want = inp[k[: -len("_inverse")]]._data if k.endswith("_inverse") else refs[k]
+            if v.shape != want.shape or not torch.equal(v, want):
+                raise AssertionError(f"main path 10: {k} over {D} ranks differs from the single-device port")
+            checked.append(k)
+        if key == "bins":
+            bins = type(res)._view(got[key])
+    if refs is not None:
+        N, p = PARALLEL["bins"], BLS_R
+        xs, Xs = ints(inp["bins"]), ints(bins)
+        omega = pow(int(type(bins).primitive_element), (p - 1) // N, p)
+        for k in [0, 1, 2, 3, 5, N // 2, N - 1] + [int(k) for k in np.random.default_rng(10).integers(0, N, 9)]:
+            wk, acc = pow(omega, k, p), 0
+            for v in reversed(xs):  # Horner in omega^k
+                acc = (acc * wk + v) % p
+            if Xs[k] != acc:
+                raise AssertionError(f"main path 10: BLS12-381 r bin {k} over {D} ranks disagrees with the direct DFT")
+        checked.append("16 BLS12-381 r bins against Python ints")
+    return checked
+
+
+def parallel_rank(rank, world, store_path, ref_path, queue):
+    """One of main path 10's gloo ranks on the one card, spawned: its
+    inputs, a warm-up, its calls with every launch count set to 0 first, the counts,
+    the parts of its NTTs, and the gathers (rank 0 also holds the results
+    against the references at ``ref_path``). Puts one dict on ``queue``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    msg = {"rank": rank}
+    try:
+        import galois_tpu_torch as gt
+
+        counters = launch_counters()
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group(
+            "gloo", store=store, rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+        dev = torch.device("cuda", 0)  # the one card, shared by every rank
+        torch.cuda.set_device(dev)
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("x",))
+        inp, rs, bch = parallel_inputs(gt, dev)
+        parallel_warmup(inp, rs, bch)
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out, msg["times"] = parallel_calls(gt, mesh, dev, inp, rs, bch, four=True)
+        msg["counts"] = {fn.__name__: fn.launches for fn in counters}
+        msg["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        msg["parts"] = parallel_split(mesh, inp)
+        refs = None
+        if rank == 0:
+            refs = {k: v.view(torch.uint16) if v.dtype == torch.int16 else v
+                    for k, v in torch.load(ref_path, map_location=dev).items()}
+        msg["checked"] = parallel_check(out, refs, inp, mesh.get_group("x"), world)
+        dist.barrier()
+    except Exception:  # the parent prints it and fails the path
+        msg["error"] = traceback.format_exc()
+    finally:
+        queue.put(msg)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_path(gt, dev, smi, counters, read_counts):
+    """Main path 10: parallel/ on torch.distributed, the counterpart of the
+    JAX package's dryrun_multichip at real sizes. (a) NCCL at one rank in
+    this process: the sharded NTTs, the batched NTT and the decodes, with
+    the launch counts set to 0 first and read after; each result against the
+    single-device port. (b) PARALLEL_RANKS gloo ranks spawned on the same
+    card, with the same calls and sizes, the inverse round trips, the
+    fallback and dryrun_multichip's step; each rank's counts must show every
+    kernel of PARALLEL_NEEDED[4], and rank 0 holds every gathered result
+    against the references (a) saved. The ranks of (b) time-share one card:
+    their times are no scaling figure."""
+    import multiprocessing
+    import os
+    import queue as queue_mod
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from galois_tpu_torch.ops import _ntt
+    from galois_tpu_torch.parallel import _ntt_sharded
+
+    t_path = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        # (a) NCCL, one rank
+        torch.cuda.set_device(dev)
+        store = dist.FileStore(os.path.join(tmp, "nccl"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("x",))
+            inp, rs, bch = parallel_inputs(gt, dev)
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out, times = parallel_calls(gt, mesh, dev, inp, rs, bch, four=False)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            read_counts(10, [fn for fn in counters if fn.__name__ in PARALLEL_NEEDED[1]])
+            parts = parallel_split(mesh, inp)
+            refs = parallel_refs(gt, inp, rs, bch)
+            checked = parallel_check(out, refs, inp, mesh.get_group("x"), 1)
+        finally:
+            dist.destroy_process_group()
+        texts = [times_text(label, [times]) for label in times] + [split_text(key, [parts]) for key in parts]
+        for text in texts:
+            print(f"[main] {smi} | path 10 (a), NCCL, 1 rank: {text}", flush=True)
+        print(f"[main] {smi} | path 10 (a): peak device memory {peak:.2f} GiB; equal to the single-device port: "
+              f"{', '.join(checked)}", flush=True)
+        ref_path = os.path.join(tmp, "refs.pt")
+        t0 = time.perf_counter()
+        # uint16 limbs as int16, which every torch build saves and loads
+        torch.save({k: (v.view(torch.int16) if v.dtype == torch.uint16 else v).cpu() for k, v in refs.items()}, ref_path)
+        print(f"[main] {smi} | path 10: references saved for (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+        del inp, out, refs
+        _ntt._plan.cache_clear()
+        _ntt_sharded._sharded_plan.cache_clear()
+        _ntt_sharded._replicated_fallback_fn.cache_clear()
+        torch.cuda.empty_cache()
+
+        # (b) PARALLEL_RANKS gloo ranks on the one card
+        ctx = multiprocessing.get_context("spawn")
+        q = ctx.Queue()
+        procs = [
+            ctx.Process(target=parallel_rank, args=(r, PARALLEL_RANKS, os.path.join(tmp, "gloo"), ref_path, q))
+            for r in range(PARALLEL_RANKS)
+        ]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        msgs = {}
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        try:
+            while len(msgs) < PARALLEL_RANKS:
+                m = q.get(timeout=max(deadline - time.monotonic(), 1))
+                msgs[m["rank"]] = m
+        except queue_mod.Empty:
+            raise AssertionError(f"main path 10 (b): only ranks {sorted(msgs)} reported within {PARALLEL_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                p.join(timeout=max(deadline - time.monotonic(), 1))
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        wall_b = time.perf_counter() - t0
+        for r in range(PARALLEL_RANKS):
+            if "error" in msgs[r]:
+                raise AssertionError(f"main path 10 (b), rank {r}:\n{msgs[r]['error']}")
+        ms = [msgs[r] for r in range(PARALLEL_RANKS)]
+        head = f"[main] {smi} | path 10 (b), gloo, {PARALLEL_RANKS} ranks time-sharing one card (no scaling figure)"
+        texts = [times_text(label, [m["times"] for m in ms]) for label in ms[0]["times"]]
+        texts += [split_text(key, [m["parts"] for m in ms]) for key in ms[0]["parts"]]
+        for text in texts:
+            print(f"{head}: {text}", flush=True)
+        for r, m in enumerate(ms):
+            print(f"{head}: rank {r}: peak device memory {m['peak']:.2f} GiB | launches {dict((k, v) for k, v in m['counts'].items() if v)}", flush=True)
+            missing = [k for k in PARALLEL_NEEDED[PARALLEL_RANKS] if not m["counts"][k]]
+            if missing:
+                raise AssertionError(f"main path 10 (b): rank {r} never launched {missing}")
+        print(f"[main] {smi} | path 10 (b): {wall_b:.1f} s for {PARALLEL_RANKS} spawned ranks, their start included; "
+              f"rank 0's gathers equal to the single-device port: {', '.join(msgs[0]['checked'])}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[main] {smi} | main path 10 took {time.perf_counter() - t_path:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available.", file=sys.stderr)
@@ -2609,13 +3071,7 @@ def main() -> int:
     # K12, K13 and K14 against their plain versions at main path 8's shapes
     scan_limb_kernels(gt, dev, record, smi)
 
-    counters = (
-        plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply, gf2m_multiply_swar,
-        gf2m_power, berlekamp_massey_scan,
-        _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
-        m31_multiply, goldilocks_multiply, device_probe,
-        lfsr_step, berlekamp_massey_long, gf2_limb_multiply, gf2_limb_power,
-    )
+    counters = launch_counters()
 
     def read_counts(phase, needed):
         counts = {fn.__name__: fn.launches for fn in counters}
@@ -3347,6 +3803,9 @@ def main() -> int:
     api_path(gt, dev, timed, smi)
     read_counts(9, (gf2m_multiply_swar, gf2m_multiply, m31_multiply, goldilocks_multiply, gf2_limb_multiply,
                     _lookup.lookup_multiply))
+
+    # -- 13. main path 10: parallel/ on torch.distributed, NCCL at one rank and gloo ranks on the card
+    parallel_path(gt, dev, smi, counters, read_counts)
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),

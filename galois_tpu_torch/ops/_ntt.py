@@ -103,13 +103,13 @@ def _power_ladder(meta: FieldMeta, g: int, n: int) -> np.ndarray:
 
 
 def _multiply_chunked(ops, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``ops.multiply(a, b)`` of planar limb tensors (b broadcasts against
-    a). Fields wider than 4 limbs run it in chunks along the longest element
-    axis, so that the product's int64 limb planes stay within ``_MUL_BYTES``;
+    """``ops.multiply(a, b)`` (b broadcasts against a). Planar fields wider
+    than 4 limbs or digits run it in chunks along the longest element axis,
+    so that the product's int64 limb planes stay within ``_MUL_BYTES``;
     Goldilocks is kernel K10, which holds no such planes."""
-    w = a.shape[0]
-    if w <= 4:
+    if ops.meta.storage == STORAGE_INT or a.shape[0] <= 4:
         return ops.multiply(a, b)
+    w = a.shape[0]
     a, b = align_planar(a, b)
     shape = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
     if not shape:
@@ -456,14 +456,16 @@ def fft_data(cls, data: torch.Tensor, N: int, inverse: bool = False, scale: bool
     if inverse:
         omega = hf.reciprocal(omega)
     out = _plan(meta, N, omega, kernel_mode(cls), data.device).transform(data)
-    if scale:
-        # Scaling by 1/N: N acts as the N-fold sum of 1, i.e. the prime-
-        # subfield element N mod p (not the integer representation N).
-        n_inv = hf.reciprocal(N % meta.characteristic)
-        ops = get_ops(meta, kernel_mode(cls))
-        n_inv = _ints_to_storage(meta, np.array(n_inv, dtype=object), out.device)
-        out = _multiply_chunked(ops, out, n_inv) if meta.storage != STORAGE_INT else ops.multiply(out, n_inv)
-    return out
+    return _divide_by_n(cls, out, N) if scale else out
+
+
+def _divide_by_n(cls, out: torch.Tensor, N: int) -> torch.Tensor:
+    """out * (1/N). N acts as the N-fold sum of 1, i.e. the prime-subfield
+    element N mod p (not the integer representation N)."""
+    meta = cls._meta
+    n_inv = get_host_field(meta).reciprocal(N % meta.characteristic)
+    n_inv = _ints_to_storage(meta, np.array(n_inv, dtype=object), out.device)
+    return _multiply_chunked(get_ops(meta, kernel_mode(cls)), out, n_inv)
 
 
 def field_fft(x, n=None, axis=-1, norm=None):

@@ -1371,3 +1371,41 @@ def test_pickle_round_trip_from_cuda(cuda_device, q):
         z = pickle.loads(data)
     assert type(y) is F and y.device.type == "cuda" and _same_storage(y, z)
     assert z.device.type == "cpu" and np.array_equal(np.asarray(z), np.asarray(x))
+
+
+def test_sharded_fft_and_decode_at_one_nccl_rank(cuda_device, tmp_path):
+    """parallel/ at one NCCL rank on the card: sharded_fft over GF(3*2^30+1),
+    Goldilocks and BLS12-381 r (and back) and sharded_decode of RS(255,223),
+    with errors and with erasures, exactly equal to field_fft and
+    code.decode(..., errors=True)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from galois_tpu_torch.ops._ntt import field_fft
+    from galois_tpu_torch.parallel import sharded_decode, sharded_fft
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("x",))
+        for q, N in ((3 * 2**30 + 1, 2**12), (GOLDILOCKS, 2**10), (BLS_R, 2**8)):
+            F = gt.GF(q)
+            x = F.Random(N, seed=N, device=dev)
+            X = sharded_fft(F, x, mesh, "x")
+            assert X.device == dev and torch.equal(X._data, field_fft(x)._data)
+            assert torch.equal(sharded_fft(F, X, mesh, "x", inverse=True)._data, x._data)
+        rs = gt.ReedSolomon(255, 223)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        bad = rs.encode(rs.field.Random((64, 223), generator=gen, device=dev))._data.clone()
+        bad[:, 3] ^= 9
+        bad[::2, 100] ^= 1
+        era = torch.zeros_like(bad, dtype=torch.bool)
+        era[:, 50] = True
+        for kw in ({}, {"erasures": era}):
+            dec, n_err = sharded_decode(rs, rs.field._view(bad), mesh, "x", **kw)
+            want, want_n = rs.decode(rs.field._view(bad), output="codeword", errors=True, **kw)
+            assert dec.device == dev and torch.equal(dec._data, want._data)
+            assert np.array_equal(n_err.cpu().numpy(), want_n)
+    finally:
+        dist.destroy_process_group()
