@@ -241,6 +241,21 @@ Phases, each fatal on failure:
      launched K1, K2, K7, K8, K8-A, K8-B, K9 and K10, and rank 0 holds every
      gathered result against (a)'s references. Each line starts with
      nvidia-smi's card and power limit; the path's time is printed.
+ 14. main path 11, CUDA-graph capture where the JAX package runs under
+     jax.jit (capture_path): a * b + a, a / b, a ** 3 and np.reciprocal at
+     2^24 over GF(2^8) (K8, K8-A), GF(2^16) in lookup mode (K3-K5), GF(2^31
+     - 1) (K9), Goldilocks (K10), GF(2^128) (K14) and GF(3^5), and
+     field_trace, field_norm, vector, additive_order, multiplicative_order,
+     log (K6), plu_decompose (32 x 32: the host route eagerly, the device
+     route captured), is_square and sqrt over GF(2^8), GF(31), GF(3^5) and
+     Goldilocks; each captured with torch.cuda.set_sync_debug_mode("error")
+     and its replay exactly equal to the eager call, or, where jax.jit
+     raises, the capture raising NotImplementedError; eager and replay ms
+     per call. Then polynomial-string elements on the card, Random(seed=...)
+     against the JAX package's draw written out in numpy over int, limb and
+     digit fields, and <, <=, >, >= and mask indexing at 2^24 over GF(2^31 -
+     1), Goldilocks, BLS12-381 r and GF(3^30) against numpy on the host. K3,
+     K4, K5, K6, K8, K8-A, K9, K10 and K14 must have been launched.
 The line before the last is one JSON object with the kernels' routes,
 sources, launch counts, errors, times and bounds; the last line is the JSON
 device summary. Exits non-zero without a card or without the package.
@@ -248,6 +263,7 @@ device summary. Exits non-zero without a card or without the package.
 
 import concurrent.futures
 import json
+import operator
 import subprocess
 import sys
 import time
@@ -2269,6 +2285,233 @@ def parallel_path(gt, dev, smi, counters, read_counts):
     print(f"[main] {smi} | main path 10 took {time.perf_counter() - t_path:.1f} s", flush=True)
 
 
+# Main path 11's sizes: the elementwise calls and the methods at 2^24, PLU at 32 x 32 (the host route
+# eagerly, the device route under capture, as in the JAX package's jit test)
+CAPTURE_N, CAPTURE_PLU_N = 2**24, 32
+F128_POLY = "x^128 + x^7 + x^2 + x + 1"
+
+
+def jax_random_ints(order, low, high, n, seed):
+    """The JAX package's ``Random`` draw (galois_tpu/fields/_array.py:457-470),
+    written out here, since the card has no JAX: int64 draws of
+    ``np.random.default_rng(seed)`` up to order 2^63, else one
+    ``rng.integers(0, 2^62)`` an element, scaled into [low, high) in Python ints."""
+    rng = np.random.default_rng(seed)
+    if order <= 2**63:
+        return rng.integers(low, high, size=n, dtype=np.int64)
+    flat = np.empty(n, dtype=object)
+    for i in range(n):
+        flat[i] = low + int(rng.integers(0, 2**62)) * (high - low) // 2**62
+    return flat
+
+
+def capture_path(gt, dev, smi):
+    """Main path 11: the public calls that the JAX package runs under jax.jit,
+    captured in a CUDA graph (torch.cuda.graph) and replayed: a * b + a,
+    a / b, a ** 3 and np.reciprocal at 2^24 over GF(2^8) (K8, K8-A),
+    lookup-mode GF(2^16) (K3-K5), GF(2^31 - 1) (K9), Goldilocks (K10),
+    GF(2^128) (K14) and GF(3^5); field_trace, field_norm, vector,
+    additive_order, multiplicative_order, log, plu_decompose, is_square and
+    sqrt over GF(2^8), GF(31), GF(3^5) and Goldilocks. Each call runs once
+    eagerly, then is captured with torch.cuda.set_sync_debug_mode("error"),
+    so that a read-back during the capture raises; its replay must equal
+    the eager result exactly (log, the orders and is_square return their
+    device tensors under capture, as the JAX package returns device arrays
+    under jit), and where the JAX package raises under jit (the limb
+    field's vector, multiplicative_order and host log, additive_order of a
+    characteristic above 2^63) the capture must raise NotImplementedError.
+    Each line gives eager ms and replay ms per call (CUDA events): the host
+    time a graph removes (and, where the eager call returns a host array,
+    the copy to the host). Then the repaired
+    API on the card: polynomial-string elements (the constructor, lists,
+    assignment), Random(seed=...) against the JAX package's draw written
+    out (jax_random_ints) over int, limb and digit fields, and <, <=, >, >=
+    and mask indexing at 2^24 over GF(2^31 - 1), Goldilocks, BLS12-381 r
+    and GF(3^30) against numpy on the host."""
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(110)
+
+    def line(text):
+        print(f"[main] {smi} | {text}", flush=True)
+
+    def same(out, eager):
+        if isinstance(eager, tuple):
+            return len(out) == len(eager) and all(same(o, e) for o, e in zip(out, eager))
+        if isinstance(out, torch.Tensor):  # a device result where the eager call gives a host one
+            host = out.cpu().numpy()
+            return host.dtype == np.asarray(eager).dtype and np.array_equal(host, eager)
+        return type(out) is type(eager) and out._data.dtype == eager._data.dtype and torch.equal(out._data, eager._data)
+
+    def replayed(tag, fn, raises=None):
+        """Eager call, capture with host syncs an error, replay; the replay
+        against the eager result; eager and replay ms per call."""
+        t0 = time.perf_counter()
+        eager = None if raises else fn()
+        torch.cuda.synchronize()
+        reps = max(1, min(50, int(0.2 / max(time.perf_counter() - t0, 1e-6))))
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        except NotImplementedError as e:
+            if raises is None:
+                raise
+            line(f"{tag}: the capture raises NotImplementedError, as jax.jit does ({e})")
+            return
+        if raises:
+            raise AssertionError(f"{tag}: the capture should raise NotImplementedError, as jax.jit does")
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same(out, eager):
+            raise AssertionError(f"{tag}: the replay differs from the eager call")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        e_ms = start.elapsed_time(end) / reps
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        r_ms = start.elapsed_time(end) / reps
+        line(f"{tag}: replay equals the eager call; eager {e_ms:.4f} ms, replay {r_ms:.4f} ms per call "
+             f"({reps} each): {e_ms - r_ms:.4f} ms a call of host time")
+        del graph, out, eager
+
+    # (a) arithmetic at 2^24
+    n = CAPTURE_N
+    F16 = gt.GF(2**16)
+    fields = [
+        ("GF(2^8)", gt.GF(2**8)), ("GF(2^16) lookup", F16), ("GF(2^31-1)", gt.GF(M31)),
+        ("Goldilocks", gt.GF(GOLDILOCKS)), ("GF(2^128)", gt.GF(2**128, irreducible_poly=F128_POLY)),
+        ("GF(3^5)", gt.GF(3**5)),
+    ]
+    F16.compile("jit-lookup")
+    try:
+        for tag, F in fields:
+            a = F.Random(n, generator=gen, device=dev)
+            b = F.Random(n, low=1, generator=gen, device=dev)
+            for op, fn in (("a * b + a", lambda: a * b + a), ("a / b", lambda: a / b), ("a ** 3", lambda: a**3),
+                           ("np.reciprocal(b)", lambda: np.reciprocal(b))):
+                replayed(f"captured {tag} {op}, 2^24", fn)
+            del a, b
+            torch.cuda.empty_cache()
+    finally:
+        F16.compile("auto")
+
+    # the nine methods of the JAX package's jit tests
+    for tag, F in (("GF(2^8)", gt.GF(2**8)), ("GF(31)", gt.GF(31)), ("GF(3^5)", gt.GF(3**5)),
+                   ("Goldilocks", gt.GF(GOLDILOCKS))):
+        x = F.Random(n, low=1, generator=gen, device=dev)
+        sq = x * x
+        m = CAPTURE_PLU_N
+        mat = x[: m * m].reshape(m, m)
+        # where jax.jit raises: a prime field on limbs (vector), limb storage (the order, the host log), a
+        # characteristic above 2^63 (additive_order)
+        limbs, wide = F._meta.storage != "int", F.characteristic > 2**63 - 1
+        methods = [
+            ("field_trace", lambda: x.field_trace(), None), ("field_norm", lambda: x.field_norm(), None),
+            ("vector", lambda: x.vector(), limbs), ("additive_order", lambda: x.additive_order(), wide),
+            ("multiplicative_order", lambda: x.multiplicative_order(), limbs), ("log", lambda: x.log(), limbs),
+            (f"plu_decompose {m} x {m}", lambda: mat.plu_decompose(), None),
+            ("is_square", lambda: sq.is_square(), None), ("sqrt", lambda: sq.sqrt(), None),
+        ]
+        for name, fn, raises in methods:
+            replayed(f"captured {tag} {name}" + ("" if name.startswith("plu") else ", 2^24"), fn, raises)
+        del x, sq, mat
+        torch.cuda.empty_cache()
+
+    # (b) polynomial strings
+    F8, F3 = gt.GF(2**3), gt.GF(3**5)
+    checks = [
+        (int(F8("x^2 + 1", device=dev)), 5), (int(F8("α^2 + α", device=dev)), 6),
+        (int(gt.GF(2**8)("α", device=dev)), int(gt.GF(2**8).primitive_element)),
+        (np.asarray(F3(["2x^4 + x + 1", 7, "x^2"], device=dev)).tolist(), [2 * 81 + 3 + 1, 7, 9]),
+    ]
+    x = gt.GF(2**8).Random(n, seed=111, device=dev)
+    x[5] = "x^7 + x"
+    x[[1, 2]] = ["x + 1", 9]
+    checks.append((np.asarray(x[:6]).tolist()[1:3] + [int(x[5])], [3, 9, 130]))
+    for got, want in checks:
+        if got != want:
+            raise AssertionError(f"polynomial strings on the card: {got} != {want}")
+    line(f"polynomial-string elements on the card: {len(checks)} checks pass")
+
+    # (b) Random(seed=...) against the JAX package's draw
+    for tag, F, count, low in (("GF(2^8)", gt.GF(2**8), n, 0), ("GF(3^30) digits", gt.GF(3**30), 2**20, 1),
+                               ("Goldilocks", gt.GF(GOLDILOCKS), 2**20, 0), ("BLS12-381 r", gt.GF(BLS_R), 2**16, 5),
+                               ("GF(2^128)", gt.GF(2**128, irreducible_poly=F128_POLY), 2**16, 0)):
+        t0 = time.perf_counter()
+        got = F.Random(count, low=low, seed=112, device=dev)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        want = jax_random_ints(F.order, low, F.order, count, 112)
+        if got.device != dev or not np.array_equal(np.asarray(got, dtype=object), want.astype(object)):
+            raise AssertionError(f"{tag} Random(seed=112) differs from the JAX package's draw")
+        line(f"{tag} Random({count}, low={low}, seed=112) on the card equals the JAX package's draw "
+             f"(numpy, written out); {draw_s * 1e3:.1f} ms")
+
+    # (b) ordering comparisons at 2^24 against numpy
+    def host_keys(F, data):
+        """Int reprs on the host in a form numpy orders: int64, uint64 (Goldilocks) or big-endian bytes."""
+        h = data.cpu().numpy()
+        if F._meta.storage == "int":
+            return h.astype(np.int64)
+        if F._meta.storage == "digits":
+            acc = np.zeros(h.shape[1:], dtype=np.int64)
+            for k in reversed(range(h.shape[0])):
+                acc = acc * F.characteristic + h[k]
+            return acc
+        if h.shape[0] <= 4:
+            acc = np.zeros(h.shape[1:], dtype=np.uint64)
+            for k in range(h.shape[0]):
+                acc |= h[k].astype(np.uint64) << np.uint64(16 * k)
+            return acc
+        return np.ascontiguousarray(h[::-1].T).astype(">u2").view(f"S{2 * h.shape[0]}").reshape(-1)
+
+    ops = (("<", operator.lt, np.less), ("<=", operator.le, np.less_equal), (">", operator.gt, np.greater),
+           (">=", operator.ge, np.greater_equal))
+    for tag, F in (("GF(2^31-1)", gt.GF(M31)), ("Goldilocks", gt.GF(GOLDILOCKS)), ("BLS12-381 r", gt.GF(BLS_R)),
+                   ("GF(3^30) digits", gt.GF(3**30))):
+        a = F.Random(n, generator=gen, device=dev)
+        r = F.Random(n, generator=gen, device=dev)._data.to(torch.int64)
+        pick = torch.randint(0, 4, (n,), generator=gen, device=dev)
+        a64 = a._data.to(torch.int64)
+        if a._storage_ndim():  # equal top words a quarter of the time: the lowest word decides
+            low_word = torch.minimum(a64[0], r[0])
+            b64 = torch.where(pick == 0, a64, torch.where(pick == 1, torch.cat([low_word[None], a64[1:]]), r))
+        else:
+            b64 = torch.where(pick == 0, a64, torch.where(pick == 1, torch.minimum(a64, r), r))
+        b = F(b64.to(F._meta.torch_dtype))
+        ka, kb = host_keys(F, a._data), host_keys(F, b._data)
+        for sym, op, np_op in ops:
+            t0 = time.perf_counter()
+            got = op(a, b)
+            ms = (time.perf_counter() - t0) * 1e3
+            if got.dtype != np.bool_ or not np.array_equal(got, np_op(ka, kb)):
+                raise AssertionError(f"{tag} a {sym} b differs from numpy")
+            line(f"{tag} a {sym} b at 2^24: equals numpy on the host; {ms:.1f} ms a call (the bools' copy to the host included)")
+        pivot = a[12345]
+        sel = a[a > pivot]
+        want = ka[ka > ka[12345]]
+        if sel.shape != want.shape or not np.array_equal(host_keys(F, sel._data), want):
+            raise AssertionError(f"{tag} a[a > a[12345]] differs from numpy")
+        if not np.array_equal(a <= pivot, ka <= ka[12345]):
+            raise AssertionError(f"{tag} a <= a[12345] (a 0-D operand) differs from numpy")
+        line(f"{tag} a[a > a[12345]] ({sel.shape[0]} elements) and a <= a[12345] equal numpy")
+        del a, b, r, pick, a64, b64, sel
+        torch.cuda.empty_cache()
+    line(f"main path 11 took {time.perf_counter() - t_path:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available.", file=sys.stderr)
@@ -3806,6 +4049,15 @@ def main() -> int:
 
     # -- 13. main path 10: parallel/ on torch.distributed, NCCL at one rank and gloo ranks on the card
     parallel_path(gt, dev, smi, counters, read_counts)
+
+    # -- 14. main path 11: CUDA-graph capture where the JAX package runs under jax.jit; strings, seeded
+    # Random and ordering comparisons on the card
+    for fn in counters:
+        fn.launches = 0
+    capture_path(gt, dev, smi)
+    read_counts(11, (gf2m_multiply_swar, gf2m_power, _lookup.lookup_multiply, _lookup.lookup_divide,
+                     _lookup.lookup_reciprocal, _lookup.lookup_log, m31_multiply, goldilocks_multiply,
+                     gf2_limb_multiply, gf2_limb_power))
 
     sources = {
         "plane_matmul_data_right": ("cuda", "galois_tpu_torch/csrc/plane_matmul.cu", "galois_tpu/ops/_pallas/_plane_matmul.py:323"),

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .._options import resolve_device
-from ..polys._conversions import integer_to_poly, poly_to_str
+from ..polys._conversions import integer_to_poly, poly_to_str, str_to_integer
 from ..ops._limbs import _i16, align_planar, normalize_limbs
 from ._meta import STORAGE_DIGITS, STORAGE_INT, FieldMeta, int_to_limbs
 
@@ -56,6 +56,16 @@ def _get_ops(field):
     from ..ops._kernels import get_ops, kernel_mode
 
     return get_ops(field._meta, kernel_mode(field))
+
+
+def _capturing(data: torch.Tensor) -> bool:
+    """Whether work on ``data`` is being recorded into a CUDA graph (the
+    current stream is capturing): the port's counterpart of the JAX
+    package's ``isinstance(x, jax.core.Tracer)``. A capture cannot hold a
+    read-back to the host, so the host checks that the JAX package skips
+    under ``jax.jit`` are skipped then too, and the methods that return host
+    arrays eagerly return their device tensors."""
+    return data.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 # ----------------------------------------------------------------------
@@ -113,10 +123,11 @@ def _storage_to_ints(meta: FieldMeta, data: torch.Tensor) -> np.ndarray:
         return host.astype(np.int64)
     if meta.storage == STORAGE_DIGITS:
         p = meta.characteristic
-        acc = np.zeros(host.shape[1:], dtype=np.int64 if meta.order <= 2**63 else object)
+        dt = np.int64 if meta.order <= 2**63 else object
+        acc = np.zeros(host.shape[1:], dtype=dt)
         for k in reversed(range(host.shape[0])):
-            acc = acc * p + host[k].astype(acc.dtype)
-        return np.asarray(acc, dtype=acc.dtype)
+            acc = acc * p + host[k].astype(dt)  # a 0-D object acc becomes a Python int
+        return np.asarray(acc, dtype=dt)
     if host.shape[0] <= 4:
         x = np.zeros(host.shape[1:], dtype=np.uint64)
         for k in range(host.shape[0]):
@@ -460,18 +471,23 @@ class FieldArray(Array):
     def Random(
         cls, shape=(), low=0, high=None, seed=None, dtype=None, *, generator=None, device=None
     ) -> "FieldArray":
-        """Uniform elements in [low, high) drawn by ``torch.randint`` on
-        ``device`` (None: the default device). Pass a ``torch.Generator`` on
-        that device, or a ``seed`` from which one is made. The numbers differ
-        from the JAX package's ``Random`` for the same seed: tests make shared
-        inputs with NumPy. Limb fields draw their limbs on the device too,
-        with rejection of the draws at or above high - low."""
+        """Uniform elements in [low, high) on ``device`` (None: the default
+        device). Without a ``generator`` they are drawn on the host by
+        ``np.random.default_rng(seed)`` (``seed`` an int, None or a
+        ``np.random.Generator``), exactly as the JAX package's ``Random``
+        draws them, so the same seed gives the same integers in both
+        packages. A ``torch.Generator`` on ``device`` draws them there
+        instead, by ``torch.randint`` (limb fields draw their limbs, with
+        rejection of the draws at or above high - low)."""
         high = cls.order if high is None else int(high)
         device = resolve_device(device)
-        if generator is None and seed is not None:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(int(seed))
         meta = cls._meta
+        if generator is None:
+            rng = np.random.default_rng(seed)
+            data = _seeded_random(meta, int(low), high, _as_shape(shape), rng, device)
+            return cls._view(data, _validate_dtype(cls, dtype))
+        if seed is not None:
+            raise ValueError("Pass either 'seed' (a host draw) or 'generator' (a device draw), not both.")
         if meta.storage == STORAGE_DIGITS:
             data = _random_digits(meta, int(low), high, _as_shape(shape), generator, device)
             return cls._view(data, _validate_dtype(cls, dtype))
@@ -710,6 +726,39 @@ class FieldArray(Array):
         eq = self.__eq__(other)
         return NotImplemented if eq is NotImplemented else ~eq
 
+    def _compare(self, other, op):
+        """An ordering comparison of the integer representations, computed
+        on the device and returned as NumPy bools (np.bool_ for 0-D), as the
+        JAX package's ``_compare`` returns them. Int storage compares its
+        tensors; planar limbs and digits compare from the most significant
+        word down (the sign of a - b is that of its first nonzero word
+        difference), the element axes aligned as in ``__eq__``."""
+        try:
+            o = self._coerce(other)
+        except (TypeError, ValueError):
+            return NotImplemented
+        if self._storage_ndim():
+            a, b = align_planar(self._data.to(torch.int64), o._data.to(torch.int64))
+            sign = torch.sign(a[-1] - b[-1])
+            for k in reversed(range(a.shape[0] - 1)):
+                sign = torch.where(sign == 0, torch.sign(a[k] - b[k]), sign)
+            out = op(sign, 0).cpu().numpy()
+        else:
+            out = op(self._data, o._data).cpu().numpy()
+        return out if out.ndim else out[()]
+
+    def __lt__(self, other):
+        return self._compare(other, operator.lt)
+
+    def __le__(self, other):
+        return self._compare(other, operator.le)
+
+    def __gt__(self, other):
+        return self._compare(other, operator.gt)
+
+    def __ge__(self, other):
+        return self._compare(other, operator.ge)
+
     def __hash__(self):
         return hash((type(self), self.item())) if self.ndim == 0 else None
 
@@ -730,11 +779,18 @@ class FieldArray(Array):
 
     def additive_order(self):
         """1 for zero, else the characteristic (an object array of Python
-        ints above int64)."""
+        ints above int64). While capturing, the int64 tensor on the device
+        (characteristics below 2^63 only, as in the JAX package's jit)."""
         p = self._meta.characteristic
+        capturing = _capturing(self._data)
+        if capturing and p > np.iinfo(np.int64).max:
+            raise NotImplementedError(f"additive_order under capture requires characteristic < 2^63, not {p}.")
         zero = _get_ops(self).is_zero(self._data)
         if p <= np.iinfo(np.int64).max:
-            out = torch.where(zero, 1, p).cpu().numpy()
+            order = torch.where(zero, 1, p)
+            if capturing:
+                return order
+            out = order.cpu().numpy()
             return out if out.ndim else np.int64(out)
         out = np.full(self.shape, p, dtype=object)
         out[zero.cpu().numpy()] = 1
@@ -751,14 +807,19 @@ class FieldArray(Array):
 
     def is_square(self):
         """Whether each element is a square, as a bool ndarray (np.bool_ for
-        a 0-D array)."""
-        out = self._is_square_data().cpu().numpy()
+        a 0-D array); while capturing, the bool tensor on the device."""
+        mask = self._is_square_data()
+        if _capturing(self._data):
+            return mask
+        out = mask.cpu().numpy()
         return out if out.ndim else np.bool_(out)
 
     def sqrt(self) -> "FieldArray":
         """The canonical square roots (int repr <= that of the negation);
-        raises ArithmeticError if any element is a non-square."""
-        if not bool(self._is_square_data().all()):
+        raises ArithmeticError if any element is a non-square. While
+        capturing there is no check, and the roots of non-squares are
+        unspecified (as under the JAX package's jit)."""
+        if not _capturing(self._data) and not bool(self._is_square_data().all()):
             raise ArithmeticError("Input array has elements that are non-squares.")
         if self._mode == "python-calculate":
             return type(self)._view(_python_op(self._meta, "sqrt", self._data), self._dtype)
@@ -766,10 +827,13 @@ class FieldArray(Array):
 
     def vector(self, dtype=None) -> "FieldArray":
         """The length-m GF(p) vectors of the elements, degrees descending,
-        split on the array's device."""
+        split on the array's device. A prime field on limbs raises
+        NotImplementedError while capturing, as under the JAX package's jit."""
         sub = type(self).prime_subfield
         meta = self._meta
         m, p = meta.degree, meta.characteristic
+        if m == 1 and meta.storage != STORAGE_INT and _capturing(self._data):
+            raise NotImplementedError("vector() of a limb-storage prime field is host-only under capture.")
         if m == 1:  # a prime field: the vector is the element
             return sub._view(self._data.unsqueeze(-1), _validate_dtype(sub, dtype))
         if meta.storage == STORAGE_DIGITS:  # the planar digits, descending, to the last axis
@@ -1083,6 +1147,50 @@ def _expand_index(index, ndim: int, first: bool = True):
     return (slice(None),) + index if first else index + (slice(None),)
 
 
+def _seeded_random(meta: FieldMeta, low: int, high: int, shape, rng: np.random.Generator, device) -> torch.Tensor:
+    """The JAX package's ``Random`` draw, as storage on ``device``: for
+    orders up to 2^63 ``rng.integers(low, high)`` in int64; above, low + v
+    (high - low) // 2^62 for each element's v = ``rng.integers(0, 2^62)``,
+    the v drawn by one call (the same stream as the JAX package's call an
+    element) and scaled into limbs on ``device`` (``_scaled_limbs``; digit
+    fields in Python ints on the host)."""
+    if meta.order <= 2**63:
+        return _ints_to_storage(meta, rng.integers(low, high, size=shape, dtype=np.int64), device)
+    span = high - low
+    if span < 1:
+        raise ValueError(f"Argument 'high' must be larger than 'low', not {high} <= {low}.")
+    v = rng.integers(0, 2**62, size=math.prod(shape))
+    if meta.storage == STORAGE_DIGITS:
+        return _ints_to_storage(meta, (low + v.astype(object) * span // 2**62).reshape(shape), device)
+    limbs = _scaled_limbs(torch.from_numpy(v).to(device), span, low, meta.storage_width)
+    return limbs.reshape((meta.storage_width,) + tuple(shape)).to(meta.torch_dtype)
+
+
+def _scaled_limbs(v: torch.Tensor, span: int, low: int, L: int) -> torch.Tensor:
+    """low + v span // 2^62 for int64 v in [0, 2^62), as (L, n) int64 16-bit
+    limbs: the product in columns of limbs (four terms of < 2^32 a column),
+    carried, shifted right by 62 bits and added to low's limbs."""
+    vl = [(v >> (16 * i)) & 0xFFFF for i in range(4)]
+    sl = int_to_limbs(span, -(-span.bit_length() // 16)).tolist()
+    cols = [torch.zeros_like(v) for _ in range(4 + len(sl) + 1)]
+    for j, s in enumerate(sl):
+        for i in range(4):
+            if s:
+                cols[i + j] += vl[i] * s
+    carry = torch.zeros_like(v)
+    for k in range(len(cols)):
+        t = cols[k] + carry
+        cols[k], carry = t & 0xFFFF, t >> 16
+    cols.append(torch.zeros_like(v))
+    out, carry = [], torch.zeros_like(v)
+    for t, lo in enumerate(int_to_limbs(low, L).tolist()):
+        q = ((cols[3 + t] >> 14) | (cols[4 + t] << 2) & 0xFFFF) if 4 + t < len(cols) else torch.zeros_like(v)
+        t_sum = q + lo + carry
+        out.append(t_sum & 0xFFFF)
+        carry = t_sum >> 16
+    return torch.stack(out)
+
+
 def _random_limbs(L: int, low: int, high: int, shape, generator, device) -> torch.Tensor:
     """Uniform int reprs in [low, high) as int64 limbs (L, *shape), drawn on
     ``device``: limbs of span - 1's bit length, and redraws of the values at
@@ -1221,7 +1329,12 @@ def _convert_to_storage(cls, x, device) -> torch.Tensor:
 
 
 def _parse_host(cls, x) -> np.ndarray:
-    if isinstance(x, (list, tuple)):
+    """Host input -> a NumPy array of int reprs, range-checked. Strings are
+    polynomials in x or α over the prime subfield ("x^2 + 1", "α^2 + α"),
+    alone or as elements of (nested) lists."""
+    if isinstance(x, str):
+        arr = np.array(str_to_integer(x, cls._meta.characteristic), dtype=object)
+    elif isinstance(x, (list, tuple)):
         arr = np.array(_parse_nested(cls, x), dtype=object)
     elif isinstance(x, (int, np.integer)):
         arr = np.array(int(x), dtype=object)
@@ -1238,6 +1351,8 @@ def _parse_host(cls, x) -> np.ndarray:
 def _parse_nested(cls, x):
     if isinstance(x, (list, tuple)):
         return [_parse_nested(cls, v) for v in x]
+    if isinstance(x, str):
+        return str_to_integer(x, cls._meta.characteristic)
     if isinstance(x, FieldArray):
         return int(x)
     if isinstance(x, (int, np.integer)):
@@ -1248,5 +1363,6 @@ def _parse_nested(cls, x):
 
 
 def _check_div_by_zero(x: FieldArray):
-    if bool(_get_ops(x).is_zero(x._data).any()):
+    """Raise ZeroDivisionError if x holds a 0 (no check while capturing)."""
+    if not _capturing(x._data) and bool(_get_ops(x).is_zero(x._data).any()):
         raise ZeroDivisionError("Cannot compute the multiplicative inverse of 0 in a Galois field.")

@@ -33,6 +33,7 @@ import torch
 from ..nt import factors, totatives
 from ..ops import _linalg
 from ..ops._kernels import kernel_mode, mulmod
+from . import _array
 from ._array import FieldArray, FieldArrayMeta, _get_ops, _storage_to_ints
 from ._hostfield import get_host_field
 from ._meta import STORAGE_DIGITS, STORAGE_INT
@@ -53,10 +54,16 @@ def multiplicative_order(self):
     """Order of each unit in the multiplicative group (reference:
     src/galois/_fields/_array.py:1292-1353). Int storage computes on the
     device: for each prime factor of q - 1, the candidate order is divided
-    while x^(order / p_i) == 1."""
+    while x^(order / p_i) == 1. While capturing, int storage skips the zero
+    check and returns the int64 tensor on the device, and limb and digit
+    storage, which take host ints, raise NotImplementedError (as under the
+    JAX package's jit)."""
     meta = self._meta
+    capturing = _array._capturing(self._data)
+    if capturing and meta.storage != STORAGE_INT:
+        raise NotImplementedError(f"multiplicative_order under capture requires int storage, not {meta.storage}.")
     if meta.storage == STORAGE_INT:
-        if bool((self._data == 0).any()):
+        if not capturing and bool((self._data == 0).any()):
             raise ArithmeticError("0 has no multiplicative order.")
         n = meta.order - 1
         ops = _get_ops(self)
@@ -67,6 +74,8 @@ def multiplicative_order(self):
                 divides = ord_arr % pi == 0
                 pw = ops.power(self._data, torch.where(divides, cand, 1), nbits=max(1, n.bit_length()))
                 ord_arr = torch.where(divides & (pw == 1), cand, ord_arr)
+        if capturing:
+            return ord_arr
         out = ord_arr.cpu().numpy()
         return out if out.ndim else np.int64(out)
     x = _storage_to_ints(meta, self._data)

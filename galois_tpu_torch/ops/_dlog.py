@@ -185,14 +185,18 @@ def log(x, base=None):
     """Elementwise discrete log of a FieldArray, as an int64 ndarray (an
     object array of Python ints where q - 2 exceeds int64), or an np.int64
     (int) for a 0-D array. The device routes end in one copy of the logs
-    to the host."""
-    from ..fields._array import _storage_to_ints
+    to the host. While capturing, as under the JAX package's jit, there is
+    no zero check (log(0) is unspecified), the device routes return the
+    int64 tensor on the device, and the host route raises
+    NotImplementedError."""
+    from ..fields import _array
     from ._kernels import get_ops, kernel_mode, mulmod
 
     cls = type(x)
     meta = cls._meta
     ops = get_ops(meta, kernel_mode(cls))
-    if bool(ops.is_zero(x._data).any()):
+    capturing = _array._capturing(x._data)
+    if not capturing and bool(ops.is_zero(x._data).any()):
         raise ArithmeticError("The discrete logarithm of 0 does not exist.")
     n = meta.order - 1
     inv_lb = 1
@@ -216,9 +220,13 @@ def log(x, base=None):
     if logs is not None:
         if inv_lb != 1:
             logs = mulmod(logs, inv_lb, n)
+        if capturing:
+            return logs
         out = logs.cpu().numpy()
         return out if out.ndim else np.int64(out)
-    xi = np.asarray(_storage_to_ints(meta, data), dtype=object)
+    if capturing:
+        raise NotImplementedError(f"log of {meta.name} uses the host Pohlig-Hellman and cannot run under capture.")
+    xi = np.asarray(_array._storage_to_ints(meta, data), dtype=object)
     dtype = np.int64 if meta.order - 2 <= np.iinfo(np.int64).max else object
     vals = np.array([host_log(meta, int(v)) * inv_lb % n for v in xi.reshape(-1)], dtype=dtype)
     out = vals.reshape(xi.shape)

@@ -594,7 +594,7 @@ class LookupOps:
         if e < 0:
             return self.power_static(self.reciprocal(a), -e)
         q1 = self.meta.order - 1
-        r = self.power(a, torch.tensor(e % q1, device=a.device))
+        r = self.power(a, torch.full((), e % q1, dtype=torch.int64, device=a.device))
         if e != 0 and e % q1 == 0:
             r = torch.where(a == 0, torch.zeros_like(r), r)
         return r
@@ -673,12 +673,14 @@ class LimbPrimeOps(PlanarOps):
 
     def _const(self, name: str, nd: int, device) -> torch.Tensor:
         """p's limbs zero-padded to L + 1 ("p"), or Barrett's mu ("mu"), as
-        an int64 (K, 1, ..., 1) tensor on ``device``."""
-        key = (name, nd, device)
+        an int64 (K, 1, ..., 1) tensor on ``device``: a view of the one copy
+        made per device, so that a new rank copies nothing from the host (a
+        CUDA-graph capture cannot)."""
+        key = (name, device)
         if key not in self._consts:
             limbs = self.meta.barrett_mu_limbs if name == "mu" else np.append(self.meta.prime_limbs, 0)
-            self._consts[key] = torch.tensor(limbs, dtype=torch.int64, device=device).reshape((-1,) + (1,) * nd)
-        return self._consts[key]
+            self._consts[key] = torch.tensor(limbs, dtype=torch.int64, device=device)
+        return self._consts[key].reshape((-1,) + (1,) * nd)
 
     def _wide2(self, a, b):
         a, b = align_planar(a, b)

@@ -265,16 +265,33 @@ def _field_reduce(op, x, dim: int):
 def row_reduce(A, ncols=None):
     """Reduced row echelon form over the first ``ncols`` columns (reference:
     src/galois/_domains/_linalg.py:316-352). Small matrices are reduced
-    exactly on the host, larger ones on their device."""
+    exactly on the host, larger ones, and every one while capturing, on
+    their device."""
     cls = type(A)
     if A.ndim != 2:
         raise ValueError(f"Argument 'A' must be 2-D, not {A.ndim}-D.")
     ncols = A.shape[1] if ncols is None else int(ncols)
-    if A.size <= _DEVICE_LINALG_CUTOFF:
+    if _on_host(A):
         R, _, _ = _host_row_reduce(cls, np.asarray(A, dtype=object), ncols)
         return cls(R, dtype=A._dtype, device=A.device)
     out, _ = _row_reduce_data(cls._meta, kernel_mode(cls), A._data, ncols)
     return cls._view(out, A._dtype)
+
+
+def _captured(A) -> bool:
+    """Whether the FieldArray A's work is being captured into a CUDA graph
+    (``fields/_array.py::_capturing``)."""
+    from ..fields import _array
+
+    return _array._capturing(A._data)
+
+
+def _on_host(A) -> bool:
+    """Whether the elimination family takes its exact host route: for
+    matrices of at most ``_DEVICE_LINALG_CUTOFF`` elements, unless A is
+    being captured (as the JAX package takes its device route for a
+    tracer)."""
+    return A.size <= _DEVICE_LINALG_CUTOFF and not _captured(A)
 
 
 def _host_row_reduce(cls, Anp, ncols):
@@ -326,8 +343,12 @@ def _row_reduce_data(meta, mode: str, a, ncols: int):
     read-back; per call, one reciprocal (K8-A), one more product and a tree
     of about log2(ncols) products. With more columns than rows the pivot
     count is read back at column M - 1 and every ``_EXIT_CHECK_EVERY``
-    columns after, and the loop stops once every row holds a pivot."""
+    columns after, and the loop stops once every row holds a pivot; not
+    while capturing, when it runs every column."""
+    from ..fields import _array
+
     ops = get_ops(meta, mode)
+    early_exit = not _array._capturing(a)
     ax = _rows_axis(meta)
     M = a.shape[ax]
     a = a.clone()
@@ -349,7 +370,7 @@ def _row_reduce_data(meta, mode: str, a, ncols: int):
         a = ops.subtract(ops.multiply(a, d), ops.multiply(factor.unsqueeze(-1), prow.unsqueeze(-2)))
         _set_row(a, pr, prow, meta)
         pivot_row = pivot_row + found
-        if M - 1 <= j < ncols - 1 and (j - M + 1) % _EXIT_CHECK_EVERY == 0 and int(pivot_row) == M:
+        if early_exit and M - 1 <= j < ncols - 1 and (j - M + 1) % _EXIT_CHECK_EVERY == 0 and int(pivot_row) == M:
             break
     # a pivot row's leading element is its first nonzero; a zero row's gathered 0 is scaled by anything
     lead = torch.logical_not(ops.is_zero(a)).to(torch.int32).argmax(dim=-1, keepdim=True)
@@ -360,22 +381,26 @@ def _row_reduce_data(meta, mode: str, a, ncols: int):
 
 
 def matrix_rank(A) -> int:
+    """The rank, an int; while capturing, the 0-d int64 tensor on the
+    device."""
     cls = type(A)
-    if A.size <= _DEVICE_LINALG_CUTOFF:
+    if _on_host(A):
         _, rank, _ = _host_row_reduce(cls, np.asarray(A, dtype=object), A.shape[1])
         return rank
     _, pivots = _row_reduce_data(cls._meta, kernel_mode(cls), A._data, A.shape[1])
-    return int(pivots)
+    return pivots if _captured(A) else int(pivots)
 
 
 def inv(A):
     """Matrix inverse by row-reducing [A | I]
-    (reference: src/galois/_domains/_linalg.py:496-525)."""
+    (reference: src/galois/_domains/_linalg.py:496-525). While capturing
+    there is no singularity check: the inverse of a singular A is
+    unspecified."""
     cls = type(A)
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise np.linalg.LinAlgError(f"Argument 'A' must be square, not {A.shape}.")
     n = A.shape[0]
-    if A.size <= _DEVICE_LINALG_CUTOFF:
+    if _on_host(A):
         Anp = np.asarray(A, dtype=object)
         AI = np.concatenate([Anp, np.eye(n, dtype=np.int64).astype(object)], axis=1)
         R, rank, _ = _host_row_reduce(cls, AI, n)
@@ -384,7 +409,7 @@ def inv(A):
         return cls(R[:, n:], dtype=A._dtype, device=A.device)
     AI = torch.cat([A._data, cls.Identity(n, device=A.device)._data], dim=-1)
     out, pivots = _row_reduce_data(cls._meta, kernel_mode(cls), AI, n)
-    if int(pivots) != n:
+    if not _captured(A) and int(pivots) != n:
         raise np.linalg.LinAlgError("Matrix is singular and cannot be inverted.")
     return cls._view(out[..., n:].contiguous(), A._dtype)
 
@@ -462,7 +487,7 @@ def det(A):
     n = A.shape[0]
     if n == 1:
         return A[0, 0]
-    if A.size <= _DEVICE_LINALG_CUTOFF:
+    if _on_host(A):
         from ..fields._hostfield import get_host_field
 
         hf = get_host_field(cls._meta)
@@ -476,7 +501,7 @@ def det(A):
 
 def lu_decompose(A):
     P, L, U = plu_decompose(A)
-    if not torch.equal(P._data, type(A).Identity(A.shape[0], device=A.device)._data):
+    if not _captured(A) and not torch.equal(P._data, type(A).Identity(A.shape[0], device=A.device)._data):
         raise ValueError("The LU decomposition of 'A' does not exist. Use the PLU decomposition instead.")
     return L, U
 
@@ -485,7 +510,7 @@ def plu_decompose(A):
     cls = type(A)
     if A.ndim != 2:
         raise ValueError(f"Argument 'A' must be 2-D, not {A.ndim}-D.")
-    if A.size <= _DEVICE_LINALG_CUTOFF:
+    if _on_host(A):
         P, L, U, _ = _host_plu(cls, A)
         return tuple(cls(x, dtype=A._dtype, device=A.device) for x in (P, L, U))
     lu, perm, _ = _plu_data(cls._meta, kernel_mode(cls), A._data)

@@ -1409,3 +1409,90 @@ def test_sharded_fft_and_decode_at_one_nccl_rank(cuda_device, tmp_path):
             assert np.array_equal(n_err.cpu().numpy(), want_n)
     finally:
         dist.destroy_process_group()
+
+
+# CUDA-graph capture, the counterpart of the JAX package's jax.jit: (order, irreducible poly, mode) of
+# main path 11's arithmetic fields
+CAPTURE_FIELDS = [(2**8, None, "auto"), (2**16, None, "jit-lookup"), (M31, None, "auto"), (GOLDILOCKS, None, "auto"),
+                  (2**128, "x^128 + x^7 + x^2 + x + 1", "auto"), (3**5, None, "auto")]
+
+
+def _captured(fn):
+    """fn() captured in a CUDA graph, any host sync during the capture an
+    error: (the graph, the outputs it writes)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return graph, out
+
+
+def _same_result(out, eager):
+    if isinstance(eager, tuple):
+        return all(_same_result(o, e) for o, e in zip(out, eager))
+    if isinstance(out, torch.Tensor):  # a device result where the eager call returns a host one
+        host = out.cpu().numpy()
+        return host.dtype == np.asarray(eager).dtype and np.array_equal(host, eager)
+    return torch.equal(out._data, eager._data)
+
+
+@pytest.mark.parametrize(["q", "f", "mode"], CAPTURE_FIELDS, ids=[f"{q}-{m}" for q, _, m in CAPTURE_FIELDS])
+def test_arithmetic_replays_equal_eager_calls(cuda_device, q, f, mode):
+    """a * b + a, a / b, a ** 3 and np.reciprocal captured without a host
+    sync; a replay equals the eager call, and after new values are copied
+    into the inputs in place, the next replay equals the eager call on them."""
+    F = gt.GF(q) if f is None else gt.GF(q, irreducible_poly=f)
+    F.compile(mode)
+    try:
+        gen = torch.Generator(device=cuda_device).manual_seed(q % 1009)
+        a = F.Random(2**16, generator=gen, device=cuda_device)
+        b = F.Random(2**16, low=1, generator=gen, device=cuda_device)
+        for fn in (lambda: a * b + a, lambda: a / b, lambda: a**3, lambda: np.reciprocal(b)):
+            eager = fn()
+            graph, out = _captured(fn)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert _same_result(out, eager)
+            a._data.copy_(F.Random(2**16, generator=gen, device=cuda_device)._data)
+            b._data.copy_(F.Random(2**16, low=1, generator=gen, device=cuda_device)._data)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert _same_result(out, fn())
+    finally:
+        F.compile("auto")
+
+
+@pytest.mark.parametrize("q", [2**8, 31, 3**5, GOLDILOCKS])
+def test_methods_replay_equal_eager_calls(cuda_device, q):
+    """The methods of the JAX package's jit tests captured without a host
+    sync: field_trace, field_norm, vector, additive_order,
+    multiplicative_order, log, plu_decompose (16 x 16: the host route
+    eagerly, the device route under capture), is_square and sqrt. The
+    replays equal the eager calls; where jax.jit raises (the Goldilocks
+    field's vector, additive_order, multiplicative_order and log), the
+    capture raises NotImplementedError."""
+    F = gt.GF(q)
+    gen = torch.Generator(device=cuda_device).manual_seed(q % 1013)
+    x = F.Random(4096, low=1, generator=gen, device=cuda_device)
+    sq, mat = x * x, x[:256].reshape(16, 16)
+    raising = {"vector", "additive_order", "multiplicative_order", "log"} if q == GOLDILOCKS else set()
+    calls = {
+        "field_trace": lambda: x.field_trace(), "field_norm": lambda: x.field_norm(), "vector": lambda: x.vector(),
+        "additive_order": lambda: x.additive_order(), "multiplicative_order": lambda: x.multiplicative_order(),
+        "log": lambda: x.log(), "plu_decompose": lambda: mat.plu_decompose(), "is_square": lambda: sq.is_square(),
+        "sqrt": lambda: sq.sqrt(),
+    }
+    for name, fn in calls.items():
+        if name in raising:
+            with pytest.raises(NotImplementedError):
+                _captured(fn)
+            continue
+        eager = fn()
+        torch.cuda.synchronize()
+        graph, out = _captured(fn)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_result(out, eager), name
