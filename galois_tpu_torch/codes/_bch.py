@@ -16,6 +16,7 @@ from typing import Optional, Type
 import numpy as np
 import torch
 
+from .._tracing import span
 from ..fields import GF, GF2
 from ..fields._array import FieldArray
 from ..nt import ilog
@@ -128,7 +129,9 @@ class BCH(_CyclicCode):
         )
         out, n_errors = decoder(codeword._data, erasures)
         out = (out.to(torch.int64) % self.field.order).to(self.field._meta.torch_dtype)
-        return self.field._view(out), n_errors.cpu().numpy()
+        with span("gf.decode.readback", n_errors):
+            n_errors = n_errors.cpu().numpy()
+        return self.field._view(out), n_errors
 
     # ------------------------------------------------------------------
     @property

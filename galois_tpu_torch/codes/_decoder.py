@@ -29,7 +29,10 @@ The scan (stage 4) is kernel K8-B for GF(2^m) inside
 with d <= 33: RS(255,223) and BCH(511,493) among them), on any device (the
 CPU runs its plain version), and elsewhere the plain loop of d - 1 batched
 torch steps. The host constants W, CH, FP, Y, LT and Vinv_T are built once
-per code and copied once to each device.
+per code and copied once to each device. Stages 1, 2-3, 4-5, 6 and 7-10 each
+run inside a span (``_tracing.py``: ``gf.decode.syndromes``,
+``.erasure_locator``, ``.berlekamp_massey``, ``.chien``, ``.forney``), on
+only while a torch profiler runs.
 
 Not carried over from the JAX package: ``jax.jit``, the memory-mapping
 bound of its decoder cache, and the 7-bit int8 planes of the erasure log
@@ -44,6 +47,7 @@ import functools
 import numpy as np
 import torch
 
+from .._tracing import span
 from ..fields._hostfield import get_host_field
 from ..fields._meta import STORAGE_INT, FieldMeta
 from ..fields._tables import build_exp_log
@@ -224,70 +228,75 @@ class _Decoder:
         """received: (B, n) storage, DESCENDING degrees (as users pass them);
         erasures: (B, n) bool, same order."""
         ops, d, K = self.ops, self.d, self.consts(received.device)
-        B = received.shape[0]
-        r = received.flip(1).to(self.dt)  # ascending degrees
-        era = erasures.flip(1)
-        u = era.sum(dim=1)  # erasure counts
-        fail = u > self.nroots
-        r_z = torch.where(era, torch.zeros_like(r), r)
-
         # 1. syndromes
-        S = self.fmatmul(r_z, K["W"])  # (B, d - 1)
+        with span("gf.decode.syndromes", received):
+            r = received.flip(1).to(self.dt)  # ascending degrees
+            era = erasures.flip(1)
+            u = era.sum(dim=1)  # erasure counts
+            fail = u > self.nroots
+            r_z = torch.where(era, torch.zeros_like(r), r)
+            S = self.fmatmul(r_z, K["W"])  # (B, d - 1)
 
-        # 2. Gamma by evaluation-interpolation: log Gamma(z_k) is linear in the
-        # mask; the vanishing factors are patched to exact 0; the inverted
-        # Vandermonde matrix gives the coefficients.
-        logsum = torch.matmul(era.to(torch.float64), K["LT"]).to(torch.int64)  # exact: < n (q - 1)
-        e_red = logsum % (self.q - 1)  # (B, d)
-        g = torch.full((), self.g_int, dtype=self.dt, device=r.device)
-        gvals = ops.power(g, e_red, nbits=(self.q - 1).bit_length())
-        if self.zk:
-            vanish = era[:, self.zj]
-            gvals[:, self.zk] = torch.where(vanish, torch.zeros_like(vanish, dtype=self.dt), gvals[:, self.zk])
-        gvals[:, 0] = 1  # Gamma(0) = 1
-        gamma = self.fmatmul(gvals, K["Vinv_T"])  # (B, d) ascending coefficients
+        with span("gf.decode.erasure_locator", received):
+            # 2. Gamma by evaluation-interpolation: log Gamma(z_k) is linear in
+            # the mask; the vanishing factors are patched to exact 0; the
+            # inverted Vandermonde matrix gives the coefficients.
+            logsum = torch.matmul(era.to(torch.float64), K["LT"]).to(torch.int64)  # exact: < n (q - 1)
+            e_red = logsum % (self.q - 1)  # (B, d)
+            g = torch.full((), self.g_int, dtype=self.dt, device=r.device)
+            gvals = ops.power(g, e_red, nbits=(self.q - 1).bit_length())
+            if self.zk:
+                vanish = era[:, self.zj]
+                gvals[:, self.zk] = torch.where(vanish, torch.zeros_like(vanish, dtype=self.dt), gvals[:, self.zk])
+            gvals[:, 0] = 1  # Gamma(0) = 1
+            gamma = self.fmatmul(gvals, K["Vinv_T"])  # (B, d) ascending coefficients
+            # 3. modified syndromes
+            Sp = self.conv_trunc(gamma, S, self.nroots)
 
-        # 3. modified syndromes
-        Sp = self.conv_trunc(gamma, S, self.nroots)
-        # 4. Berlekamp-Massey on S'[u:], starting at the per-row offset u
-        C, v = self.berlekamp_massey(Sp, u)
-        fail = fail | (2 * v + u > self.nroots)
-        # 5. Lambda_total = Gamma * Lambda
-        lam_total = self.conv_trunc(gamma, C, d)
+        with span("gf.decode.berlekamp_massey", received):
+            # 4. Berlekamp-Massey on S'[u:], starting at the per-row offset u
+            C, v = self.berlekamp_massey(Sp, u)
+            fail = fail | (2 * v + u > self.nroots)
+            # 5. Lambda_total = Gamma * Lambda
+            lam_total = self.conv_trunc(gamma, C, d)
         return self.finish(received, r_z, lam_total, Sp, C, v, u, fail)
 
     def decode_no_erasures(self, received):
         """Gamma = 1, S' = S, u = 0: no erasure locator, no Gamma products."""
         B = received.shape[0]
-        r = received.flip(1).to(self.dt)
-        S = self.fmatmul(r, self.consts(received.device)["W"])
-        u = torch.zeros(B, dtype=torch.int64, device=r.device)
-        C, v = self.berlekamp_massey(S, u)
+        with span("gf.decode.syndromes", received):
+            r = received.flip(1).to(self.dt)
+            S = self.fmatmul(r, self.consts(received.device)["W"])
+        with span("gf.decode.berlekamp_massey", received):
+            u = torch.zeros(B, dtype=torch.int64, device=r.device)
+            C, v = self.berlekamp_massey(S, u)
         return self.finish(received, r, C, S, C, v, u, 2 * v > self.nroots)
 
     def finish(self, received, r_z, lam_total, Sp, C, v, u, fail):
         ops, n, K = self.ops, self.n, self.consts(received.device)
-        # 6. Chien search over design_n positions
-        root = self.fmatmul(lam_total, K["CH_T"]) == 0  # (B, design_n)
-        if self.design_n > n:
-            fail = fail | root[:, n:].any(dim=1)
-        root_n = root[:, :n]
-        fail = fail | (root_n.sum(dim=1) != v + u)
+        with span("gf.decode.chien", received):
+            # 6. Chien search over design_n positions
+            root = self.fmatmul(lam_total, K["CH_T"]) == 0  # (B, design_n)
+            if self.design_n > n:
+                fail = fail | root[:, n:].any(dim=1)
+            root_n = root[:, :n]
+            fail = fail | (root_n.sum(dim=1) != v + u)
 
-        # 7. Omega' = Lambda * S' mod x^(d-1)
-        omega = self.conv_trunc(C, Sp, self.nroots)
-        # 8. derivative of Lambda_total: coefficient j - 1 gets (j mod p) lam_total[j]
-        lam_prime = ops.multiply(lam_total[:, 1:], K["JMODP"][None, :])
-        # 9. Forney at every position i < n, masked by root_n
-        num = self.fmatmul(omega, K["CHn_T"])  # (B, n)
-        den = self.fmatmul(lam_prime, K["CHn_T"])
-        fail = fail | (root_n & (den == 0)).any(dim=1)
-        E = ops.negative(ops.multiply(ops.multiply(num, ops.reciprocal(den)), K["FP"][None, :]))
-        E = torch.where(root_n, E, torch.zeros_like(E))
+        with span("gf.decode.forney", received):
+            # 7. Omega' = Lambda * S' mod x^(d-1)
+            omega = self.conv_trunc(C, Sp, self.nroots)
+            # 8. derivative of Lambda_total: coefficient j - 1 gets (j mod p) lam_total[j]
+            lam_prime = ops.multiply(lam_total[:, 1:], K["JMODP"][None, :])
+            # 9. Forney at every position i < n, masked by root_n
+            num = self.fmatmul(omega, K["CHn_T"])  # (B, n)
+            den = self.fmatmul(lam_prime, K["CHn_T"])
+            fail = fail | (root_n & (den == 0)).any(dim=1)
+            E = ops.negative(ops.multiply(ops.multiply(num, ops.reciprocal(den)), K["FP"][None, :]))
+            E = torch.where(root_n, E, torch.zeros_like(E))
 
-        # 10. corrected = r_z - E (in the base field where decoding succeeds),
-        # back in descending order
-        corrected = ops.subtract(r_z, E).flip(1)
-        ok = ~fail
-        out = torch.where(ok[:, None], corrected, received.to(self.dt))
-        return out, torch.where(ok, v, -1)
+            # 10. corrected = r_z - E (in the base field where decoding
+            # succeeds), back in descending order
+            corrected = ops.subtract(r_z, E).flip(1)
+            ok = ~fail
+            out = torch.where(ok[:, None], corrected, received.to(self.dt))
+            return out, torch.where(ok, v, -1)

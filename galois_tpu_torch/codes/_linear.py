@@ -15,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .._tracing import span
 from ..fields._array import FieldArray
 from ..ops._linalg import matmul
 
@@ -107,6 +108,10 @@ class _LinearCode:
         tensor. Returns the messages (or codewords) and, with
         ``errors=True``, the corrected-symbol counts as int64 NumPy (-1 where
         decoding failed)."""
+        with span("gf.decode", codeword._data if isinstance(codeword, FieldArray) else None):
+            return self._decode(codeword, erasures, output, errors)
+
+    def _decode(self, codeword, erasures, output, errors):
         if output not in ("message", "codeword"):
             raise ValueError(f"Argument 'output' must be 'message' or 'codeword', not {output!r}.")
         codeword = self.field(codeword)

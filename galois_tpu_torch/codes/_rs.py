@@ -12,6 +12,7 @@ from typing import Optional, Type
 
 import numpy as np
 
+from .._tracing import span
 from ..fields import GF
 from ..fields._array import FieldArray
 from ..nt import ilog
@@ -126,7 +127,9 @@ class ReedSolomon(_CyclicCode):
             with_erasures=erasures is not None,
         )
         out, n_errors = decoder(codeword._data, erasures)
-        return field._view(out), n_errors.cpu().numpy()
+        with span("gf.decode.readback", n_errors):
+            n_errors = n_errors.cpu().numpy()
+        return field._view(out), n_errors
 
     # ------------------------------------------------------------------
     @property

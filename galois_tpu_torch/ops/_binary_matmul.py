@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from .._tracing import span
 from ..fields._meta import STORAGE_INT, FieldMeta
 
 __all__ = ["binary_matmul", "supports"]
@@ -59,13 +60,17 @@ def _reduction_rows(meta: FieldMeta) -> np.ndarray:
 
 def binary_matmul(meta: FieldMeta, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a: (..., M, K), b: (..., K, N) storage tensors of GF(2^m) int reprs;
-    returns (..., M, N) in a's dtype."""
+    returns (..., M, N) in a's dtype.
+
+    The span ``gf.binary_matmul`` covers every chunk of the product, its
+    GEMMs and its passes; whatever replaces this product keeps the name."""
     m = meta.degree
     M, N = a.shape[-2], b.shape[-1]
     rows = max(1, _CHUNK_ELEMS // max(1, m * m * N))
-    if a.ndim == 2 and b.ndim == 2 and M > rows:
-        return torch.cat([_binary_matmul(meta, a[s : s + rows], b) for s in range(0, M, rows)])
-    return _binary_matmul(meta, a, b)
+    with span("gf.binary_matmul", a):
+        if a.ndim == 2 and b.ndim == 2 and M > rows:
+            return torch.cat([_binary_matmul(meta, a[s : s + rows], b) for s in range(0, M, rows)])
+        return _binary_matmul(meta, a, b)
 
 
 def _binary_matmul(meta: FieldMeta, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

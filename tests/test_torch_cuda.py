@@ -13,8 +13,10 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import galois_tpu_torch as gt
+from galois_tpu_torch import _tracing
 from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain, bm_scan_supports
 from galois_tpu_torch.ops._elementwise import (
     device_probe,
@@ -1496,3 +1498,56 @@ def test_methods_replay_equal_eager_calls(cuda_device, q):
         graph.replay()
         torch.cuda.synchronize()
         assert _same_result(out, eager), name
+
+
+def test_decode_spans_time_every_stage_on_the_card(cuda_device):
+    """Under the profiler, each stage span of a B = 4096 RS(255,223) decode,
+    with and without erasures, carries device time; the stages' stretches
+    of the stream add up to the decode span's own within 10%; no device
+    event bears a span's name."""
+    rs = gt.ReedSolomon(255, 223)
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    msg = rs.field.Random((4096, rs.k), generator=gen, device=cuda_device)
+    cw = rs.encode(msg)
+    cw._data[::2, 7] ^= 5
+    era = torch.zeros(cw.shape, dtype=torch.bool, device=cuda_device)
+    era[::3, 100] = True
+    for kw in ({}, {"erasures": era}):
+        rs.decode(cw, errors=True, **kw)  # the constants and kernels, outside the record
+        torch.cuda.synchronize()
+        _tracing.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = rs.decode(cw, errors=True, **kw)
+            torch.cuda.synchronize()
+        recs = _tracing.spans()
+        _tracing.clear()
+        (call,) = [s for s in recs if s.name == "gf.decode"]
+        stages = [s for s in recs if s.parent == call.index]
+        assert len(stages) == 5 + bool(kw) and all(s.device_ms > 0 for s in stages + [call])
+        assert abs(sum(s.device_ms for s in stages) - call.device_ms) <= 0.1 * call.device_ms
+        assert all(s.device_ms > 0 for s in recs if s.name == "gf.binary_matmul")
+        on_device = [ev.name() for ev in prof.profiler.kineto_results.events()
+                     if ev.device_type() != torch.autograd.DeviceType.CPU]
+        assert on_device and not [n for n in on_device if n.startswith("gf.")]
+        assert torch.equal(out[0]._data, msg._data)
+
+
+def test_matmul_capture_records_no_span(cuda_device):
+    """A GF(2^8) matmul captured in a CUDA graph while a profiler runs
+    records no span (so no timing event); the replay equals the eager call,
+    which does record one."""
+    F = gt.GF(2**8)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    a = F.Random((512, 64), generator=gen, device=cuda_device)
+    b = F.Random((64, 48), generator=gen, device=cuda_device)
+    _tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        eager = a @ b
+        torch.cuda.synchronize()
+        assert [s.name for s in _tracing.spans()] == ["gf.binary_matmul"]
+        _tracing.clear()
+        graph, out = _captured(lambda: a @ b)
+        assert _tracing.spans() == []
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out._data, eager._data)
