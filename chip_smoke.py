@@ -65,6 +65,10 @@ Phases, each fatal on failure:
      GF(2^16); timed at RS(255,223)'s shape, d = 65, BCH(511,493)'s and
      GF(2^16) d = 33, with the table form's operations and shared-memory
      wavefronts beside the operations of the form with a reciprocal chain.
+     K15 (a GF(2^m) product with a constant as one GF(2)-linear map) on the
+     RS(255,223) and BCH(511,493) decoders' own maps at B = 65536 (seven
+     products), against its plain version and the bit-plane product, timed
+     beside both and bounded by the map's int8 operations or its bytes.
      K7, K8, K8-A and K8-B are bounded by their bytes and, for the table
      forms, their shared-memory reads (wavefronts at one a clock per SM);
      the integer operations of K7's and K8-B's own forms, at the int32 rate
@@ -1854,13 +1858,14 @@ def launch_counters():
         goldilocks_multiply,
         m31_multiply,
     )
+    from galois_tpu_torch.ops._gf2_linear import gf2_linear
     from galois_tpu_torch.ops._lfsr_scan import berlekamp_massey_long, lfsr_step
     from galois_tpu_torch.ops._limb_binary import gf2_limb_multiply, gf2_limb_power
     from galois_tpu_torch.ops._plane_matmul import plane_matmul_data_left, plane_matmul_data_right
 
     return (
         plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply, gf2m_multiply_swar,
-        gf2m_power, berlekamp_massey_scan,
+        gf2m_power, berlekamp_massey_scan, gf2_linear,
         _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
         m31_multiply, goldilocks_multiply, device_probe,
         lfsr_step, berlekamp_massey_long, gf2_limb_multiply, gf2_limb_power,
@@ -2524,6 +2529,8 @@ def main() -> int:
     from galois_tpu_torch.codes._decoder import make_decoder
     from galois_tpu_torch.ops import _elementwise, _lookup
     from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain
+    from galois_tpu_torch.ops._binary_matmul import binary_matmul
+    from galois_tpu_torch.ops._gf2_linear import gf2_linear, gf2_linear_plain
     from galois_tpu_torch.ops._elementwise import (
         device_probe,
         device_probe_plain,
@@ -2576,7 +2583,9 @@ def main() -> int:
         _build.load(name)
         return time.perf_counter() - t0
 
-    sources = ("plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar", "gf2m_chain", "gf2_limb", "lfsr")
+    sources = (
+        "plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar", "gf2m_chain", "gf2_limb", "lfsr", "gf2_linear",
+    )
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         secs = dict(zip(sources, pool.map(build, sources)))
@@ -2948,6 +2957,60 @@ def main() -> int:
             flush=True,
         )
     del scans, S, u_0, u_r
+    torch.cuda.empty_cache()
+
+    # K15: the decoders' products with their constants at B = 65536, on the decoders' own maps:
+    # RS(255,223) over GF(2^8) (W, CH_T, CHn_T, and Vinv_T of the erasure locator) and BCH(511,493)
+    # over GF(2^9) (W, CH_T, CHn_T). Each against the plain version on the same card tensors, bit
+    # for bit, then timed by graph replay beside the plain version and the bit-plane product that
+    # the decoders ran before K15 (eager). Bound: the map's int8 multiply-adds (2 rows K m N m) or
+    # the storage read and written once with the map, whichever is larger.
+    B_lin = 65536
+    rs_lin, bch_lin = gt.ReedSolomon(255, 223), gt.BCH(511, 493)
+    ext_lin = bch_lin.extension_field
+    lin_decoders = (
+        ("RS(255,223)", rs_lin.field, make_decoder(
+            rs_lin.field._meta, rs_lin.field._mode, rs_lin.field.order, rs_lin.n, rs_lin.n, rs_lin.d, rs_lin.c,
+            int(rs_lin.alpha), True), ("W", "CH_T", "CHn_T", "Vinv_T")),
+        ("BCH(511,493)", ext_lin, make_decoder(
+            ext_lin._meta, ext_lin._mode, bch_lin.field.order, bch_lin.n, bch_lin.n, bch_lin.d, bch_lin.c,
+            int(bch_lin.alpha), False), ("W", "CH_T", "CHn_T")),
+    )
+    for code_name, fld, dec_lin, names in lin_decoders:
+        K_lin, meta_lin = dec_lin.consts(dev), fld._meta
+        m_lin = meta_lin.degree
+        for cname in names:
+            M_lin, frags = K_lin[cname], K_lin[f"T_{cname}"]
+            k_lin, n_lin = M_lin.shape
+            x = torch.randint(0, fld.order, (B_lin, k_lin), generator=gen, device=dev).to(meta_lin.torch_dtype)
+            x[1::97] = 0
+            x[2::97] = fld.order - 1
+            got = gf2_linear(x, frags, m_lin, n_lin)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, gf2_linear_plain(x, frags, m_lin, n_lin))
+            planes_err = max_abs_err(got, binary_matmul(meta_lin, x, M_lin))
+            record("gf2_linear", max(err, planes_err))
+            if err or planes_err:
+                raise AssertionError(
+                    f"K15 disagrees with its plain version ({err}) or the bit-plane product ({planes_err}) "
+                    f"at {code_name}'s {cname}"
+                )
+            ms = graph_ms(lambda: gf2_linear(x, frags, m_lin, n_lin), 20)
+            plain_ms = cuda_ms(lambda: gf2_linear_plain(x, frags, m_lin, n_lin), 2)
+            planes_ms = cuda_ms(lambda: binary_matmul(meta_lin, x, M_lin), 2)
+            bnd = bound(B_lin * (k_lin + n_lin) * x.element_size() + frags.numel(),
+                        2 * B_lin * k_lin * m_lin * n_lin * m_lin)
+            if (code_name, cname) == ("RS(255,223)", "W"):
+                record("gf2_linear", 0, ms, plain_ms, bnd)
+            print(
+                f"[kernel] K15 gf2_linear {code_name} {cname} ({B_lin}, {k_lin}) x ({k_lin}, {n_lin}) GF(2^{m_lin}) "
+                f"{x.dtype}, map {frags.numel()} bytes: max_abs_err {err} (bit planes {planes_err}) | kernel "
+                f"{ms:.4f} ms by graph replay | plain {plain_ms:.3f} ms | bit-plane product {planes_ms:.3f} ms | "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at {bnd[0] / ms:.0%}",
+                flush=True,
+            )
+            del x, got
+    del lin_decoders, K_lin, frags
     torch.cuda.empty_cache()
 
     # K1/K2: the prologue and both sides against their plain versions at the
@@ -3671,7 +3734,7 @@ def main() -> int:
     x_b = bch.field._view(corrupt(cw_b._data, ranks(B_b, bch.n, gen) < counts_b[:, None], 2, gen))
     bch_ms = timed_decode(bch, "BCH(511,493) decode", x_b, msg_b, counts_b, {}, 3, scans=1)
 
-    read_counts(4, (gf2m_multiply_swar, gf2m_multiply, gf2m_power, berlekamp_massey_scan))
+    read_counts(4, (gf2m_multiply_swar, gf2m_multiply, gf2m_power, berlekamp_massey_scan, gf2_linear))
 
     # diagnostics of main path 4's decodes, after its counts are read, so
     # that their launches are not counted as the main path's. First one RS
@@ -3714,13 +3777,13 @@ def main() -> int:
     dec = make_decoder(rs.field._meta, rs.field._mode, rs.field.order, rs.n, rs.n, rs.d, rs.c, int(rs.alpha), False)
     K = dec.consts(dev)
     r = x._data.flip(1)
-    S = dec.fmatmul(r, K["W"])
+    S = dec.fmatmul(r, K, "W")
     u = torch.zeros(x.shape[0], dtype=torch.int64, device=dev)
     C, v = dec.berlekamp_massey(S, u)
     stages = {
-        "syndromes (bit-plane product)": lambda: dec.fmatmul(r, K["W"]),
+        "syndromes (K15)": lambda: dec.fmatmul(r, K, "W"),
         f"Berlekamp-Massey ({dec.nroots} steps, K8-B)": lambda: dec.berlekamp_massey(S, u),
-        "Chien (bit-plane product)": lambda: dec.fmatmul(C, K["CH_T"]),
+        "Chien (K15)": lambda: dec.fmatmul(C, K, "CH_T"),
         "Chien, Forney and correction": lambda: dec.finish(x._data, r, C, S, C, v, u, 2 * v > dec.nroots),
         f"one reciprocal of ({x.shape[0]}, {rs.n}) (Forney's shape, K8-A)": lambda: dec.ops.reciprocal(r),
         f"conv_trunc's outer product ({x.shape[0]}, {rs.d - 1}, {rs.d}) (K8, operands by stride)":
@@ -3738,14 +3801,14 @@ def main() -> int:
     dec = make_decoder(ext._meta, ext._mode, bch.field.order, bch.n, bch.n, bch.d, bch.c, int(bch.alpha), False)
     K = dec.consts(dev)
     r = x_b._data.flip(1).to(dec.dt)
-    S = dec.fmatmul(r, K["W"])
+    S = dec.fmatmul(r, K, "W")
     u = torch.zeros(B_b, dtype=torch.int64, device=dev)
     C, v = dec.berlekamp_massey(S, u)
     stages = {
-        "syndromes (bit-plane product)": lambda: dec.fmatmul(r, K["W"]),
+        "syndromes (K15)": lambda: dec.fmatmul(r, K, "W"),
         f"Berlekamp-Massey ({dec.nroots} steps, K8-B)": lambda: dec.berlekamp_massey(S, u),
         "Berlekamp-Massey by the plain torch loop": lambda: berlekamp_massey_scan_plain(dec.ops, S, u, dec.d),
-        "Chien (bit-plane product)": lambda: dec.fmatmul(C, K["CH_T"]),
+        "Chien (K15)": lambda: dec.fmatmul(C, K, "CH_T"),
         "Chien, Forney and correction": lambda: dec.finish(x_b._data, r, C, S, C, v, u, 2 * v > dec.nroots),
     }
     print(
@@ -4079,6 +4142,8 @@ def main() -> int:
         "berlekamp_massey_long": ("cuda", "galois_tpu_torch/csrc/lfsr.cu", "galois_tpu/lfsr.py:281"),
         "gf2_limb_multiply": ("cuda", "galois_tpu_torch/csrc/gf2_limb.cu", "galois_tpu/ops/_kernels.py:1345"),
         "gf2_limb_power": ("cuda", "galois_tpu_torch/csrc/gf2_limb.cu", "galois_tpu/ops/_kernels.py:1345"),
+        # K15: no Pallas kernel behind it; it replaces the decoder's jnp.matmul of bit planes
+        "gf2_linear": ("cuda", "galois_tpu_torch/csrc/gf2_linear.cu", "galois_tpu/ops/_binary_matmul.py:75"),
     }
     kernels = [
         {"name": name, "route": route, "source": src, "replaces": rep, "launches": launches[name], **report[name]}

@@ -101,6 +101,7 @@ class BCH(_CyclicCode):
 
         self._extension_field = extension_field
         self._alpha = alpha
+        self._alpha_int = int(alpha)  # read once: a decode reads nothing back before its counts
         self._c = int(c)
         self._roots = roots
         self._is_primitive = n == extension_field.order - 1
@@ -124,7 +125,7 @@ class BCH(_CyclicCode):
             # src/galois/_codes/_bch.py:726)
             self.d,
             self.c,
-            int(self.alpha),
+            self._alpha_int,
             with_erasures=erasures is not None,
         )
         out, n_errors = decoder(codeword._data, erasures)

@@ -16,11 +16,17 @@ codewords on their device; failures are masks, not early exits:
  9. Forney: E_j = -Omega'(X_j^-1) / Lambda'(X_j^-1) * X_j^(1-c)
 10. correction; n_errors = v, or -1 where decoding failed
 
-The products with constant matrices (syndromes, Gamma's coefficients,
-Chien, Forney) run on bit planes (``ops/_binary_matmul.py``) for GF(2^m)
-and digit planes (``ops/_digit_matmul.py``) for GF(p^m); every other field
-product is ``ops.multiply``, so GF(2^8) decoding launches K8 and GF(2^9)
-(BCH(511)) K7, and GF(2^m) reciprocals and powers (Forney's, Gamma's) K8-A.
+The products with constant matrices (the syndromes' W, Gamma's Vinv_T,
+Chien's CH_T, Forney's CHn_T twice) run for GF(2^m), 2 <= m <= 16, as one
+launch each of kernel K15 (``ops/_gf2_linear.py``, ``csrc/gf2_linear.cu``):
+each constant is expanded once per code into its GF(2)-linear map on the
+host and copied once per device, and the product is the parities of the
+received bits times that map on int8 tensor cores; a constant whose map
+``_gf2_linear.supports`` refuses (past 64 MB) runs on bit planes
+(``ops/_binary_matmul.py``), GF(p^m) on digit planes
+(``ops/_digit_matmul.py``). Every other field product is ``ops.multiply``,
+so GF(2^8) decoding launches K8 and GF(2^9) (BCH(511)) K7, and GF(2^m)
+reciprocals and powers (Forney's, Gamma's) K8-A.
 K8 reads its broadcast operands in place by stride: conv_trunc's (B, lb, la)
 outer product, the derivative's (B, d - 1) times (1, d - 1) and Forney's
 (B, n) times (1, n) launch on views, with no copy.
@@ -28,11 +34,11 @@ The scan (stage 4) is kernel K8-B for GF(2^m) inside
 ``ops/_bm_scan.py::bm_scan_supports`` (m <= 8 with d <= 65, 9 <= m <= 16
 with d <= 33: RS(255,223) and BCH(511,493) among them), on any device (the
 CPU runs its plain version), and elsewhere the plain loop of d - 1 batched
-torch steps. The host constants W, CH, FP, Y, LT and Vinv_T are built once
-per code and copied once to each device. Stages 1, 2-3, 4-5, 6 and 7-10 each
-run inside a span (``_tracing.py``: ``gf.decode.syndromes``,
-``.erasure_locator``, ``.berlekamp_massey``, ``.chien``, ``.forney``), on
-only while a torch profiler runs.
+torch steps. The host constants W, CH, FP, Y, LT and Vinv_T, and K15's
+maps, are built once per code and copied once to each device. Stages 1,
+2-3, 4-5, 6 and 7-10 each run inside a span (``_tracing.py``:
+``gf.decode.syndromes``, ``.erasure_locator``, ``.berlekamp_massey``,
+``.chien``, ``.forney``), on only while a torch profiler runs.
 
 Not carried over from the JAX package: ``jax.jit``, the memory-mapping
 bound of its decoder cache, and the 7-bit int8 planes of the erasure log
@@ -56,6 +62,8 @@ from ..ops._binary_matmul import supports as bin_supports
 from ..ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain, bm_scan_supports, tree_sum
 from ..ops._digit_matmul import digit_matmul
 from ..ops._digit_matmul import supports as dig_supports
+from ..ops._gf2_linear import gf2_linear, linear_map, pack_map
+from ..ops._gf2_linear import supports as linear_supports
 from ..ops._kernels import get_ops
 
 __all__ = ["make_decoder"]
@@ -170,22 +178,35 @@ class _Decoder:
             self.host.update({"LT": LT.astype(np.float64), "Vinv_T": Vinv_T.copy()})
             self.zk = [k for k in range(1, d) if zero_j[k] >= 0]
             self.zj = [zero_j[k] for k in self.zk]
+        # the constants' GF(2)-linear maps in K15's layout, keyed "T_<name>"
+        self.maps = {
+            f"T_{name}": pack_map(linear_map(meta, self.host[name]), meta.degree)
+            for name in ("W", "Vinv_T", "CH_T", "CHn_T")
+            if name in self.host and linear_supports(meta, *self.host[name].shape)
+        }
         self._on = {}
 
     def consts(self, device):
-        """The host constants on ``device`` (storage dtype; LT in float64)."""
+        """The host constants on ``device`` (storage dtype; LT in float64;
+        the maps in int8)."""
         if device not in self._on:
-            self._on[device] = {
+            on = {
                 k: torch.from_numpy(v).to(device=device, dtype=torch.float64 if k == "LT" else self.dt)
                 for k, v in self.host.items()
             }
+            on.update({k: torch.from_numpy(v).to(device) for k, v in self.maps.items()})
+            self._on[device] = on
         return self._on[device]
 
     # ---- batched field helpers ----
 
-    def fmatmul(self, X, M):
-        """(B, K) @ (K, N) with a constant matrix: bit planes for GF(2^m),
-        digit planes for GF(p^m), else a product and a tree of adds."""
+    def fmatmul(self, X, consts, name):
+        """(B, K) @ consts[name], a (K, N) constant of the code: K15 by its
+        map where it has one, else bit planes for GF(2^m), digit planes for
+        GF(p^m), else a product and a tree of adds."""
+        M = consts[name]
+        if f"T_{name}" in consts:
+            return gf2_linear(X, consts[f"T_{name}"], self.meta.degree, M.shape[1])
         K = X.shape[-1]
         if bin_supports(self.meta, K):
             return binary_matmul(self.meta, X, M)
@@ -235,7 +256,7 @@ class _Decoder:
             u = era.sum(dim=1)  # erasure counts
             fail = u > self.nroots
             r_z = torch.where(era, torch.zeros_like(r), r)
-            S = self.fmatmul(r_z, K["W"])  # (B, d - 1)
+            S = self.fmatmul(r_z, K, "W")  # (B, d - 1)
 
         with span("gf.decode.erasure_locator", received):
             # 2. Gamma by evaluation-interpolation: log Gamma(z_k) is linear in
@@ -249,7 +270,7 @@ class _Decoder:
                 vanish = era[:, self.zj]
                 gvals[:, self.zk] = torch.where(vanish, torch.zeros_like(vanish, dtype=self.dt), gvals[:, self.zk])
             gvals[:, 0] = 1  # Gamma(0) = 1
-            gamma = self.fmatmul(gvals, K["Vinv_T"])  # (B, d) ascending coefficients
+            gamma = self.fmatmul(gvals, K, "Vinv_T")  # (B, d) ascending coefficients
             # 3. modified syndromes
             Sp = self.conv_trunc(gamma, S, self.nroots)
 
@@ -266,17 +287,18 @@ class _Decoder:
         B = received.shape[0]
         with span("gf.decode.syndromes", received):
             r = received.flip(1).to(self.dt)
-            S = self.fmatmul(r, self.consts(received.device)["W"])
+            S = self.fmatmul(r, self.consts(received.device), "W")
         with span("gf.decode.berlekamp_massey", received):
             u = torch.zeros(B, dtype=torch.int64, device=r.device)
             C, v = self.berlekamp_massey(S, u)
-        return self.finish(received, r, C, S, C, v, u, 2 * v > self.nroots)
+            fail = 2 * v > self.nroots
+        return self.finish(received, r, C, S, C, v, u, fail)
 
     def finish(self, received, r_z, lam_total, Sp, C, v, u, fail):
         ops, n, K = self.ops, self.n, self.consts(received.device)
         with span("gf.decode.chien", received):
             # 6. Chien search over design_n positions
-            root = self.fmatmul(lam_total, K["CH_T"]) == 0  # (B, design_n)
+            root = self.fmatmul(lam_total, K, "CH_T") == 0  # (B, design_n)
             if self.design_n > n:
                 fail = fail | root[:, n:].any(dim=1)
             root_n = root[:, :n]
@@ -288,8 +310,8 @@ class _Decoder:
             # 8. derivative of Lambda_total: coefficient j - 1 gets (j mod p) lam_total[j]
             lam_prime = ops.multiply(lam_total[:, 1:], K["JMODP"][None, :])
             # 9. Forney at every position i < n, masked by root_n
-            num = self.fmatmul(omega, K["CHn_T"])  # (B, n)
-            den = self.fmatmul(lam_prime, K["CHn_T"])
+            num = self.fmatmul(omega, K, "CHn_T")  # (B, n)
+            den = self.fmatmul(lam_prime, K, "CHn_T")
             fail = fail | (root_n & (den == 0)).any(dim=1)
             E = ops.negative(ops.multiply(ops.multiply(num, ops.reciprocal(den)), K["FP"][None, :]))
             E = torch.where(root_n, E, torch.zeros_like(E))

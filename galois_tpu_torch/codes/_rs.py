@@ -92,6 +92,7 @@ class ReedSolomon(_CyclicCode):
         generator_poly = Poly.Roots(roots)
 
         self._alpha = alpha
+        self._alpha_int = int(alpha)  # read once: a decode reads nothing back before its counts
         self._c = int(c)
         self._roots = roots
         self._is_primitive = n == field.order - 1
@@ -123,7 +124,7 @@ class ReedSolomon(_CyclicCode):
             self.n,
             self.d,
             self.c,
-            int(self.alpha),
+            self._alpha_int,
             with_erasures=erasures is not None,
         )
         out, n_errors = decoder(codeword._data, erasures)

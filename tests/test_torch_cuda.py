@@ -32,6 +32,7 @@ from galois_tpu_torch.ops._elementwise import (
     m31_multiply,
     m31_multiply_plain,
 )
+from galois_tpu_torch.ops._gf2_linear import gf2_linear, gf2_linear_plain, linear_map, pack_map
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops import _charpoly, _linalg
 from galois_tpu_torch.ops._limb_binary import DENSE_MODULI, EDGE_MODULI
@@ -331,26 +332,105 @@ def test_bm_scan_kernel_matches_plain(cuda_device, m, d):
         assert C.shape == (rows, d) and C.dtype == S.dtype and torch.equal(C, Cp) and torch.equal(L, Lp)
 
 
+# The decoder's products with its constants: RS(255,223) over GF(2^8) (W,
+# CH_T, CHn_T, Vinv_T) and BCH(511,493)'s over GF(2^9) (W, CH_T, CHn_T).
+K15_SHAPES = [(2**8, 255, 32), (2**8, 33, 255), (2**8, 32, 255), (2**8, 33, 33),
+              (2**9, 511, 4), (2**9, 5, 511), (2**9, 4, 511)]
+
+
+@pytest.mark.parametrize("rows", [1, 31, 4097, 65536])
+@pytest.mark.parametrize(["q", "k", "n"], K15_SHAPES)
+def test_gf2_linear_matches_plain_at_decoder_shapes(cuda_device, q, k, n, rows):
+    """K15 against its plain version at every decoder shape, bit for bit;
+    at 4097 rows X is a column slice of a wider tensor (rows read at their
+    stride, as conv_trunc's truncation leaves them)."""
+    F = gt.GF(q)
+    meta, m = F._meta, F._meta.degree
+    gen = torch.Generator(device=cuda_device).manual_seed(q + k * n + rows)
+    wide = torch.randint(0, q, (rows, k + 3 * (rows == 4097)), generator=gen, device=cuda_device).to(meta.torch_dtype)
+    x = wide[:, :k]
+    M = np.random.default_rng(k * n).integers(0, q, (k, n))
+    frags = torch.from_numpy(pack_map(linear_map(meta, M), m)).to(cuda_device)
+    launches = gf2_linear.launches
+    got = gf2_linear(x, frags, m, n)
+    torch.cuda.synchronize()
+    assert gf2_linear.launches == launches + 1
+    want = gf2_linear_plain(x.contiguous(), frags, m, n)
+    assert got.dtype == x.dtype and got.shape == (rows, n) and torch.equal(got, want)
+    if rows == 31:
+        assert np.array_equal(np.asarray(F(x.cpu().numpy()) @ F(M)).astype(np.int64), got.cpu().numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("rows", [37, 4097])
+@pytest.mark.parametrize("m", [2, 4, 5, 7, 12, 16])
+def test_gf2_linear_matches_plain_at_other_degrees(cuda_device, m, rows):
+    """K15 against its plain version at the degrees the decoders above do not
+    use: uint8 storage below m = 8 and int64 above, at a code of length
+    min(2^m - 1, 255)'s syndrome and Chien shapes, rows not a multiple of a
+    warp's 32."""
+    F = gt.GF(2**m)
+    meta = F._meta
+    n = min(2**m - 1, 255)
+    d1 = min(n - 1, 8)
+    gen = torch.Generator(device=cuda_device).manual_seed(m * rows)
+    for k, cols in ((n, d1), (d1 + 1, n)):
+        x = torch.randint(0, 2**m, (rows, k), generator=gen, device=cuda_device).to(meta.torch_dtype)
+        x[0] = 2**m - 1
+        M = np.random.default_rng(m + k).integers(0, 2**m, (k, cols))
+        frags = torch.from_numpy(pack_map(linear_map(meta, M), m)).to(cuda_device)
+        launches = gf2_linear.launches
+        got = gf2_linear(x, frags, m, cols)
+        torch.cuda.synchronize()
+        assert gf2_linear.launches == launches + 1
+        assert got.dtype == x.dtype and torch.equal(got, gf2_linear_plain(x, frags, m, cols))
+        if rows == 37:
+            want = np.asarray(F(x.cpu().numpy()) @ F(M)).astype(np.int64)
+            assert np.array_equal(want, got.cpu().numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize(["q", "n", "k"], [(2**4, 15, 9), (2**16, 255, 239)])
+def test_rs_decode_over_other_degrees_on_cuda(cuda_device, q, n, k):
+    """RS over GF(2^4) (uint8 storage, below a byte) and GF(2^16) (int64) on
+    the card: four K15 launches a decode, with and without errors in the
+    rows, and the results equal the CPU's."""
+    rs = gt.ReedSolomon(n, k, field=gt.GF(q))
+    rng = np.random.default_rng(q + n)
+    msg = rng.integers(0, q, (300, k))
+    cw = np.asarray(rs.encode(rs.field.from_numpy(msg, device="cpu"))).astype(np.int64)
+    for i in range(300):
+        pos = rng.choice(n, size=i % (rs.t + 2), replace=False)
+        cw[i, pos] ^= rng.integers(1, q, pos.size)
+    launches = gf2_linear.launches
+    got, e_got = rs.decode(rs.field.from_numpy(cw, device=cuda_device), errors=True)
+    torch.cuda.synchronize()
+    assert gf2_linear.launches == launches + 4
+    want, e_want = rs.decode(rs.field.from_numpy(cw, device="cpu"), errors=True)
+    assert np.array_equal(np.asarray(got), np.asarray(want)) and np.array_equal(e_got, e_want)
+    assert (e_got >= 0).sum() > 200 and (e_got == -1).any()
+
+
 def test_bch_511_493_decode_on_cuda_runs_the_scan_kernel_once(cuda_device):
     """BCH(511,493) (GF(2^9), d = 5) on the card: one K8-B launch per decode
-    and no plain scan; the results equal the CPU's."""
+    and no plain scan, and four K15 launches (syndromes, Chien, Forney's
+    two); the results equal the CPU's."""
     bch = gt.BCH(511, 493)
     rng = np.random.default_rng(9)
     msg = rng.integers(0, 2, (300, bch.k))
     cw = np.asarray(bch.encode(bch.field.from_numpy(msg, device="cpu"))).astype(np.int64)
     for i in range(300):
         cw[i, rng.choice(bch.n, size=i % 5, replace=False)] ^= 1
-    launches = berlekamp_massey_scan.launches
+    launches = berlekamp_massey_scan.launches, gf2_linear.launches
     got, e_got = bch.decode(bch.field.from_numpy(cw, device=cuda_device), errors=True)
     torch.cuda.synchronize()
-    assert berlekamp_massey_scan.launches == launches + 1
+    assert (berlekamp_massey_scan.launches, gf2_linear.launches) == (launches[0] + 1, launches[1] + 4)
     want, e_want = bch.decode(bch.field.from_numpy(cw, device="cpu"), errors=True)
     assert np.array_equal(np.asarray(got), np.asarray(want)) and np.array_equal(e_got, e_want)
 
 
 def test_rs_decode_on_cuda_runs_the_scan_kernel_once(cuda_device):
     """RS(255,223) on the card: one K8-B launch per decode, K8-A for Forney's
-    reciprocal (and the erasure locator's powers), and 4 K8 launches (6 with
+    reciprocal (and the erasure locator's powers), 4 K8 launches (6 with
+    erasures) and 4 K15 launches for the constant products (5 with
     erasures); the results equal the CPU's."""
     rs = gt.ReedSolomon(255, 223)
     rng = np.random.default_rng(6)
@@ -361,12 +441,13 @@ def test_rs_decode_on_cuda_runs_the_scan_kernel_once(cuda_device):
         cw[i, pos] ^= rng.integers(1, 256, pos.size)
     era = np.zeros(cw.shape, dtype=bool)
     era[::4, 5:9] = True
-    for kw, k8, powers in (({}, 4, 1), ({"erasures": era}, 6, 2)):
-        counts = [f.launches for f in (berlekamp_massey_scan, gf2m_power, gf2m_multiply_swar)]
+    kernels = (berlekamp_massey_scan, gf2m_power, gf2m_multiply_swar, gf2_linear)
+    for kw, k8, powers, k15 in (({}, 4, 1, 4), ({"erasures": era}, 6, 2, 5)):
+        counts = [f.launches for f in kernels]
         got, e_got = rs.decode(rs.field.from_numpy(cw, device=cuda_device), errors=True, **kw)
         torch.cuda.synchronize()
-        delta = [f.launches - c for f, c in zip((berlekamp_massey_scan, gf2m_power, gf2m_multiply_swar), counts)]
-        assert delta == [1, powers, k8]
+        delta = [f.launches - c for f, c in zip(kernels, counts)]
+        assert delta == [1, powers, k8, k15]
         want, e_want = rs.decode(rs.field.from_numpy(cw, device="cpu"), errors=True, **kw)
         assert np.array_equal(np.asarray(got), np.asarray(want)) and np.array_equal(e_got, e_want)
 
@@ -1502,9 +1583,13 @@ def test_methods_replay_equal_eager_calls(cuda_device, q):
 
 def test_decode_spans_time_every_stage_on_the_card(cuda_device):
     """Under the profiler, each stage span of a B = 4096 RS(255,223) decode,
-    with and without erasures, carries device time; the stages' stretches
-    of the stream add up to the decode span's own within 10%; no device
-    event bears a span's name."""
+    with and without erasures, carries device time, and the stages' times
+    add up to no more than the decode span's own and 10%. Every device
+    operation that the host launched inside the decode span was launched inside
+    one of its stage spans (the launch found by its correlation id, both on
+    the profiler's host clock), so the stages hold all of the decode's device
+    work whether the card or the host sets the pace. No device event bears a
+    span's name."""
     rs = gt.ReedSolomon(255, 223)
     gen = torch.Generator(device=cuda_device).manual_seed(22)
     msg = rs.field.Random((4096, rs.k), generator=gen, device=cuda_device)
@@ -1512,6 +1597,7 @@ def test_decode_spans_time_every_stage_on_the_card(cuda_device):
     cw._data[::2, 7] ^= 5
     era = torch.zeros(cw.shape, dtype=torch.bool, device=cuda_device)
     era[::3, 100] = True
+    cpu = torch.autograd.DeviceType.CPU
     for kw in ({}, {"erasures": era}):
         rs.decode(cw, errors=True, **kw)  # the constants and kernels, outside the record
         torch.cuda.synchronize()
@@ -1524,10 +1610,23 @@ def test_decode_spans_time_every_stage_on_the_card(cuda_device):
         (call,) = [s for s in recs if s.name == "gf.decode"]
         stages = [s for s in recs if s.parent == call.index]
         assert len(stages) == 5 + bool(kw) and all(s.device_ms > 0 for s in stages + [call])
-        assert abs(sum(s.device_ms for s in stages) - call.device_ms) <= 0.1 * call.device_ms
+        assert sum(s.device_ms for s in stages) <= 1.1 * call.device_ms
         assert all(s.device_ms > 0 for s in recs if s.name == "gf.binary_matmul")
-        on_device = [ev.name() for ev in prof.profiler.kineto_results.events()
-                     if ev.device_type() != torch.autograd.DeviceType.CPU]
+        events = list(prof.profiler.kineto_results.events())
+        host = [ev for ev in events if ev.device_type() == cpu]
+        launch_at = {ev.correlation_id(): ev.start_ns() for ev in host if ev.name().startswith("cu")}
+
+        def stretch(name):
+            (ev,) = [ev for ev in host if ev.name() == name]
+            return ev.start_ns(), ev.start_ns() + ev.duration_ns()
+
+        d0, d1 = stretch("gf.decode")
+        within = [stretch(s.name) for s in stages]
+        launched = [(ev.name(), launch_at.get(ev.correlation_id(), -1)) for ev in events if ev.device_type() != cpu]
+        launched = [(name, t) for name, t in launched if d0 <= t <= d1]
+        assert len(launched) >= 10 + 4 * bool(kw)  # the hand kernels' launches alone
+        assert [name for name, t in launched if not any(s0 <= t <= s1 for s0, s1 in within)] == []
+        on_device = [ev.name() for ev in events if ev.device_type() != cpu]
         assert on_device and not [n for n in on_device if n.startswith("gf.")]
         assert torch.equal(out[0]._data, msg._data)
 

@@ -95,6 +95,35 @@ def test_decode_records_its_stages_in_order(name, erasures):
     assert products == want
 
 
+# torch operators that make no new values: views and casts to the same dtype
+NO_WORK = {"aten::slice", "aten::as_strided", "aten::view", "aten::to", "aten::reshape", "aten::select",
+           "aten::detach", "detach", "aten::resolve_conj", "aten::resolve_neg", "aten::alias"}
+
+
+@pytest.mark.parametrize("erasures", [False, True])
+def test_rs_decode_computes_only_inside_its_stages(erasures):
+    """Every torch operator that computes something in an RS(255,223) decode
+    runs inside one of the decode's stage spans (on the profiler's clock):
+    the stages hold all of the decode's work, so their device times add up
+    to the decode's busy time on a card. The erasures are a tensor on the
+    codeword's device here; a NumPy mask is copied there before the stages."""
+    code, word, era = _words("rs255", erasures)
+    words = code, word, None if era is None else torch.from_numpy(era)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _decode(words)
+    events = list(prof.profiler.kineto_results.events())
+
+    def stretches(name):
+        return [(ev.start_ns(), ev.start_ns() + ev.duration_ns()) for ev in events if ev.name() == name]
+
+    ((d0, d1),) = stretches("gf.decode")
+    within = [st for name in (ERASURE_STAGES if erasures else STAGES) for st in stretches(name)]
+    ops = [ev for ev in events if ev.name().startswith("aten::") and d0 <= ev.start_ns() <= d1]
+    assert len(ops) > 100
+    outside = [ev.name() for ev in ops if not any(s0 <= ev.start_ns() <= s1 for s0, s1 in within)]
+    assert set(outside) <= NO_WORK, outside
+
+
 def test_profiler_events_hold_the_span_names_as_host_ops():
     words = _words("rs255", True)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
