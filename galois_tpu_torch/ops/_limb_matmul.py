@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tf
 
+from .._tracing import span
 from ._limbs import mul_limbs, normalize_limbs
 
 __all__ = ["goldilocks_matmul", "generic_limb_matmul", "limb_matmul", "supports", "supports_any"]
@@ -181,15 +182,17 @@ def _core(ops, a: torch.Tensor, b: torch.Tensor, gold: bool) -> torch.Tensor:
 
     nc = max(32, _CHUNK_BYTES // _bytes_per_column(M, S, W, L) // 32 * 32)
     blocks = []
-    for k0 in range(0, K, kblk):
-        kb = min(kblk, K - k0)
-        kp = -(-kb // 32) * 32  # zero digits on both sides add nothing, biased or not
-        ap = tf.pad(planes(a[:, :, k0 : k0 + kb]), (0, kp - kb))  # (D, M, kp)
-        cs = None
-        if not gold:
-            # prefix sums over the digits of A's row sums, for the corrections
-            cs = torch.cat([torch.zeros_like(ap[:1, :, 0], dtype=torch.int64), ap.sum(dim=2, dtype=torch.int64).cumsum(0)])
-        blocks.append((k0, kb, kp, ap.permute(1, 0, 2).reshape(M, D * kp), cs))
+    with span("gf.limb_matmul.products", a):
+        for k0 in range(0, K, kblk):
+            kb = min(kblk, K - k0)
+            kp = -(-kb // 32) * 32  # zero digits on both sides add nothing, biased or not
+            ap = tf.pad(planes(a[:, :, k0 : k0 + kb]), (0, kp - kb))  # (D, M, kp)
+            cs = None
+            if not gold:
+                # prefix sums over the digits of A's row sums, for the corrections
+                cs = torch.cat([torch.zeros_like(ap[:1, :, 0], dtype=torch.int64),
+                                ap.sum(dim=2, dtype=torch.int64).cumsum(0)])
+            blocks.append((k0, kb, kp, ap.permute(1, 0, 2).reshape(M, D * kp), cs))
 
     out = torch.empty((L, M, N), dtype=torch.uint16, device=dev)
     for n0 in range(0, N, nc):
@@ -197,25 +200,30 @@ def _core(ops, a: torch.Tensor, b: torch.Tensor, gold: bool) -> torch.Tensor:
         ncc = n1 - n0
         cols = torch.zeros((W, M, ncc), dtype=torch.int64, device=dev)
         for k0, kb, kp, a_cat, cs in blocks:
-            bp = planes(b[:, k0 : k0 + kb, n0:n1])  # (D, kb, ncc)
-            # digits D-1..0 side by side, each K-major: (ncc, D * kp)
-            b_rev = tf.pad(bp.flip(0).transpose(1, 2), (0, kp - kb)).permute(1, 0, 2).reshape(ncc, D * kp)
-            diag = torch.empty((S, M, ncc), dtype=torch.int32, device=dev)
-            for s in range(S):
-                j0 = D - 1 - s + lo[s]  # where digit s - lo[s] sits in b_rev
-                int8_matmul(a_cat[:, lo[s] * kp : (hi[s] + 1) * kp], b_rev[:, j0 * kp : (j0 + hi[s] - lo[s] + 1) * kp], out=diag[s])
-            diag = diag.to(torch.int64)
-            if not gold:
-                # true diagonal = P + 128 (colsum A' + rowsum B') + pairs * kb * 128^2
-                rs = torch.cat([torch.zeros_like(bp[:1, 0], dtype=torch.int64), bp.sum(dim=1, dtype=torch.int64).cumsum(0)])
-                CS = cs[i_hi + 1] - cs[i_lo]  # (S, M)
-                RS = rs[i_hi + 1] - rs[i_lo]  # (S, ncc)
-                diag += (CS.unsqueeze(2) + RS.unsqueeze(1)) * 128 + npairs * (kb * 16384)
-            cols.index_add_(0, col, diag << shift)
-            del diag
-        X = normalize_limbs(cols)[0]  # no carry out: W limbs hold the bound
-        del cols
-        out[:, :, n0:n1] = _fold_reduce(ops, X, bound, 4 if gold else 2 * L - 1).to(torch.uint16)
+            with span("gf.limb_matmul.products", a):
+                bp = planes(b[:, k0 : k0 + kb, n0:n1])  # (D, kb, ncc)
+                # digits D-1..0 side by side, each K-major: (ncc, D * kp)
+                b_rev = tf.pad(bp.flip(0).transpose(1, 2), (0, kp - kb)).permute(1, 0, 2).reshape(ncc, D * kp)
+                diag = torch.empty((S, M, ncc), dtype=torch.int32, device=dev)
+                for s in range(S):
+                    j0 = D - 1 - s + lo[s]  # where digit s - lo[s] sits in b_rev
+                    int8_matmul(a_cat[:, lo[s] * kp : (hi[s] + 1) * kp],
+                                b_rev[:, j0 * kp : (j0 + hi[s] - lo[s] + 1) * kp], out=diag[s])
+            with span("gf.limb_matmul.combine", a):
+                diag = diag.to(torch.int64)
+                if not gold:
+                    # true diagonal = P + 128 (colsum A' + rowsum B') + pairs * kb * 128^2
+                    rs = torch.cat([torch.zeros_like(bp[:1, 0], dtype=torch.int64),
+                                    bp.sum(dim=1, dtype=torch.int64).cumsum(0)])
+                    CS = cs[i_hi + 1] - cs[i_lo]  # (S, M)
+                    RS = rs[i_hi + 1] - rs[i_lo]  # (S, ncc)
+                    diag += (CS.unsqueeze(2) + RS.unsqueeze(1)) * 128 + npairs * (kb * 16384)
+                cols.index_add_(0, col, diag << shift)
+                del diag
+        with span("gf.limb_matmul.combine", a):
+            X = normalize_limbs(cols)[0]  # no carry out: W limbs hold the bound
+            del cols
+            out[:, :, n0:n1] = _fold_reduce(ops, X, bound, 4 if gold else 2 * L - 1).to(torch.uint16)
     return out
 
 

@@ -31,6 +31,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .._tracing import span
 from ..fields._array import _ints_to_limbs, _ints_to_storage
 from ..fields._hostfield import get_host_field
 from ..fields._meta import STORAGE_INT, STORAGE_LIMBS, FieldMeta
@@ -416,7 +417,8 @@ class MatmulFFTPlan:
             A = self.sub1.transform(M.transpose(-1, -2)).transpose(-1, -2)
         else:
             A = limb_matmul(self.meta, self.w1, M)
-        B = _multiply_chunked(self.ops, A, self.t)
+        with span("gf.ntt.twiddle", A):
+            B = _multiply_chunked(self.ops, A, self.t)
         C = self.sub2.transform(B) if self.sub2 is not None else limb_matmul(self.meta, B, self.w2)
         return C.transpose(-1, -2).reshape(batch + (self.N,))
 
@@ -464,8 +466,9 @@ def _divide_by_n(cls, out: torch.Tensor, N: int) -> torch.Tensor:
     element N mod p (not the integer representation N)."""
     meta = cls._meta
     n_inv = get_host_field(meta).reciprocal(N % meta.characteristic)
-    n_inv = _ints_to_storage(meta, np.array(n_inv, dtype=object), out.device)
-    return _multiply_chunked(get_ops(meta, kernel_mode(cls)), out, n_inv)
+    with span("gf.ntt.twiddle", out):
+        n_inv = _ints_to_storage(meta, np.array(n_inv, dtype=object), out.device)
+        return _multiply_chunked(get_ops(meta, kernel_mode(cls)), out, n_inv)
 
 
 def field_fft(x, n=None, axis=-1, norm=None):
@@ -477,8 +480,9 @@ def field_fft(x, n=None, axis=-1, norm=None):
     if norm not in (None, "backward", "forward"):
         raise ValueError("Argument 'norm' must be None, 'backward', or 'forward'.")
     N = x.shape[-1] if n is None else int(n)
-    x = _pad_or_trim(x, N)
-    return cls._view(fft_data(cls, x._data, N, scale=(norm == "forward")), x._dtype)
+    with span("gf.ntt", x._data):
+        x = _pad_or_trim(x, N)
+        return cls._view(fft_data(cls, x._data, N, scale=(norm == "forward")), x._dtype)
 
 
 def field_ifft(x, n=None, axis=-1, norm=None):
@@ -489,8 +493,9 @@ def field_ifft(x, n=None, axis=-1, norm=None):
     if norm not in (None, "backward", "forward"):
         raise ValueError("Argument 'norm' must be None, 'backward', or 'forward'.")
     N = x.shape[-1] if n is None else int(n)
-    x = _pad_or_trim(x, N)
-    return cls._view(fft_data(cls, x._data, N, inverse=True, scale=(norm != "forward")), x._dtype)
+    with span("gf.ntt", x._data):
+        x = _pad_or_trim(x, N)
+        return cls._view(fft_data(cls, x._data, N, inverse=True, scale=(norm != "forward")), x._dtype)
 
 
 def _pad_or_trim(x, N: int):
