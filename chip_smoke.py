@@ -69,6 +69,11 @@ Phases, each fatal on failure:
      RS(255,223) and BCH(511,493) decoders' own maps at B = 65536 (seven
      products), against its plain version and the bit-plane product, timed
      beside both and bounded by the map's int8 operations or its bytes.
+     K16 (the Goldilocks limb matmul's combine) on ragged, strided and
+     accumulated calls and at the 2^24 LDE side's chunk shape (4096 rows by
+     the chunk width _core takes there), against its plain version, timed
+     beside it and bounded by its bytes (19 int32 read and 4 uint16 written
+     an element).
      K7, K8, K8-A and K8-B are bounded by their bytes and, for the table
      forms, their shared-memory reads (wavefronts at one a clock per SM);
      the integer operations of K7's and K8-B's own forms, at the int32 rate
@@ -1861,11 +1866,12 @@ def launch_counters():
     from galois_tpu_torch.ops._gf2_linear import gf2_linear
     from galois_tpu_torch.ops._lfsr_scan import berlekamp_massey_long, lfsr_step
     from galois_tpu_torch.ops._limb_binary import gf2_limb_multiply, gf2_limb_power
+    from galois_tpu_torch.ops._limb_matmul import goldilocks_combine
     from galois_tpu_torch.ops._plane_matmul import plane_matmul_data_left, plane_matmul_data_right
 
     return (
         plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply, gf2m_multiply_swar,
-        gf2m_power, berlekamp_massey_scan, gf2_linear,
+        gf2m_power, berlekamp_massey_scan, gf2_linear, goldilocks_combine,
         _lookup.lookup_multiply, _lookup.lookup_divide, _lookup.lookup_reciprocal, _lookup.lookup_log,
         m31_multiply, goldilocks_multiply, device_probe,
         lfsr_step, berlekamp_massey_long, gf2_limb_multiply, gf2_limb_power,
@@ -1879,8 +1885,9 @@ PARALLEL = {"p": 2**24, "bls": 2**24, "gold": 2**22, "batch": (32, 2**20), "rs":
 # the kernels each rank of the four-rank run must launch, and the one-rank run
 PARALLEL_NEEDED = {
     4: ("plane_matmul_data_right", "plane_matmul_data_left", "gf2m_multiply", "gf2m_multiply_swar", "gf2m_power",
-        "berlekamp_massey_scan", "m31_multiply", "goldilocks_multiply"),
-    1: ("plane_matmul_data_right", "plane_matmul_data_left", "gf2m_multiply_swar", "goldilocks_multiply"),
+        "berlekamp_massey_scan", "m31_multiply", "goldilocks_multiply", "goldilocks_combine"),
+    1: ("plane_matmul_data_right", "plane_matmul_data_left", "gf2m_multiply_swar", "goldilocks_multiply",
+        "goldilocks_combine"),
 }
 PARALLEL_RANKS, PARALLEL_TIMEOUT_S = 4, 600
 
@@ -2531,6 +2538,8 @@ def main() -> int:
     from galois_tpu_torch.ops._bm_scan import berlekamp_massey_scan, berlekamp_massey_scan_plain
     from galois_tpu_torch.ops._binary_matmul import binary_matmul
     from galois_tpu_torch.ops._gf2_linear import gf2_linear, gf2_linear_plain
+    from galois_tpu_torch.ops import _limb_matmul
+    from galois_tpu_torch.ops._limb_matmul import goldilocks_combine, goldilocks_combine_plain
     from galois_tpu_torch.ops._elementwise import (
         device_probe,
         device_probe_plain,
@@ -2585,6 +2594,7 @@ def main() -> int:
 
     sources = (
         "plane_matmul", "lookup", "prime_mul", "probe", "gf2m_swar", "gf2m_chain", "gf2_limb", "lfsr", "gf2_linear",
+        "gold_combine",
     )
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -3011,6 +3021,62 @@ def main() -> int:
             )
             del x, got
     del lin_decoders, K_lin, frags
+    torch.cuda.empty_cache()
+
+    # K16: the Goldilocks limb matmul's combine at the 2^24 LDE side's chunk shape (side 1: M = K =
+    # 4096, by the chunk width _core takes there); ragged, strided and accumulated calls. Each against
+    # the plain version on the same card tensors, exactly; timed by graph replay beside the plain
+    # version (eager, over the whole chunk in slices of 2048 columns) and the bound: 19 int32 read and
+    # 4 uint16 written an element.
+    ops_g = get_ops(gt.GF(GOLDILOCKS)._meta, "jit-calculate")
+    highs_g = [(min(s, 9) - max(0, s - 9) + 1) * 127**2 * _limb_matmul._MAX_BLOCK_K for s in range(19)]
+
+    def gold_diag(rows, cols):
+        return torch.stack([torch.randint(0, h + 1, (rows, cols), generator=gen, device=dev).to(torch.int32)
+                            for h in highs_g])
+
+    rows_g = 4096
+    cols_g = _limb_matmul._chunk_columns(_limb_matmul._gold_bytes_per_column(rows_g, 4096))
+    for (rows, cols, acc) in ((33, 1000, False), (1000, 33, True), (1, 1, True), (rows_g, 1000, True)):
+        d = gold_diag(rows, cols)
+        wide = torch.randint(0, 2**16, (4, rows, cols + 40), generator=gen, device=dev)
+        wide[3] %= 2**15  # canonical residues to accumulate into
+        wide = wide.to(torch.uint16)
+        out, want = wide[:, :, 8 : 8 + cols], wide[:, :, 8 : 8 + cols].clone()
+        goldilocks_combine(ops_g, d, out, accumulate=acc)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, goldilocks_combine_plain(ops_g, d, want, accumulate=acc))
+        record("goldilocks_combine", err)
+        print(f"[kernel] K16 goldilocks_combine ({rows}, {cols}) into a view of rows {cols + 40} long, accumulate "
+              f"{acc}: max_abs_err {err}", flush=True)
+        if err:
+            raise AssertionError(f"K16 disagrees with its plain version at ({rows}, {cols}), accumulate {acc}")
+    d = gold_diag(rows_g, cols_g)
+    out = torch.empty((4, rows_g, cols_g), dtype=torch.uint16, device=dev)
+    goldilocks_combine(ops_g, d, out)
+    torch.cuda.synchronize()
+    want = torch.empty_like(out)
+
+    def gold_plain():  # the plain version's int64 columns in slices
+        for j in range(0, cols_g, 2048):
+            goldilocks_combine_plain(ops_g, d[:, :, j : j + 2048], want[:, :, j : j + 2048])
+
+    gold_plain()
+    err = max_abs_err(out, want)
+    record("goldilocks_combine", err)
+    if err:
+        raise AssertionError(f"K16 disagrees with its plain version at ({rows_g}, {cols_g})")
+    ms = graph_ms(lambda: goldilocks_combine(ops_g, d, out), 20)
+    plain_ms = cuda_ms(gold_plain, 2)
+    bnd = bound(rows_g * cols_g * (19 * 4 + 4 * 2))
+    record("goldilocks_combine", 0, ms, plain_ms, bnd)
+    print(
+        f"[kernel] K16 goldilocks_combine (19, {rows_g}, {cols_g}) int32 -> (4, {rows_g}, {cols_g}) uint16, the 2^24 "
+        f"side's chunk: max_abs_err {err} | kernel {ms:.4f} ms by graph replay | plain {plain_ms:.3f} ms (eager, "
+        f"2048 columns at a time) | bound {bnd[0]:.4f} ms ({bnd[1]}), the kernel at {bnd[0] / ms:.0%}",
+        flush=True,
+    )
+    del d, out, want
     torch.cuda.empty_cache()
 
     # K1/K2: the prologue and both sides against their plain versions at the
@@ -3997,7 +4063,7 @@ def main() -> int:
             # row-major beside it
             from galois_tpu_torch.ops import _limb_matmul
 
-            nc = max(32, _limb_matmul._CHUNK_BYTES // _limb_matmul._bytes_per_column(4096, 63, 34, 16) // 32 * 32)
+            nc = _limb_matmul._chunk_columns(_limb_matmul._bytes_per_column(4096, 63, 34, 16))
             ga = torch.randint(-128, 128, (4096, 32 * 2048), generator=gen, device=dev, dtype=torch.int8)
             gbt = torch.randint(-128, 128, (nc, 32 * 2048), generator=gen, device=dev, dtype=torch.int8)
             gb = gbt.t().contiguous()
@@ -4069,7 +4135,7 @@ def main() -> int:
     _ntt._plan.cache_clear()
     torch.cuda.empty_cache()
     read_counts(5, (plane_matmul_data_right, plane_matmul_data_left, gf2m_multiply_swar, gf2m_multiply,
-                    m31_multiply, goldilocks_multiply))
+                    m31_multiply, goldilocks_multiply, goldilocks_combine))
 
     # -- 9. main path 6: linear algebra over GF(q) on the card ------------------
     for fn in counters:
@@ -4144,6 +4210,8 @@ def main() -> int:
         "gf2_limb_power": ("cuda", "galois_tpu_torch/csrc/gf2_limb.cu", "galois_tpu/ops/_kernels.py:1345"),
         # K15: no Pallas kernel behind it; it replaces the decoder's jnp.matmul of bit planes
         "gf2_linear": ("cuda", "galois_tpu_torch/csrc/gf2_linear.cu", "galois_tpu/ops/_binary_matmul.py:75"),
+        # K16: no Pallas kernel behind it; it replaces the jnp combine of the Goldilocks limb matmul
+        "goldilocks_combine": ("cuda", "galois_tpu_torch/csrc/gold_combine.cu", "galois_tpu/ops/_limb_matmul.py:101"),
     }
     kernels = [
         {"name": name, "route": route, "source": src, "replaces": rep, "launches": launches[name], **report[name]}

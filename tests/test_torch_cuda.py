@@ -36,7 +36,8 @@ from galois_tpu_torch.ops._gf2_linear import gf2_linear, gf2_linear_plain, linea
 from galois_tpu_torch.ops._kernels import get_ops
 from galois_tpu_torch.ops import _charpoly, _linalg
 from galois_tpu_torch.ops._limb_binary import DENSE_MODULI, EDGE_MODULI
-from galois_tpu_torch.ops._limb_matmul import int8_matmul
+from galois_tpu_torch.ops import _limb_matmul
+from galois_tpu_torch.ops._limb_matmul import goldilocks_combine, goldilocks_combine_plain, int8_matmul
 from galois_tpu_torch.ops._linalg import balanced_planes_np
 from galois_tpu_torch.ops._lookup import (
     SMEM_MAX_ORDER,
@@ -885,6 +886,172 @@ def test_limb_matmul_on_cuda_matches_cpu(cuda_device, p):
     full = F(np.full((3, K), p - 1, dtype=object), device=cuda_device)
     got = np.asarray(full @ full.T, dtype=object)
     assert all(int(v) == K % p for v in got.reshape(-1))
+
+
+# K16, the Goldilocks combine: the LDE's chunks (M rows by the width _core
+# takes at M and K, up to the LDE side's N), ragged rows and columns, an
+# output view with a longer row, the largest diagonals, and K past one block.
+GOLD_CHUNK_SHAPES = [(2048, 2048, 16384), (4096, 4096, 16384), (8192, 4096, 4096), (16384, 4096, 4096)]
+GOLD_S = 19
+
+
+def _gold_highs():
+    """The largest sum of each diagonal: its digit pairs times 127^2 times
+    the longest K block."""
+    return [(min(s, 9) - max(0, s - 9) + 1) * 127**2 * _limb_matmul._MAX_BLOCK_K for s in range(GOLD_S)]
+
+
+def _gold_diagonals(rows, cols, seed, device):
+    """(19, rows, cols) int32, diagonal s uniform in [0, its largest]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.stack([
+        torch.randint(0, h + 1, (rows, cols), generator=g, device=device, dtype=torch.int64).to(torch.int32)
+        for h in _gold_highs()
+    ])
+
+
+def _gold_host(diag, m, j, prev=0):
+    return (prev + sum(int(diag[s, m, j]) << (7 * s) for s in range(GOLD_S))) % GOLDILOCKS
+
+
+def _gold_values(out):
+    """(4, rows, cols) uint16 limbs -> (rows, cols) Python ints."""
+    limbs = out.cpu().to(torch.int64).numpy().astype(object)
+    return limbs[0] + (limbs[1] << 16) + (limbs[2] << 32) + (limbs[3] << 48)
+
+
+def _gold_ops():
+    return get_ops(gt.GF(GOLDILOCKS)._meta, "jit-calculate")
+
+
+@pytest.mark.parametrize("rows,k,n", GOLD_CHUNK_SHAPES)
+def test_gold_combine_matches_plain_at_lde_chunks(cuda_device, rows, k, n):
+    ops = _gold_ops()
+    cols = min(n, _limb_matmul._chunk_columns(_limb_matmul._gold_bytes_per_column(rows, k)))
+    diag = _gold_diagonals(rows, cols, rows + cols, cuda_device)
+    launches = goldilocks_combine.launches
+    got = goldilocks_combine(ops, diag, torch.empty((4, rows, cols), dtype=torch.uint16, device=cuda_device))
+    assert goldilocks_combine.launches == launches + 1
+    want = torch.empty_like(got)
+    for j in range(0, cols, 1024):  # the plain version's int64 columns in slices
+        goldilocks_combine_plain(ops, diag[:, :, j : j + 1024], want[:, :, j : j + 1024])
+    assert torch.equal(got, want)
+    vals = _gold_values(got[:, :: rows // 8, :: cols // 8])
+    for (a, b), v in np.ndenumerate(vals):
+        assert v == _gold_host(diag, a * (rows // 8), b * (cols // 8))
+
+
+@pytest.mark.parametrize("rows", [1, 33, 1000])
+@pytest.mark.parametrize("cols", [1, 33, 1000])
+def test_gold_combine_ragged_strided_and_accumulated(cuda_device, rows, cols):
+    """A fresh output; a view one column into rows 37 columns longer; and
+    the same again with accumulate, on top of what the first call wrote."""
+    ops = _gold_ops()
+    diag = _gold_diagonals(rows, cols, 7 * rows + cols, cuda_device)
+    more = _gold_diagonals(rows, cols, 7 * rows + cols + 1, cuda_device)
+    wide = torch.zeros((4, rows, cols + 37), dtype=torch.uint16, device=cuda_device)
+    for out in (torch.empty((4, rows, cols), dtype=torch.uint16, device=cuda_device), wide[:, :, 1 : 1 + cols]):
+        got = goldilocks_combine(ops, diag, out)
+        want = goldilocks_combine_plain(ops, diag, torch.empty_like(got))
+        assert got.data_ptr() == out.data_ptr() and torch.equal(got, want)
+        first = _gold_values(got)
+        goldilocks_combine(ops, more, out, accumulate=True)
+        assert torch.equal(out, goldilocks_combine_plain(ops, more, want, accumulate=True))
+        for m, j in {(0, 0), (rows - 1, cols - 1), (rows // 2, cols // 3)}:
+            assert _gold_values(out)[m, j] == _gold_host(more, m, j, first[m, j])
+    rest = wide.to(torch.int32)  # uint16 has no any() on CUDA
+    assert not rest[:, :, 0].any() and not rest[:, :, 1 + cols :].any()
+
+
+def test_gold_combine_largest_diagonals(cuda_device):
+    """Every diagonal at its largest (every digit 127 over a full block) and
+    at 2^31 - 1, on the vector and the scalar path."""
+    ops = _gold_ops()
+    for highs in (_gold_highs(), [2**31 - 1] * GOLD_S):
+        want = sum(h << (7 * s) for s, h in enumerate(highs)) % GOLDILOCKS
+        for rows, cols in ((64, 256), (5, 7)):
+            diag = torch.tensor(highs, dtype=torch.int32, device=cuda_device).reshape(GOLD_S, 1, 1)
+            diag = diag.expand(GOLD_S, rows, cols).contiguous()
+            got = goldilocks_combine(ops, diag, torch.empty((4, rows, cols), dtype=torch.uint16, device=cuda_device))
+            assert torch.equal(got, goldilocks_combine_plain(ops, diag, torch.empty_like(got)))
+            assert set(_gold_values(got).reshape(-1)) == {want}
+            twice = goldilocks_combine(ops, diag, got, accumulate=True)
+            assert set(_gold_values(twice).reshape(-1)) == {2 * want % GOLDILOCKS}
+
+
+def test_gold_combine_past_one_block_through_matmul(cuda_device):
+    """K = _MAX_BLOCK_K + 5 through the public @: two blocks, the second
+    accumulated; every entry p - 1 gives K mod p, random entries the CPU's."""
+    F = gt.GF(GOLDILOCKS)
+    K = _limb_matmul._MAX_BLOCK_K + 5
+    full = F(np.full((3, K), GOLDILOCKS - 1, dtype=object), device=cuda_device)
+    launches = goldilocks_combine.launches
+    got = np.asarray(full @ full.T, dtype=object)
+    assert goldilocks_combine.launches == launches + 2
+    assert all(int(v) == K % GOLDILOCKS for v in got.reshape(-1))
+    a, b = F.Random((4, K), seed=5, device="cpu"), F.Random((K, 40), seed=6, device="cpu")
+    got = F(a._data, device=cuda_device) @ F(b._data, device=cuda_device)
+    assert torch.equal(got._data.cpu(), (a @ b)._data)
+
+
+def test_gold_matmul_few_rows_long_k_wide_n_within_the_chunk_budget(cuda_device):
+    """(64, 4096) @ (4096, 2^18): B's digit planes, not the diagonals, set
+    the chunk here. The product's peak memory beyond its operands stays
+    within _CHUNK_BYTES and the output, and sampled columns equal the CPU's.
+    The operands are limbs of values below 2^63 drawn on the card a limb at
+    a time (Random's rejection draws would take tens of GB at this size)."""
+    meta = gt.GF(GOLDILOCKS)._meta
+    M, K, N = 64, 4096, 2**18
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+
+    def limbs(rows, cols):
+        x = torch.empty((4, rows, cols), dtype=torch.uint16, device=cuda_device)
+        for i in range(4):
+            x[i] = torch.randint(0, 2**15 if i == 3 else 2**16, (rows, cols), generator=gen, device=cuda_device)
+        return x
+
+    a, b = limbs(M, K), limbs(K, N)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    launches = goldilocks_combine.launches
+    c = _limb_matmul.goldilocks_matmul(meta, a, b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    nc = _limb_matmul._chunk_columns(_limb_matmul._gold_bytes_per_column(M, K))
+    assert goldilocks_combine.launches == launches + -(-N // nc)
+    assert peak <= _limb_matmul._CHUNK_BYTES + c.nbytes + 2**26, peak
+    cols = torch.tensor([0, 1, nc - 1, nc, N // 2 + 7, N - 1], device=cuda_device)
+
+    def pick(x):  # uint16 takes no index tensor on CUDA; its int16 view does
+        return x.view(torch.int16)[..., cols].cpu().view(torch.uint16)
+
+    assert torch.equal(pick(c), _limb_matmul.goldilocks_matmul(meta, a.cpu(), pick(b)))
+
+
+def test_gold_combine_wrapper_checks_and_counts(cuda_device):
+    ops = _gold_ops()
+    diag = _gold_diagonals(8, 16, 3, cuda_device)
+    out = torch.empty((4, 8, 16), dtype=torch.uint16, device=cuda_device)
+    bad = [
+        (diag.to(torch.int64), out),  # dtype
+        (diag[:18], out),  # 18 diagonals
+        (diag, out[:, :7]),  # rows
+        (diag, out.to(torch.int32)),  # out's dtype
+        (diag, out.cpu()),  # out's device
+        (diag.transpose(1, 2).contiguous().transpose(1, 2), out),  # columns not side by side
+    ]
+    launches = goldilocks_combine.launches
+    for d, o in bad:
+        with pytest.raises(ValueError):
+            goldilocks_combine(ops, d, o)
+    assert goldilocks_combine.launches == launches
+    goldilocks_combine(ops, diag[:, :0], out[:, :0])  # nothing to do: no launch
+    assert goldilocks_combine.launches == launches
+    for _ in range(3):
+        goldilocks_combine(ops, diag, out)
+    torch.cuda.synchronize()
+    assert goldilocks_combine.launches == launches + 3
 
 
 @pytest.mark.parametrize("p", [GOLDILOCKS, BLS_R])
